@@ -1,0 +1,142 @@
+"""Named model presets wiring physics and networks into models.
+
+Port of ``ModelFactory`` and its ``highres32`` preset from
+``generative_physics_informed_pde_tpu/factories/model.py``, for what the
+serving slice builds: the fom/rom physics, the encoder, gp and g.  The
+decoder and the other presets wait for later slices.  Weights are random,
+drawn from an explicit ``torch.Generator``; trained weights come in
+through ``convert.py``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..fem.physics import make_fom_rom_pair
+from ..models.codec import BatchNorm
+from ..models.components import (EffectivePropertyMap,
+                                 ReducedOrderModelOperator)
+from ..models.encoder import CNNEncoder
+from ..models.generative import DiscriminativeModel, GenerativeModel
+from ..utils.device import resolve_device
+
+
+def fetch_dtype(dtype: str) -> torch.dtype:
+    d = dtype.lower()
+    if d == "float32":
+        return torch.float32
+    if d in ("float64", "double"):
+        return torch.float64
+    raise ValueError(f"dtype option not recognized: {dtype}")
+
+
+@torch.no_grad()
+def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded init in the spirit of Flax's defaults: conv and dense kernels
+    normal with std 1/sqrt(fan_in), biases zero, BatchNorm scale one and
+    bias zero with running stats (0, 1); other parameters keep their
+    constructor values (the logsigmas start at one)."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            fan_in = m.weight[0].numel()
+            w = torch.randn(m.weight.shape, generator=generator,
+                            dtype=torch.float64) / math.sqrt(fan_in)
+            m.weight.copy_(w)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, BatchNorm):
+            m.reset_parameters()
+    return module
+
+
+class ModelFactory:
+    """Base factory: a parameter dict with ``set`` overrides."""
+
+    def __init__(self, **kwargs):
+        self.params = {
+            "independent_X": True,
+            "ptype": None,
+            "dim_latent": None,
+            "dtype": None,
+            "nx_rom": None,
+            "ny_rom": None,
+            "eff_property_map_hidden_layers": None,
+            "num_refines": None,
+            "use_encoder": True,
+        }
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return fetch_dtype(self.params["dtype"])
+
+    def set(self, *args):
+        """Single-key or dict override."""
+        if len(args) == 1 and isinstance(args[0], dict):
+            for key, val in args[0].items():
+                if key not in self.params:
+                    raise KeyError(key)
+                self.params[key] = val
+        elif len(args) == 2 and isinstance(args[0], str):
+            if args[0] not in self.params:
+                raise KeyError(args[0])
+            self.params[args[0]] = args[1]
+        else:
+            raise ValueError
+
+    def _gp(self, key):
+        value = self.params[key]
+        if value is None:
+            raise ValueError(f"parameter {key} is unset")
+        return value
+
+    def _setup_physics(self, device):
+        return make_fom_rom_pair(self._gp("ptype"), self._gp("nx_rom"),
+                                 self._gp("ny_rom"), self._gp("num_refines"),
+                                 device=device)
+
+    def _closure(self, physics, encoder, latent_dim, device, generator):
+        g = ReducedOrderModelOperator.from_physics(physics)
+        gp = EffectivePropertyMap(
+            latent_dim=latent_dim,
+            dim_effective_property=g.dim_effective_property,
+            num_hidden_layers=self._gp("eff_property_map_hidden_layers"),
+            independent_X=self.params["independent_X"])
+        model = GenerativeModel(g=g, gp=gp, encoder=encoder)
+        init_weights_(model, generator)
+        model.to(device=device, dtype=self.dtype).eval()
+        return physics, model, DiscriminativeModel(model), encoder, self.dtype
+
+    def setup(self, device="cuda", generator=None):
+        raise NotImplementedError
+
+
+class highres32(ModelFactory):
+    """32x32 FOM / 4x4 ROM on 'NDP' -- the example-notebook recipe."""
+
+    def __init__(self, **kwargs):
+        super().__init__()
+        self.params.update(
+            ptype="NDP", dim_latent=16, dtype="float32", nx_rom=4, ny_rom=4,
+            eff_property_map_hidden_layers=0, num_refines=3)
+        self.set(kwargs)
+
+    def setup(self, device="cuda", generator: Optional[torch.Generator] = None):
+        """-> (physics, model, discriminative, encoder, dtype) on
+        ``device``, weights drawn from ``generator`` (default seed 0)."""
+        device = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        physics = self._setup_physics(device)
+        target = self._gp("nx_rom") * 2 ** self._gp("num_refines")
+        encoder = CNNEncoder(imsize=target,
+                             latent_dim=self._gp("dim_latent"),
+                             blocks=(1, 1), growth_rate=4, init_features=4)
+        if not self.params["use_encoder"]:
+            encoder = None
+        return self._closure(physics, encoder, self._gp("dim_latent"),
+                             device, generator)
+

@@ -1,0 +1,5 @@
+"""Small helpers shared across the port."""
+
+from .device import resolve_device
+
+__all__ = ["resolve_device"]
