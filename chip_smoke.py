@@ -3,21 +3,29 @@
 
     python3 chip_smoke.py
 
-Drives the port's highres32 slice the way a user does: label the 1024
+Drives the port's highres32 paths the way a user does: label the 1024
 fields of ``cdata/highres32.labeled.npz`` (read-only) through the batched
-Jacobi-PCG solve, whose stencil applies run on the hand-written CUDA kernel
-``ops/csrc/stencil.cu``, then answer requests with the surrogate through
-pad-to-bucket ``SurrogateBundle.predict``.  The kernel is built from the
-sources (``nvcc`` into ``build/torch_kernels/``) and held against its plain
-PyTorch version on the card; the labels are checked against residuals
-recomputed with the plain apply, an f64 solve and a dense direct solve.
-Every phase raises on failure, so the script exits non-zero and never
-prints its last line.  Imports torch, numpy, the standard library and the
-port only.
+Jacobi-PCG solve on the hand-written CUDA kernel ``ops/csrc/stencil.cu``
+(K1), answer requests with the surrogate through pad-to-bucket
+``SurrogateBundle.predict``, label the same pool with the symmetric 4-grid
+solve on ``ops/csrc/stencil_sym.cu`` (K2), differentiate the solve through
+its implicit-function VJP in both forms, and train the highres32 recipe
+for 200 SVI steps (128 labeled pairs labeled through K1, 1024 unlabeled
+fields from the port's random field, normals drawn on the host from a
+seeded generator and coloured on the card), then serve the
+trained surrogate.  Both kernels are built from the sources (``nvcc`` into
+``build/torch_kernels/``) and held against their plain PyTorch versions on
+the card; the labels are checked against residuals recomputed with the
+plain apply, f64 solves and a dense direct solve, the gradients against
+the plain path and finite differences, and the training against the
+recipe's expectations and a CPU run of three f64 steps with the same
+draws.  Every phase raises on failure, so the script exits non-zero and
+never prints its last line.  Imports torch, numpy, the standard library
+and the port only.
 
 Output: progress lines, the card's name and power limit as nvidia-smi
 prints them, one ``{"kernels": [...]}`` line with each kernel's launches on
-the main path, error against its plain version and times, and as the last
+the main paths, error against its plain version and times, and as the last
 line ``{"ok": true, "device": {...}}``.
 """
 
@@ -57,6 +65,18 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12     # H100 SXM, f32 outside the tensor cores
 
 REQUEST_SIZES = (1, 7, 64, 300, 1024)
+
+# The implicit-function VJP (f64, B=1024): kernel path vs plain path on the
+# card (identical applies, identical iterates), K1 vs K2 form (two solves
+# to 1e-10 that differ by rounding), and a central finite difference of the
+# loss along one seeded direction (step 1e-4 on solves to 1e-12: truncation
+# and solver noise both ~1e-8 of the derivative).
+VJP_PATH_RTOL, VJP_FORM_RTOL, VJP_FD_RTOL = 1e-12, 1e-8, 1e-6
+FD_STEP, FD_TOL = 1e-4, 1e-12
+# Three f64 SVI steps on the card vs on the CPU (plain path), same draws:
+# cuDNN and the CPU convolutions sum in another order.
+SVI_CPU_RTOL = 1e-8
+SVI_STEPS = 200
 
 
 def say(msg: str) -> None:
@@ -107,7 +127,9 @@ def cuda_time_ms(fn, reps: int, flush=None) -> float:
 def device_profile(fn):
     """Run ``fn`` once under torch.profiler: (device busy ms, wall ms,
     [(kernel name, ms, calls)] largest first).  Busy time is the sum of
-    kernel times; kernels of one stream do not overlap."""
+    kernel and copy times (kernels of one stream do not overlap); ranges
+    that annotate the device timeline (``Optimizer.step#...``) overlap the
+    kernels they contain and are left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -120,7 +142,8 @@ def device_profile(fn):
         wall = 1e3 * (time.perf_counter() - t0)
     kernels = {}
     for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        if ev.device_type == torch.autograd.DeviceType.CUDA \
+                and not getattr(ev, "is_user_annotation", False):
             ms, n = kernels.get(ev.name, (0.0, 0))
             kernels[ev.name] = (ms + ev.device_time / 1e3, n + 1)
     rows = sorted(((k, ms, n) for k, (ms, n) in kernels.items()),
@@ -128,14 +151,15 @@ def device_profile(fn):
     return sum(r[1] for r in rows), wall, rows
 
 
-def stencil_inputs(op, profile, B, dtype, gen):
+def stencil_inputs(op, profile, B, dtype, gen, sym=False):
     import torch
 
     grid = op.grid
     Ny, Nx = grid.ny + 1, grid.nx + 1
     alphas = torch.exp(torch.randn(B, grid.n_cells, generator=gen,
                                    dtype=torch.float64)).to(dtype).cuda()
-    coefs = op.coefficients(alphas).permute(1, 2, 3, 0).contiguous()
+    c = op.coefficients_sym(alphas) if sym else op.coefficients(alphas)
+    coefs = c.permute(1, 2, 3, 0).contiguous()
     v = torch.randn(Ny, Nx, B, generator=gen, dtype=torch.float64
                     ).to(dtype).cuda()
     mask = torch.as_tensor(profile.free_mask.reshape(Ny, Nx, 1),
@@ -170,22 +194,131 @@ def true_residual(fom, Y, alphas, vals, apply_plain):
 
 
 class plain_applies:
-    """Route the batched solver's stencil applies through the plain
-    PyTorch version for the duration of a ``with`` block."""
+    """Route the batched solver's stencil applies (both forms) through
+    their plain PyTorch versions for the duration of a ``with`` block."""
 
     def __enter__(self):
         from generative_physics_informed_pde_tpu_torch.fem import \
             batched_solver
-        from generative_physics_informed_pde_tpu_torch.ops import \
-            apply_stencil_reference
+        from generative_physics_informed_pde_tpu_torch.ops import (
+            apply_stencil_reference, apply_stencil_sym_reference)
 
         self.mod = batched_solver
-        self.saved = batched_solver.apply_stencil
+        self.saved = (batched_solver.apply_stencil,
+                      batched_solver.apply_stencil_sym)
         batched_solver.apply_stencil = apply_stencil_reference
+        batched_solver.apply_stencil_sym = apply_stencil_sym_reference
         return self
 
     def __exit__(self, *exc):
-        self.mod.apply_stencil = self.saved
+        self.mod.apply_stencil, self.mod.apply_stencil_sym = self.saved
+
+
+class injected_draws:
+    """Replace the port's samplers (posterior draws, reparametrised draws,
+    minibatch indices) with numpy draws from ``seed`` in call order, on
+    the device of the tensors they feed, for a ``with`` block: two blocks
+    with one seed give a CPU and a card run the same randomness."""
+
+    def __init__(self, seed: int):
+        self.seed = seed
+
+    def __enter__(self):
+        import numpy as np
+        import torch
+        from generative_physics_informed_pde_tpu_torch.inference import \
+            variational
+        from generative_physics_informed_pde_tpu_torch.models import \
+            generative
+        from generative_physics_informed_pde_tpu_torch.training import \
+            trainer
+
+        rng = np.random.default_rng(self.seed)
+
+        def normal(like):
+            return torch.as_tensor(rng.standard_normal(tuple(like.shape)),
+                                   dtype=like.dtype, device=like.device)
+
+        def sample(params, generator=None):
+            return params["mean"] + torch.exp(params["logsigma"]) \
+                * normal(params["logsigma"])
+
+        def reparametrize(generator, mean, logsigma):
+            return mean + torch.exp(logsigma) * normal(logsigma)
+
+        def minibatch_indices(generator, num_data, batch_size,
+                              device=None):
+            return torch.as_tensor(rng.permutation(num_data)[:batch_size],
+                                   device=device)
+
+        self.targets = ((variational, "sample", sample),
+                        (generative, "reparametrize", reparametrize),
+                        (trainer, "minibatch_indices", minibatch_indices))
+        self.saved = [getattr(m, n) for m, n, _ in self.targets]
+        for m, n, f in self.targets:
+            setattr(m, n, f)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n, _), f in zip(self.targets, self.saved):
+            setattr(m, n, f)
+
+
+def recipe_params(dtype: str = "float32"):
+    """The highres32 recipe of examples/train_highres32.py (no virtual
+    observables), with the pool cut to 128 labeled + 128 validation pairs
+    and 1024 unlabeled fields."""
+    from generative_physics_informed_pde_tpu_torch.training import (
+        TrainerParameters)
+
+    p = TrainerParameters()
+    p.identifier = "highres32"
+    p.margs.update(dim_latent=16, ptype="NDP", dtype=dtype)
+    p.trainer.update(lr_init=1e-2, N_PE_updates=3, N_PE_interval=8,
+                     N_monte_carlo_analysis=64,
+                     N_monte_carlo_analysis_final=1024,
+                     N_monitor_interval=100, N_PE_updates_final=250)
+    p.scheduler = {"milestones": [250, 1500], "factor": 0.1 ** 0.5}
+    p.data.update(N_u=1024, N_s=128, N_u_max=1024, N_s_max=128, N_val=128,
+                  armortized_bs=64)
+    return p
+
+
+def solve_grads(fom, alphas, vals, w, sym, tol=None):
+    """(loss, d loss / d alphas, d loss / d bc, solver) of
+    ``loss = sum(w * solve(alphas, vals))``."""
+    from generative_physics_informed_pde_tpu_torch.fem.batched_solver \
+        import make_batched_fom_solver
+
+    solve = make_batched_fom_solver(fom.op, fom.profile, sym=sym, tol=tol)
+    a = alphas.clone().requires_grad_()
+    b = vals.clone().requires_grad_()
+    loss = (w * solve(a, b)).sum()
+    loss.backward()
+    return loss.detach(), a.grad, b.grad, solve
+
+
+def k3_bound_bytes(Ny: int, Nx: int, B: int, itemsize: int) -> int:
+    """Bytes the TPU kernel ``apply_stencil_sym_blocked`` (K3, still to
+    port) must move at its own layout: 4 halo-padded coefficient grids and
+    v read once, the output written once, plus the padded mask.  The
+    layout is the reference's: 128-lane batch blocks, rows padded to a
+    multiple of the tile height plus a halo row each side, columns to a
+    multiple of 8 (``choose_tile_rows``, ``pad_blocked``)."""
+    lanes = 128
+    CP = -(-(Nx + 2) // 8) * 8
+    for TY in (32, 24, 16, 12, 8, 6, 4):
+        R = (-(-Ny // TY)) * TY + 2
+        need = ((2 * (1 + 4) * (TY + 2) + 2 * TY + 1) * CP * lanes
+                * itemsize + R * CP * itemsize)
+        if need <= 13 * 2 ** 20:
+            break
+    grid = -(-B // lanes) * R * CP * lanes * itemsize
+    return 6 * grid + R * CP * itemsize
+
+
+def rel_diff(a, b) -> float:
+    return ((a - b).abs().max() / b.abs().max()).item()
 
 
 def main() -> int:
@@ -199,10 +332,36 @@ def main() -> int:
 
     from generative_physics_informed_pde_tpu_torch import fem
     from generative_physics_informed_pde_tpu_torch.factories import highres32
+    from generative_physics_informed_pde_tpu_torch.data import DataLoader
+    from generative_physics_informed_pde_tpu_torch.factories.data import (
+        DataFactory)
+    from generative_physics_informed_pde_tpu_torch.fem.batched_solver \
+        import make_batched_fom_solver
     from generative_physics_informed_pde_tpu_torch.ops import (
-        _build, apply_stencil, apply_stencil_reference)
+        _build, apply_stencil, apply_stencil_reference, apply_stencil_sym,
+        apply_stencil_sym_reference)
     from generative_physics_informed_pde_tpu_torch.serving import (
         SurrogateBundle)
+    from generative_physics_informed_pde_tpu_torch.training import (
+        CreateTrainer)
+
+    kernels_ = (apply_stencil, apply_stencil_sym)
+    main_launches = {k.__name__: 0 for k in kernels_}
+    path_launches = {}
+
+    def start_path():
+        """Zero every kernel's count just before a main path runs."""
+        torch.cuda.synchronize()
+        for k in kernels_:
+            k.launches = 0
+
+    def end_path(name):
+        """Read the counts just after a main path ran."""
+        torch.cuda.synchronize()
+        path_launches[name] = {k.__name__: k.launches for k in kernels_}
+        for k in kernels_:
+            main_launches[k.__name__] += k.launches
+        return path_launches[name]
 
     # cuDNN convolutions default to TF32, which keeps ~3 decimal digits and
     # would loosen the encoder; matmuls are full f32 by default.  Both off.
@@ -223,31 +382,37 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 say(f"  ptxas: {line.strip()}")
 
-    # ------------------------------------- 2. K1 against its plain version
-    say("phase 2: apply_stencil kernel vs its plain version on the card")
+    # ---------------------- 2 + 2b. K1 and K2 against their plain versions
     gen = torch.Generator().manual_seed(0)
     g33 = fem.StructuredTriGrid(32, 32)
     g9 = fem.StructuredTriGrid(8, 8)
-    worst_abs = worst_rel = 0.0
-    for grid, B, dtype in ((g33, 1024, torch.float32),
-                           (g33, 1024, torch.float64),
-                           (g9, 11, torch.float32)):
-        coefs, v, mask = stencil_inputs(fem.StencilOperator(grid),
-                                        fem.DirichletProfile(grid), B,
-                                        dtype, gen)
-        got = apply_stencil(coefs, v, mask)
-        ref = apply_stencil_reference(coefs, v, mask)
-        torch.cuda.synchronize()
-        abs_err = (got - ref).abs().max().item()
-        rel_err = abs_err / ref.abs().max().item()
-        tol = KERNEL_RTOL[str(dtype).split(".")[-1]]
-        say(f"  {tuple(v.shape)} {dtype}: max abs err {abs_err:.3e}, "
-            f"max rel err {rel_err:.3e} (tolerance {tol:g} relative)")
-        if not rel_err <= tol:
-            raise AssertionError(f"apply_stencil disagrees with its plain "
-                                 f"version at {tuple(v.shape)} {dtype}")
-        worst_abs, worst_rel = max(worst_abs, abs_err), max(worst_rel,
-                                                            rel_err)
+    errors = {}
+    for phase, kernel, plain, sym in (
+            ("2", apply_stencil, apply_stencil_reference, False),
+            ("2b", apply_stencil_sym, apply_stencil_sym_reference, True)):
+        name = kernel.__name__
+        say(f"phase {phase}: {name} kernel vs its plain version on the card")
+        worst_abs = worst_rel = 0.0
+        for grid, B, dtype in ((g33, 1024, torch.float32),
+                               (g33, 1024, torch.float64),
+                               (g9, 11, torch.float32)):
+            coefs, v, mask = stencil_inputs(fem.StencilOperator(grid),
+                                            fem.DirichletProfile(grid), B,
+                                            dtype, gen, sym=sym)
+            got = kernel(coefs, v, mask)
+            ref = plain(coefs, v, mask)
+            torch.cuda.synchronize()
+            abs_err = (got - ref).abs().max().item()
+            rel_err = abs_err / ref.abs().max().item()
+            tol = KERNEL_RTOL[str(dtype).split(".")[-1]]
+            say(f"  {tuple(v.shape)} {dtype}: max abs err {abs_err:.3e}, "
+                f"max rel err {rel_err:.3e} (tolerance {tol:g} relative)")
+            if not rel_err <= tol:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version at {tuple(v.shape)} {dtype}")
+            worst_abs, worst_rel = max(worst_abs, abs_err), max(worst_rel,
+                                                                rel_err)
+        errors[name] = (worst_abs, worst_rel)
 
     # -------------------------------- 3+4. main path: label pool, serving
     say("phase 3: label the highres32 pool (1024 fields) through the kernel")
@@ -265,8 +430,7 @@ def main() -> int:
     bce.register_function_space("rom", physics["rom"].grid)
     F_rom = np.array(bce.full_f_with_applied_bc("rom"))
 
-    apply_stencil.launches = 0  # counts from here cover the main path only
-    torch.cuda.synchronize()
+    start_path()  # counts from here cover the main path only
     t0 = time.perf_counter()
     x = torch.as_tensor(X, dtype=torch.float32, device="cuda")
     alphas = torch.exp(fom.pixels.image_to_function(x))
@@ -286,8 +450,7 @@ def main() -> int:
     served = {}
     for n in REQUEST_SIZES:
         served[n] = bundle.predict(X[:n], F_rom[:n])
-    torch.cuda.synchronize()
-    main_launches = apply_stencil.launches
+    label_serve = end_path("3+4 label + serve")
 
     # ------------------------------------------------ checks of the output
     say("checks: labels")
@@ -295,7 +458,7 @@ def main() -> int:
         raise AssertionError(f"{label_launches} launches for {iters} "
                              "iterations (expected one rhs apply + one "
                              "matvec per iteration)")
-    if main_launches == 0:
+    if label_serve["apply_stencil"] == 0:
         raise AssertionError("the main path launched apply_stencil 0 times")
     if Y.shape != (N, fom.dim_out) or not bool(torch.isfinite(Y).all()):
         raise AssertionError("labels are not finite of shape "
@@ -360,57 +523,275 @@ def main() -> int:
     if not serve_err <= SERVE_RTOL:
         raise AssertionError("bucket padding changed the prediction")
 
+    # ------------------------------ 3b. the symmetric-form label solve (K2)
+    say("phase 3b: label the same pool with the symmetric 4-grid solve")
+    sym_solve = make_batched_fom_solver(fom.op, fom.profile, sym=True)
+    start_path()
+    t0 = time.perf_counter()
+    Y_sym = sym_solve(alphas, vals)
+    torch.cuda.synchronize()
+    sym_ms_first = 1e3 * (time.perf_counter() - t0)
+    iters_sym = sym_solve.iterations
+    sym_counts = end_path("3b sym label solve")
+    say(f"  labels {tuple(Y_sym.shape)} in {sym_ms_first:.1f} ms, "
+        f"{iters_sym} PCG iterations, launches {sym_counts}")
+    if sym_counts["apply_stencil_sym"] != iters_sym + 1 \
+            or sym_counts["apply_stencil"] != 0:
+        raise AssertionError(f"sym solve launches {sym_counts} for "
+                             f"{iters_sym} iterations (expected K2 only, "
+                             "one rhs apply + one matvec per iteration)")
+    res_sym = true_residual(fom, Y_sym, alphas, vals,
+                            apply_stencil_reference)
+    say(f"  f32 sym labels: true relative residual max "
+        f"{res_sym.max().item():.3e} (f32 floor bound {F32_FLOOR:g})")
+    if not bool(torch.isfinite(Y_sym).all()) \
+            or not bool((res_sym <= F32_FLOOR).all()):
+        raise AssertionError("f32 sym labels above the f32 residual floor")
+    sym_vs_k1 = ((Y_sym - Y).norm(dim=1) / Y.norm(dim=1)).max().item()
+    say(f"  sym (K2) vs 7-grid (K1) labels: rel-L2 max {sym_vs_k1:.3e} "
+        f"(bound {F32_FLOOR:g})")
+    if not sym_vs_k1 <= F32_FLOOR:
+        raise AssertionError("sym labels far from the 7-grid labels")
+    Y64_sym = sym_solve(alphas64, vals64)
+    res64_sym = true_residual(fom, Y64_sym, alphas64, vals64,
+                              apply_stencil_reference)
+    say(f"  f64 sym labels ({sym_solve.iterations} iterations): true "
+        f"relative residual max {res64_sym.max().item():.3e} (tolerance "
+        f"{TOL_F64:g})")
+    if not bool((res64_sym <= TOL_F64).all()):
+        raise AssertionError("an f64 sym label's residual exceeds the "
+                             "tolerance")
+
+    # ------------------------------------------ 3c. the solve's VJP (K1, K2)
+    say("phase 3c: gradients of the batched solve, f64, B=1024")
+    wgen = torch.Generator().manual_seed(7)
+    w = torch.randn(N, fom.dim_out, generator=wgen,
+                    dtype=torch.float64).cuda()
+    grads, vjp_iters = {}, {}
+    for sym in (False, True):
+        start_path()
+        _, ga, gb, solver = solve_grads(fom, alphas64, vals64, w, sym)
+        counts = end_path(f"3c VJP sym={sym}")
+        used = "apply_stencil_sym" if sym else "apply_stencil"
+        expect = solver.iterations + solver.adjoint_iterations + 2
+        say(f"  sym={sym}: {solver.iterations} forward + "
+            f"{solver.adjoint_iterations} adjoint iterations, launches "
+            f"{counts}")
+        if counts[used] != expect or sum(counts.values()) != expect:
+            raise AssertionError(f"VJP sym={sym}: launches {counts}, "
+                                 f"expected {expect} of {used} only")
+        with plain_applies():
+            _, pa, pb, _ = solve_grads(fom, alphas64, vals64, w, sym)
+        err = max(rel_diff(ga, pa), rel_diff(gb, pb))
+        say(f"    kernel path vs plain path: max rel diff {err:.3e} "
+            f"(tolerance {VJP_PATH_RTOL:g})")
+        if not err <= VJP_PATH_RTOL:
+            raise AssertionError(f"VJP sym={sym}: kernel-path gradients "
+                                 "differ from the plain path")
+        grads[sym] = (ga, gb)
+        vjp_iters[sym] = solver.adjoint_iterations
+    err = max(rel_diff(grads[True][0], grads[False][0]),
+              rel_diff(grads[True][1], grads[False][1]))
+    say(f"  K2-form vs K1-form gradients: max rel diff {err:.3e} "
+        f"(tolerance {VJP_FORM_RTOL:g})")
+    if not err <= VJP_FORM_RTOL:
+        raise AssertionError("the sym and 7-grid gradients disagree")
+    d_a = alphas64 * torch.randn(alphas64.shape, generator=wgen,
+                                 dtype=torch.float64).cuda()
+    d_b = torch.randn(vals64.shape, generator=wgen,
+                      dtype=torch.float64).cuda()
+    fd_solve = make_batched_fom_solver(fom.op, fom.profile, tol=FD_TOL)
+    with torch.no_grad():
+        lp = (w * fd_solve(alphas64 + FD_STEP * d_a,
+                           vals64 + FD_STEP * d_b)).sum()
+        lm = (w * fd_solve(alphas64 - FD_STEP * d_a,
+                           vals64 - FD_STEP * d_b)).sum()
+    fd = ((lp - lm) / (2 * FD_STEP)).item()
+    for sym in (False, True):
+        ga, gb = grads[sym]
+        dd = ((ga * d_a).sum() + (gb * d_b).sum()).item()
+        err = abs(dd - fd) / abs(fd)
+        say(f"  sym={sym}: directional derivative {dd:.12e} vs central "
+            f"difference {fd:.12e}: rel {err:.3e} (tolerance "
+            f"{VJP_FD_RTOL:g})")
+        if not err <= VJP_FD_RTOL:
+            raise AssertionError(f"VJP sym={sym} disagrees with finite "
+                                 "differences")
+
+    # --------------------------------------------- 4b. train the recipe
+    say(f"phase 4b: highres32 SVI training, {SVI_STEPS} steps f32")
+    start_path()
+    t0 = time.perf_counter()
+    dl = DataLoader(X[:256])
+    dlu = DataFactory.FromIdentifier("highres32").unlabeled(
+        1024, torch.Generator().manual_seed(1), device="cuda")
+    trainer = CreateTrainer(recipe_params(), dl, dlu, device="cuda")
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trainer.run(SVI_STEPS, verbose=False)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    bundle_t = trainer.export_surrogate()
+    served_t = bundle_t.predict(X[256:320], F_rom[256:320])
+    train_counts = end_path("4b train + serve")
+    elbos = trainer.elbos()
+    res = trainer.results()
+    say(f"  set-up (labels via K1, unlabeled draws) {setup_s:.2f} s, "
+        f"{SVI_STEPS} steps + monitor + final refinement {train_s:.2f} s; "
+        f"launches {train_counts}")
+    say(f"  ELBO step 0 {elbos[0].item():.6g}, step {SVI_STEPS - 1} "
+        f"{elbos[-1].item():.6g}; results {res}")
+    if train_counts["apply_stencil"] == 0:
+        raise AssertionError("the training path launched apply_stencil 0 "
+                             "times")
+    if elbos.shape != (SVI_STEPS,) or not bool(torch.isfinite(elbos).all()):
+        raise AssertionError("a logged ELBO is not finite")
+    first, last = elbos[:20].mean().item(), elbos[-20:].mean().item()
+    say(f"  mean ELBO steps 0-19 {first:.6g}, steps "
+        f"{SVI_STEPS - 20}-{SVI_STEPS - 1} {last:.6g}")
+    if not last > first:
+        raise AssertionError("the ELBO did not improve over 200 steps")
+    if not all(np.isfinite(res[k]) for k in ("relerr_y", "r2_y",
+                                             "logscore_y")):
+        raise AssertionError(f"results() not finite: {res}")
+    if served_t.shape != (64, fom.dim_out) \
+            or not bool(torch.isfinite(served_t).all()):
+        raise AssertionError("the trained surrogate's answers are not "
+                             "finite of the expected shape")
+    say("  the trained surrogate answered 64 requests: finite, "
+        f"{tuple(served_t.shape)}")
+
+    say("  3 f64 SVI steps, card vs CPU (plain path), same draws")
+    elbo3 = {}
+    state = None
+    for run, device in (("card", "cuda"), ("cpu", "cpu")):
+        dl3 = DataLoader(dl.X, Y=dl.Y, BCE=dl.BCE, F_ROM_BC=dl.F_ROM_BC)
+        dlu3 = DataLoader(dlu.X)
+        p64 = recipe_params("float64")
+        p64.trainer.update(N_monitor_interval=0, N_PE_updates_final=0)
+        tr = CreateTrainer(p64, dl3, dlu3, device=device)
+        if state is None:
+            state = {k: v.detach().cpu().clone()
+                     for k, v in tr.model.state_dict().items()}
+        else:
+            tr.model.load_state_dict(state)
+        with injected_draws(11):
+            for _ in range(3):
+                tr.step()
+        elbo3[run] = tr.elbos().double()
+    err = ((elbo3["card"] - elbo3["cpu"]).abs()
+           / elbo3["cpu"].abs()).max().item()
+    say(f"  ELBOs card {elbo3['card'].tolist()} vs CPU "
+        f"{elbo3['cpu'].tolist()}: max rel {err:.3e} (tolerance "
+        f"{SVI_CPU_RTOL:g})")
+    if not err <= SVI_CPU_RTOL:
+        raise AssertionError("f64 SVI steps on the card differ from the "
+                             "CPU")
+
     # ----------------------------------------------------------- 5. times
     say("phase 5: timings (CUDA events, after warm-up)")
-    coefs, v, mask = stencil_inputs(fem.StencilOperator(g33),
-                                    fem.DirichletProfile(g33), 1024,
-                                    torch.float32, gen)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
-    launches_before = apply_stencil.launches
-    k_ms = cuda_time_ms(lambda: apply_stencil(coefs, v, mask), 100, flush)
-    k_ms_warm = cuda_time_ms(lambda: apply_stencil(coefs, v, mask), 200)
-    p_ms = cuda_time_ms(lambda: apply_stencil_reference(coefs, v, mask),
-                        100, flush)
-    p_ms_warm = cuda_time_ms(
-        lambda: apply_stencil_reference(coefs, v, mask), 200)
-    apply_stencil.launches = launches_before
-    Ny, Nx, B = v.shape
-    item = v.element_size()
-    moved = (7 + 1 + 1) * Ny * Nx * B * item + Ny * Nx * item
-    flops = 14 * Ny * Nx * B  # 7 mul, 6 add, 1 mask mul per output
-    t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    say(f"  apply_stencil {tuple(v.shape)} f32: {k_ms * 1e3:.2f} us "
-        f"(L2 flushed), {k_ms_warm * 1e3:.2f} us (L2 warm); plain "
-        f"{p_ms * 1e3:.2f} / {p_ms_warm * 1e3:.2f} us; bound "
-        f"{bound_ms * 1e3:.2f} us by {bound_by} ({moved / 1e6:.1f} MB)")
-    say(f"  launches per label solve: {iters + 1} "
-        f"(1 rhs + {iters} PCG iterations)")
+    timing = {}
+    for kernel, plain, sym, grids in (
+            (apply_stencil, apply_stencil_reference, False, 7),
+            (apply_stencil_sym, apply_stencil_sym_reference, True, 4)):
+        coefs, v, mask = stencil_inputs(fem.StencilOperator(g33),
+                                        fem.DirichletProfile(g33), 1024,
+                                        torch.float32, gen, sym=sym)
+        k_ms = cuda_time_ms(lambda: kernel(coefs, v, mask), 100, flush)
+        k_ms_warm = cuda_time_ms(lambda: kernel(coefs, v, mask), 200)
+        p_ms = cuda_time_ms(lambda: plain(coefs, v, mask), 100, flush)
+        p_ms_warm = cuda_time_ms(lambda: plain(coefs, v, mask), 200)
+        Ny, Nx, B = v.shape
+        item = v.element_size()
+        # each input read once (coefficient grids, v, mask), out written once
+        moved = (grids + 1 + 1) * Ny * Nx * B * item + Ny * Nx * item
+        flops = 14 * Ny * Nx * B  # 7 mul, 6 add, 1 mask mul per output
+        t_bytes = moved / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / F32_FLOPS_PER_S * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        timing[kernel.__name__] = dict(
+            ms=k_ms, ms_l2_warm=k_ms_warm, plain_ms=p_ms,
+            plain_ms_l2_warm=p_ms_warm, bound_ms=bound_ms,
+            bound_by=bound_by, bytes=moved)
+        say(f"  {kernel.__name__} {tuple(v.shape)} f32: {k_ms * 1e3:.2f} us "
+            f"(L2 flushed), {k_ms_warm * 1e3:.2f} us (L2 warm); plain "
+            f"{p_ms * 1e3:.2f} / {p_ms_warm * 1e3:.2f} us; bound "
+            f"{bound_ms * 1e3:.2f} us by {bound_by} ({moved / 1e6:.1f} MB)")
+    k3_bytes = k3_bound_bytes(33, 33, 1024, 4)
+    k3_bound_ms = k3_bytes / HBM_BYTES_PER_S * 1e3
+    say(f"  apply_stencil_sym_blocked (K3, to port) at its TPU layout for "
+        f"(33, 33, 1024) f32: bound {k3_bound_ms * 1e3:.2f} us by bytes "
+        f"({k3_bytes / 1e6:.1f} MB)")
+    say(f"  launches per label solve: {iters + 1} (K1) / {iters_sym + 1} "
+        f"(K2): 1 rhs + one per PCG iteration; per VJP: "
+        f"{vjp_iters[False] + 1} (K1) / {vjp_iters[True] + 1} (K2)")
 
-    label_runs = []
-    for _ in range(3):
-        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        s.record()
-        fom.solve_batched(alphas, vals)
-        e.record()
-        torch.cuda.synchronize()
-        label_runs.append(s.elapsed_time(e))
-    apply_stencil.launches = launches_before
-    label_ms = sorted(label_runs)[1]
-    say(f"  label solve, 1024 fields f32: {label_ms:.2f} ms median of 3 "
-        f"(first run {label_ms_first:.2f} ms host clock), {iters} iterations")
-    busy, wall, rows = device_profile(lambda: fom.solve_batched(alphas, vals))
-    apply_stencil.launches = launches_before
-    if rows:
-        say(f"  profiled label solve: device busy {busy:.2f} ms of "
-            f"{wall:.2f} ms wall ({100 * busy / wall:.1f}%)")
-        for name, ms, n in rows[:8]:
-            say(f"    {ms:8.3f} ms {n:5d}x {name[:90]}")
-    else:
-        say("  profiled label solve: the profiler saw no device kernels "
-            "(device busy share not measured)")
+    def event_ms(fn, runs=3):
+        """Median CUDA-event time of ``fn`` over ``runs`` calls."""
+        out = []
+        for _ in range(runs):
+            t_s, t_e = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+            t_s.record()
+            fn()
+            t_e.record()
+            torch.cuda.synchronize()
+            out.append(t_s.elapsed_time(t_e))
+        return sorted(out)[len(out) // 2]
+
+    label_ms = event_ms(lambda: fom.solve_batched(alphas, vals))
+    sym_ms = event_ms(lambda: sym_solve(alphas, vals))
+    say(f"  label solve, 1024 fields f32: K1 {label_ms:.2f} ms ({iters} "
+        f"iterations), sym K2 {sym_ms:.2f} ms ({iters_sym} iterations), "
+        f"median of 3 (first K1 run {label_ms_first:.2f} ms host clock)")
+    vjp_ms = {sym: event_ms(lambda: solve_grads(fom, alphas64, vals64, w,
+                                                sym))
+              for sym in (False, True)}
+    say(f"  solve + VJP, 1024 fields f64: K1 {vjp_ms[False]:.2f} ms, "
+        f"K2 {vjp_ms[True]:.2f} ms (median of 3)")
+
+    def report_profile(what, fn, plain_wall_ms=None):
+        """Device busy share of ``fn`` under the profiler; with
+        ``plain_wall_ms`` (the same work timed without the profiler, whose
+        own overhead stretches the wall) the share is taken of that."""
+        busy, wall, rows = device_profile(fn)
+        if not rows:
+            say(f"  profiled {what}: the profiler saw no device kernels "
+                "(device busy share not measured)")
+            return None
+        say(f"  profiled {what}: device busy {busy:.2f} ms of "
+            f"{wall:.2f} ms wall ({100 * busy / wall:.1f}%), "
+            f"{sum(r[2] for r in rows)} device kernels and copies")
+        if plain_wall_ms is not None:
+            say(f"    of {plain_wall_ms:.2f} ms unprofiled wall: "
+                f"{100 * busy / plain_wall_ms:.1f}%")
+            wall = plain_wall_ms
+        for name, ms, n in rows[:10]:
+            say(f"    {ms:8.3f} ms {n:6d}x {name[:90]}")
+        return busy / wall
+
+    busy_label = report_profile("label solve (K1)",
+                                lambda: fom.solve_batched(alphas, vals))
+    busy_sym = report_profile("sym label solve (K2)",
+                              lambda: sym_solve(alphas, vals))
+
+    def svi_steps(n):
+        for _ in range(n):
+            trainer.step()
+
+    svi_steps(5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    svi_steps(100)
+    torch.cuda.synchronize()
+    svi_wall_ms = 1e3 * (time.perf_counter() - t0)
+    steps_per_s = 100 / (svi_wall_ms / 1e3)
+    say(f"  SVI steps (f32, batch 64 + 128 labeled, PE every 8th): "
+        f"{steps_per_s:.2f} steps/s over 100 steps")
+    busy_svi = report_profile("100 SVI steps", lambda: svi_steps(100),
+                              svi_wall_ms)
 
     predict_ms = {}
     for b in bundle.buckets:
@@ -423,27 +804,44 @@ def main() -> int:
     # --------------------------------------------------------- 6. records
     say(f"done in {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
+    src = "generative_physics_informed_pde_tpu_torch/ops/csrc/"
+    tpu = "generative_physics_informed_pde_tpu/ops/stencil.py"
+    records = [
+        ("apply_stencil", "stencil.cu", f"{tpu}:32", "_make_kernel",
+         {"launches_per_label_solve": iters + 1,
+          "launches_per_vjp": vjp_iters[False] + 1,
+          "label_solve_ms": label_ms, "vjp_ms": vjp_ms[False],
+          "label_solve_busy_share": busy_label}),
+        ("apply_stencil_sym", "stencil_sym.cu", f"{tpu}:129",
+         "_make_sym_kernel",
+         {"launches_per_label_solve": iters_sym + 1,
+          "launches_per_vjp": vjp_iters[True] + 1,
+          "label_solve_ms": sym_ms, "vjp_ms": vjp_ms[True],
+          "label_solve_busy_share": busy_sym}),
+    ]
     kernels = {"kernels": [{
-        "name": "apply_stencil",
+        "name": name,
         "route": "cuda",
-        "source": "generative_physics_informed_pde_tpu_torch/ops/csrc/"
-                  "stencil.cu",
-        "replaces": "generative_physics_informed_pde_tpu/ops/stencil.py:32",
-        "tpu": "ops/stencil.py:_make_kernel",
-        "launches": main_launches,
-        "max_abs_err": worst_abs,
-        "max_rel_err": worst_rel,
-        "ms": k_ms,
-        "ms_l2_warm": k_ms_warm,
-        "plain_ms": p_ms,
-        "plain_ms_l2_warm": p_ms_warm,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "source": src + source,
+        "replaces": replaces,
+        "tpu": f"ops/stencil.py:{body}",
+        "launches": main_launches[name],
+        "launches_by_path": {p: c[name] for p, c in path_launches.items()},
+        "max_abs_err": errors[name][0],
+        "max_rel_err": errors[name][1],
+        "ms": timing[name]["ms"],
+        "ms_l2_warm": timing[name]["ms_l2_warm"],
+        "plain_ms": timing[name]["plain_ms"],
+        "plain_ms_l2_warm": timing[name]["plain_ms_l2_warm"],
+        "bound_ms": timing[name]["bound_ms"],
+        "bound_by": timing[name]["bound_by"],
         "library_ms": None,
-        "launches_per_label_solve": iters + 1,
-        "label_solve_ms": label_ms,
-        "predict_ms": {str(b): t for b, t in predict_ms.items()},
-    }]}
+        **extra,
+    } for name, source, replaces, body, extra in records],
+        # paths that run no stencil kernel in their steady state
+        "paths": {
+            "svi": {"steps_per_s": steps_per_s, "busy_share": busy_svi},
+            "predict_ms": {str(b): t for b, t in predict_ms.items()}}}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,8 +10,14 @@ a tensor:
 * Dense ``kernel`` (in, out) -> Linear ``weight`` (out, in)
 * ``bias`` -> ``bias``; BatchNorm ``scale`` -> ``weight``
 * batch_stats ``mean`` / ``var`` -> ``running_mean`` / ``running_var``
-* any other leaf (``logsigmas_X``, ``logsigmas_y``) -> the parameter of
-  that name.
+* any other leaf (``logsigmas_X``, ``logsigmas_y``, a posterior's
+  ``mean`` / ``logsigma``) -> the parameter of that name.
+
+A whole ``GenerativeModel`` whose posteriors were created for the same
+datasets (``init_params``) loads from the JAX model's ``params`` (``f``,
+``encoder``, ``gp``, ``g``, ``q_z``, ``q_X``) and ``batch_stats`` (``f``,
+``encoder``) with :func:`load_flax_variables`, so both packages start
+training from one state; so does the prediction ensemble's ``q``.
 
 Every parameter and BatchNorm statistic of the target module must be
 covered, and every shape must match; anything else raises.
@@ -25,7 +31,7 @@ import torch
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
 
 
-def _leaf_target(module, name: str, value: np.ndarray):
+def _leaf_target(module, name: str, value: np.ndarray, stats: bool):
     if name == "kernel":
         if value.ndim == 4:
             return "weight", value.transpose(3, 2, 0, 1)
@@ -34,21 +40,21 @@ def _leaf_target(module, name: str, value: np.ndarray):
         raise ValueError(f"kernel of rank {value.ndim}")
     if name == "scale":
         return "weight", value
-    if name in _STAT_NAMES:
+    if stats and name in _STAT_NAMES:
         return _STAT_NAMES[name], value
     return name, value
 
 
-def _load(module, tree, prefix: str, loaded: set):
+def _load(module, tree, prefix: str, loaded: set, stats: bool):
     for key, val in tree.items():
         path = f"{prefix}{key}"
         if isinstance(val, dict):
             if not hasattr(module, key):
                 raise KeyError(f"no submodule {path} in "
                                f"{type(module).__name__}")
-            _load(getattr(module, key), val, path + ".", loaded)
+            _load(getattr(module, key), val, path + ".", loaded, stats)
             continue
-        attr, arr = _leaf_target(module, key, np.asarray(val))
+        attr, arr = _leaf_target(module, key, np.asarray(val), stats)
         target = getattr(module, attr, None)
         if not isinstance(target, torch.Tensor):
             raise KeyError(f"no tensor for {path} ({attr})")
@@ -65,9 +71,9 @@ def load_flax_variables(module: torch.nn.Module, params: dict,
     """Copy Flax ``params`` (and ``batch_stats``) into ``module`` in
     place; returns the module."""
     loaded: set = set()
-    _load(module, params, "", loaded)
+    _load(module, params, "", loaded, stats=False)
     if batch_stats:
-        _load(module, batch_stats, "", loaded)
+        _load(module, batch_stats, "", loaded, stats=True)
     wanted = {n for n, _ in module.named_parameters()}
     wanted |= {n for n, _ in module.named_buffers()
                if n.endswith(("running_mean", "running_var"))}
@@ -88,3 +94,4 @@ def discriminative_from_flax(discriminative, params: dict,
     load_flax_variables(model.gp, params["gp"])
     load_flax_variables(model.g, params["g"])
     return discriminative
+

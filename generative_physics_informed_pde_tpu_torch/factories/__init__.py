@@ -1,5 +1,7 @@
-"""Named presets of the port."""
+"""Named presets of the port: models (``model.py``) and data
+(``data.py``)."""
 
+from .data import DataFactory
 from .model import ModelFactory, highres32
 
-__all__ = ["ModelFactory", "highres32"]
+__all__ = ["DataFactory", "ModelFactory", "highres32"]

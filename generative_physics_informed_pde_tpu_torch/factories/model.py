@@ -1,9 +1,10 @@
 """Named model presets wiring physics and networks into models.
 
 Port of ``ModelFactory`` and its ``highres32`` preset from
-``generative_physics_informed_pde_tpu/factories/model.py``, for what the
-serving slice builds: the fom/rom physics, the encoder, gp and g.  The
-decoder and the other presets wait for later slices.  Weights are random,
+``generative_physics_informed_pde_tpu/factories/model.py``: the fom/rom
+physics, the decoder, the encoder, gp and g wired into a
+``GenerativeModel``.  The other presets and the reduced-precision, fused
+and channel-padded codec options are not ported yet.  Weights are random,
 drawn from an explicit ``torch.Generator``; trained weights come in
 through ``convert.py``.
 """
@@ -20,6 +21,7 @@ from ..fem.physics import make_fom_rom_pair
 from ..models.codec import BatchNorm
 from ..models.components import (EffectivePropertyMap,
                                  ReducedOrderModelOperator)
+from ..models.decoder import CNNDecoder
 from ..models.encoder import CNNEncoder
 from ..models.generative import DiscriminativeModel, GenerativeModel
 from ..utils.device import resolve_device
@@ -67,6 +69,9 @@ class ModelFactory:
             "eff_property_map_hidden_layers": None,
             "num_refines": None,
             "use_encoder": True,
+            "binary_field": False,
+            "droprate": 0.0,
+            "homoscedastic": False,
         }
 
     @property
@@ -98,20 +103,32 @@ class ModelFactory:
                                  self._gp("ny_rom"), self._gp("num_refines"),
                                  device=device)
 
-    def _closure(self, physics, encoder, latent_dim, device, generator):
+    def _closure(self, physics, encoder, decoder, device, generator):
         g = ReducedOrderModelOperator.from_physics(physics)
         gp = EffectivePropertyMap(
-            latent_dim=latent_dim,
+            latent_dim=decoder.dim_latent,
             dim_effective_property=g.dim_effective_property,
             num_hidden_layers=self._gp("eff_property_map_hidden_layers"),
             independent_X=self.params["independent_X"])
-        model = GenerativeModel(g=g, gp=gp, encoder=encoder)
+        model = GenerativeModel(
+            g=g, gp=gp, encoder=encoder, f=decoder,
+            independent_X=self.params["independent_X"],
+            binary_field=self.params["binary_field"])
         init_weights_(model, generator)
         model.to(device=device, dtype=self.dtype).eval()
         return physics, model, DiscriminativeModel(model), encoder, self.dtype
 
     def setup(self, device="cuda", generator=None):
         raise NotImplementedError
+
+    @classmethod
+    def FromIdentifier(cls, identifier: str, *args, **kwargs):
+        try:
+            factory_class = _REGISTRY[identifier]
+        except KeyError:
+            raise KeyError(f"unknown model factory identifier "
+                           f"{identifier!r}")
+        return factory_class(*args, **kwargs)
 
 
 class highres32(ModelFactory):
@@ -121,7 +138,8 @@ class highres32(ModelFactory):
         super().__init__()
         self.params.update(
             ptype="NDP", dim_latent=16, dtype="float32", nx_rom=4, ny_rom=4,
-            eff_property_map_hidden_layers=0, num_refines=3)
+            eff_property_map_hidden_layers=0, num_refines=3, droprate=0.0,
+            homoscedastic=False)
         self.set(kwargs)
 
     def setup(self, device="cuda", generator: Optional[torch.Generator] = None):
@@ -132,11 +150,20 @@ class highres32(ModelFactory):
             generator = torch.Generator().manual_seed(0)
         physics = self._setup_physics(device)
         target = self._gp("nx_rom") * 2 ** self._gp("num_refines")
+        decoder = CNNDecoder(
+            target_img_size=target, dim_latent=self._gp("dim_latent"),
+            latent_img_size=8, latent_img_features=1, init_features=4,
+            blocks=(1, 1), growth_rate=4, drop_rate=self.params["droprate"],
+            upsample="nearest", binary=self.params["binary_field"],
+            homoscedastic=self.params["homoscedastic"])
         encoder = CNNEncoder(imsize=target,
                              latent_dim=self._gp("dim_latent"),
-                             blocks=(1, 1), growth_rate=4, init_features=4)
+                             blocks=(1, 1), growth_rate=4, init_features=4,
+                             drop_rate=self.params["droprate"])
         if not self.params["use_encoder"]:
             encoder = None
-        return self._closure(physics, encoder, self._gp("dim_latent"),
-                             device, generator)
+        return self._closure(physics, encoder, decoder, device, generator)
 
+
+
+_REGISTRY = {"highres32": highres32}

@@ -1,6 +1,6 @@
 """Structured-grid FEM core of the port: grids, closed-form P1 assembly,
-boundary conditions, pixel converters, interpolation, the batched label
-solve and the dense ROM solve."""
+boundary conditions, pixel converters, interpolation, the batched
+differentiable solve, the dense ROM solve and Gaussian random fields."""
 
 from .grid import StructuredTriGrid
 from .assembly import (StencilOperator, assembly_tensor, element_stiffness,
@@ -12,6 +12,7 @@ from .physics import LinearEllipticPhysics, make_fom_rom_pair
 from .interpolation import (p1_interpolation_matrix,
                             physics_resolution_interpolator)
 from .pixels import PixelConverter
+from .randomfield import GaussianRandomField
 
 __all__ = [
     "StructuredTriGrid", "StencilOperator", "assembly_tensor",
@@ -20,4 +21,5 @@ __all__ = [
     "THETA_DIM", "rom_solve", "stiffness_from_tensor",
     "LinearEllipticPhysics", "make_fom_rom_pair", "p1_interpolation_matrix",
     "physics_resolution_interpolator", "PixelConverter",
+    "GaussianRandomField",
 ]

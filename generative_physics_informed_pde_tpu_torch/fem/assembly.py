@@ -14,8 +14,9 @@ piecewise constant (DG0).  Three equivalent forms of the stiffness action:
    coefficients are static linear images of ``alpha``; the fine-grid
    matvec is the stencil apply of ``ops/stencil.py``.
 
-``coefficients_sym`` and ``cell_bilinear`` are not ported yet (they serve
-the symmetric-stencil option and the solve's VJP).
+``coefficients_sym`` gives the symmetric 4-grid form of the stencil (the
+``sym=True`` solve) and ``cell_bilinear`` the per-cell energy that the
+solve's VJP needs for the conductivity gradient.
 """
 
 from __future__ import annotations
@@ -87,6 +88,10 @@ def dense_stiffness(grid: StructuredTriGrid, alpha) -> np.ndarray:
 # the order fixes the coefficient grids' order and the kernel's sum order.
 _OFFSETS = ((0, 0), (1, 0), (-1, 0), (0, 1), (0, -1), (1, 1), (-1, -1))
 
+# K is symmetric, so coefs[-dir][y, x] == coefs[+dir][y - dy, x - dx]: the
+# diagonal and the three "positive" directions hold all of it (4 grids).
+_SYM_DIRS = ((1, 0), (0, 1), (1, 1))
+
 
 def _stencil_table(grid: StructuredTriGrid):
     """For each stencil offset ``o`` the list of contributions
@@ -128,12 +133,22 @@ class StencilOperator:
     def coefficients(self, alpha: torch.Tensor) -> torch.Tensor:
         """(..., n_cells) conductivities -> (..., 7, ny+1, nx+1) stencil
         coefficient grids, summed in the reference's order."""
+        return self._grids(alpha, _OFFSETS)
+
+    def coefficients_sym(self, alpha: torch.Tensor) -> torch.Tensor:
+        """(..., n_cells) -> (..., 4, ny+1, nx+1): the symmetric form
+        ``[diag, c_N, c_E, c_D]`` with ``c_dir[y, x] = K[(y,x), (y,x)+dir]``
+        for dir in ``_SYM_DIRS``, zero where ``(y,x)+dir`` leaves the
+        grid."""
+        return self._grids(alpha, ((0, 0),) + _SYM_DIRS)
+
+    def _grids(self, alpha, offsets):
         g = self.grid
         a = self.alpha_to_cellgrid(alpha)
         ap = torch.nn.functional.pad(a, (0, 0, 1, 1, 1, 1))
         ny1, nx1 = g.ny + 1, g.nx + 1
         coefs = []
-        for o in _OFFSETS:
+        for o in offsets:
             c = torch.zeros(a.shape[:-3] + (ny1, nx1), dtype=alpha.dtype,
                             device=alpha.device)
             for (t, dya, dxa, w) in self._table[o]:
@@ -142,3 +157,16 @@ class StencilOperator:
                 c = c + w * ap[..., y0:y0 + ny1, x0:x0 + nx1, t]
             coefs.append(c)
         return torch.stack(coefs, dim=-3)
+
+    def cell_bilinear(self, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """Per-cell ``e_c = u_loc^T Ke_c v_loc`` for (..., n_nodes) vectors:
+        the gradient of ``u^T K(alpha) v`` with respect to ``alpha`` (the
+        conductivity cotangent of the solve's VJP)."""
+        Ke = torch.as_tensor(element_stiffness(self.grid), dtype=u.dtype,
+                             device=u.device)
+        cells = torch.as_tensor(self.grid.cells, device=u.device)
+        nc = self.grid.n_cells
+        t = torch.as_tensor(np.tile(np.array([0, 1]), nc // 2),
+                            device=u.device)
+        return torch.einsum("...ca,cab,...cb->...c", u[..., cells], Ke[t],
+                            v[..., cells])

@@ -1,16 +1,26 @@
-"""Batch-last ("structure-of-arrays") batched full-order solver, forward.
+"""Batch-last ("structure-of-arrays") batched full-order solver, with its
+implicit-function VJP.
 
 Port of ``generative_physics_informed_pde_tpu/fem/batched_solver.py``:
 arrays are laid out ``(Ny, Nx, B)`` with the batch last, per-sample CG
 scalars reduce over the two spatial axes, and every stencil apply of the
-solve -- the PCG matvec and the rhs -- goes through the stencil kernel of
-``ops/stencil.py``.  Jacobi preconditioning only: the ``'auto'`` gate
-resolves to Jacobi below 64^2, and the multigrid V-cycle is not ported yet.
+solve -- the PCG matvec, the rhs, and in the backward the adjoint PCG's
+matvec and the ``K lambda`` term -- goes through a stencil kernel of
+``ops/stencil.py``: the 7-grid ``apply_stencil`` by default, the symmetric
+4-grid ``apply_stencil_sym`` with ``sym=True``.  Jacobi preconditioning
+only: the ``'auto'`` gate resolves to Jacobi below 64^2, and the multigrid
+V-cycle is not ported yet.
+
+The solve is a ``torch.autograd.Function`` (the reference's
+``jax.custom_vjp``): its backward is one adjoint batched PCG on the same
+operator plus two cheap contractions.  The stiffness operator is
+self-adjoint and the reference has no backward Pallas kernel, so the
+backward reuses the forward's stencil kernels and needs none of its own.
 
 Left out as TPU-only: ``precond_dtype`` (a bf16 V-cycle), the
-``optimization_barrier`` fence around the preconditioner and the
-``effective_platform()`` gates.  The implicit-function VJP is not ported
-yet; the solve runs without autograd.
+``optimization_barrier`` fence around the preconditioner, the
+``effective_platform()`` gates and the ``use_pallas`` switch (on a card
+the apply is always the hand-written kernel).
 """
 
 from __future__ import annotations
@@ -18,8 +28,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .assembly import StencilOperator, _OFFSETS
-from ..ops.stencil import apply_stencil
+from .assembly import StencilOperator, _OFFSETS, _SYM_DIRS
+from ..ops.stencil import apply_stencil, apply_stencil_sym
 
 
 def _apply_stencil_blast(coefs, v):
@@ -29,6 +39,23 @@ def _apply_stencil_blast(coefs, v):
     out = torch.zeros_like(v)
     for k, (oy, ox) in enumerate(_OFFSETS):
         out = out + coefs[k] * vp[1 + oy:1 + oy + Ny, 1 + ox:1 + ox + Nx, :]
+    return out
+
+
+def _apply_stencil_sym_blast(coefs4, v):
+    """Symmetric-form apply, plain torch: coefs4 (4, Ny, Nx, B) =
+    [diag, c_N, c_E, c_D], v (Ny, Nx, B) -> (Ny, Nx, B).  Each
+    off-diagonal grid serves the +dir coupling and, shifted, the -dir
+    one."""
+    Ny, Nx = v.shape[0], v.shape[1]
+    vp = torch.nn.functional.pad(v, (0, 0, 1, 1, 1, 1))
+    out = coefs4[0] * v
+    for k, (oy, ox) in enumerate(_SYM_DIRS):
+        c = coefs4[1 + k]
+        cp = torch.nn.functional.pad(c, (0, 0, 1, 1, 1, 1))
+        out = out + c * vp[1 + oy:1 + oy + Ny, 1 + ox:1 + ox + Nx, :]
+        out = out + (cp[1 - oy:1 - oy + Ny, 1 - ox:1 - ox + Nx, :]
+                     * vp[1 - oy:1 - oy + Ny, 1 - ox:1 - ox + Nx, :])
     return out
 
 
@@ -69,14 +96,51 @@ def _batched_pcg(matvec, b, mask, precond, tol, maxiter):
     return x, k
 
 
+class _Solve(torch.autograd.Function):
+    """``(alphas, bc_values) -> Y_free`` with the implicit-function VJP
+    (reference ``_fwd``/``_bwd``, ``batched_solver.py:296-333``)."""
+
+    @staticmethod
+    def forward(ctx, solver, alphas, bc_values):
+        y_full, coefs, mask, tol = solver._forward(alphas, bc_values)
+        ctx.solver, ctx.tol = solver, tol
+        ctx.dtypes = (alphas.dtype, bc_values.dtype)
+        ctx.save_for_backward(y_full, coefs, mask)
+        return y_full[:, solver._idx("free", y_full.device)]
+
+    @staticmethod
+    def backward(ctx, ybar):
+        s = ctx.solver
+        y_full, coefs, mask = ctx.saved_tensors
+        apply = s._apply()
+        B, device = ybar.shape[0], ybar.device
+        ybar_full = torch.zeros((B, s.Ny * s.Nx), dtype=ybar.dtype,
+                                device=device)
+        ybar_full[:, s._idx("free", device)] = ybar
+        lam_g, s.adjoint_iterations = _batched_pcg(
+            lambda v: apply(coefs, mask * v, mask), s._to_blast(ybar_full),
+            mask, s._jacobi(coefs, mask), ctx.tol, s.maxiter)
+        alpha_bar = -s.op.cell_bilinear(s._from_blast(lam_g), y_full)
+        # bc gradient: the direct part plus the coupling through K
+        Klam = s._from_blast(apply(coefs, lam_g, torch.ones_like(mask)))
+        m_flat = mask.reshape(1, -1)
+        bc_bar = ((1.0 - m_flat) * (ybar_full - Klam))[
+            :, s._idx("con", device)]
+        # cotangents carry their primal's dtype (a mixed f32-alphas /
+        # f64-bc call gets an f64 bc gradient)
+        return (None, alpha_bar.to(ctx.dtypes[0]),
+                bc_bar.to(ctx.dtypes[1]))
+
+
 class BatchedFomSolver:
     """``solve(alphas, bc_values) -> Y_free`` for a whole batch: alphas
     (B, n_cells), bc_values (B, n_constrained) -> (B, n_free), on the
-    device the inputs lie on.  ``iterations`` holds the PCG iteration
-    count of the last call."""
+    device the inputs lie on, differentiable with respect to both.
+    ``iterations`` holds the forward PCG iteration count of the last call
+    and ``adjoint_iterations`` that of the last backward."""
 
     def __init__(self, op: StencilOperator, profile, *, tol=None,
-                 maxiter=None, precond: str = "auto"):
+                 maxiter=None, precond: str = "auto", sym: bool = False):
         grid = op.grid
         if precond not in ("auto", "mg", "jacobi"):
             raise ValueError(f"precond must be 'auto', 'mg' or 'jacobi', "
@@ -92,7 +156,10 @@ class BatchedFomSolver:
                 f"the multigrid preconditioner the reference uses at "
                 f"{grid.nx}x{grid.ny} is not ported yet; pass "
                 "precond='jacobi'")
+        # the reference refuses sym=True at >= 256^2 on a TPU, a runtime
+        # fault of that chip; no such refusal here
         self.op = op
+        self.sym = bool(sym)
         self.Ny, self.Nx = grid.ny + 1, grid.nx + 1
         self.tol = tol
         self.maxiter = maxiter or max(200, 30 * max(grid.nx, grid.ny))
@@ -101,6 +168,16 @@ class BatchedFomSolver:
         self.free_dofs = np.asarray(profile.free_dofs)
         self.con_dofs = np.asarray(profile.constrained_dofs)
         self.iterations = None
+        self.adjoint_iterations = None
+
+    def _apply(self):
+        """The stencil apply of every step of the solve (looked up per
+        call, so a caller may route it through the plain version)."""
+        return apply_stencil_sym if self.sym else apply_stencil
+
+    def _idx(self, which, device):
+        dofs = self.free_dofs if which == "free" else self.con_dofs
+        return torch.as_tensor(dofs, device=device)
 
     def _to_blast(self, flat):
         """(B, n_nodes) -> contiguous (Ny, Nx, B)"""
@@ -109,34 +186,43 @@ class BatchedFomSolver:
     def _from_blast(self, grids):
         return grids.permute(2, 0, 1).reshape(-1, self.Ny * self.Nx)
 
-    @torch.no_grad()
-    def __call__(self, alphas: torch.Tensor, bc_values: torch.Tensor):
+    @staticmethod
+    def _jacobi(coefs, mask):
+        diag = coefs[0]
+        inv_diag = mask / torch.where(diag <= 0, 1.0, diag)
+        return lambda r: inv_diag * r
+
+    def _forward(self, alphas, bc_values):
+        """The forward solve: -> (y_full (B, n_nodes), coefs, mask, tol)."""
         dtype, device = alphas.dtype, alphas.device
         tol = self.tol if self.tol is not None else (
             1e-10 if dtype == torch.float64 else 2e-6)
         B = alphas.shape[0]
-        # (B, 7, Ny, Nx) -> (7, Ny, Nx, B), made contiguous once per solve
-        coefs = self.op.coefficients(alphas).permute(1, 2, 3, 0).contiguous()
+        c = (self.op.coefficients_sym(alphas) if self.sym
+             else self.op.coefficients(alphas))
+        # (B, 4|7, Ny, Nx) -> (4|7, Ny, Nx, B), made contiguous once per solve
+        coefs = c.permute(1, 2, 3, 0).contiguous()
         mask = torch.as_tensor(self.free_mask, dtype=dtype, device=device)
-        diag = coefs[0]
-        inv_diag = mask / torch.where(diag <= 0, 1.0, diag)
-
+        apply = self._apply()
         bc_full = torch.zeros((B, self.Ny * self.Nx), dtype=dtype,
                               device=device)
-        bc_full[:, torch.as_tensor(self.con_dofs, device=device)] = \
-            bc_values.to(dtype)
+        bc_full[:, self._idx("con", device)] = bc_values.to(dtype)
         bc_g = self._to_blast(bc_full)
-        rhs = -apply_stencil(coefs, bc_g, torch.ones_like(mask))
+        rhs = -apply(coefs, bc_g, torch.ones_like(mask))
         y_free_g, self.iterations = _batched_pcg(
-            lambda v: apply_stencil(coefs, mask * v, mask), rhs, mask,
-            lambda r: inv_diag * r, tol, self.maxiter)
-        y_full = self._from_blast(y_free_g + bc_g)
-        return y_full[:, torch.as_tensor(self.free_dofs, device=device)]
+            lambda v: apply(coefs, mask * v, mask), rhs, mask,
+            self._jacobi(coefs, mask), tol, self.maxiter)
+        return self._from_blast(y_free_g + bc_g), coefs, mask, tol
+
+    def __call__(self, alphas: torch.Tensor, bc_values: torch.Tensor):
+        return _Solve.apply(self, alphas, bc_values)
 
 
 def make_batched_fom_solver(op: StencilOperator, profile, *, tol=None,
-                            maxiter=None, precond: str = "auto"
-                            ) -> BatchedFomSolver:
-    """Build the batched forward solver (see :class:`BatchedFomSolver`)."""
+                            maxiter=None, precond: str = "auto",
+                            sym: bool = False) -> BatchedFomSolver:
+    """Build the batched differentiable solver (see
+    :class:`BatchedFomSolver`).  ``sym=True`` runs every stencil apply of
+    the solve and its VJP in the symmetric 4-grid form."""
     return BatchedFomSolver(op, profile, tol=tol, maxiter=maxiter,
-                            precond=precond)
+                            precond=precond, sym=sym)

@@ -120,11 +120,22 @@ class BoundaryConditionEnsemble:
         if identifier not in self._profiles:
             self._profiles[identifier] = DirichletProfile(grid)
 
+    def check_if_registered(self, identifier: str) -> bool:
+        return identifier.lower() in self._profiles
+
     def profile(self, identifier: str) -> DirichletProfile:
         return self._profiles[identifier.lower()]
 
     def __len__(self):
         return self.thetas.shape[0]
+
+    def __getitem__(self, idx):
+        """Sub-ensemble of the selected rows, sharing the registered
+        function spaces."""
+        sub = BoundaryConditionEnsemble(self.family,
+                                        np.atleast_2d(self.thetas[idx]))
+        sub._profiles = self._profiles
+        return sub
 
     def constrained_dofs(self, identifier: str) -> np.ndarray:
         return self.profile(identifier).constrained_dofs

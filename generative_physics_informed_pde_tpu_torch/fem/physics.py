@@ -2,10 +2,10 @@
 
 Port of ``LinearEllipticPhysics`` and ``make_fom_rom_pair`` from
 ``generative_physics_informed_pde_tpu/fem/physics.py``: the batched
-full-order label solve, the free/constrained dof sets, the coarse assembly
-tensor and the dense direct solve used as an oracle.  The single-sample
-differentiable solve and the reduced-system helpers wait for the training
-slice.
+full-order solve (differentiable through its implicit-function VJP), the
+free/constrained dof sets, the coarse assembly tensor and the dense direct
+solve used as an oracle.  The single-sample solve and the reduced-system
+helpers are not ported yet.
 """
 
 from __future__ import annotations
@@ -69,10 +69,11 @@ class LinearEllipticPhysics:
 
     def solve_batched(self, alphas: torch.Tensor,
                       bc_values: torch.Tensor) -> torch.Tensor:
-        """Batched solve: (N, n_cells), (N, n_constrained) -> (N, n_free),
-        one batch-last Jacobi-PCG whose stencil applies run on the CUDA
-        kernel (its plain version on the CPU).  Inputs lie on the
-        physics' device."""
+        """Batched differentiable solve: (N, n_cells), (N, n_constrained)
+        -> (N, n_free), one batch-last Jacobi-PCG whose stencil applies run
+        on the CUDA kernel (its plain version on the CPU); gradients with
+        respect to both inputs come from one adjoint PCG.  Inputs lie on
+        the physics' device."""
         check_on(alphas, self.device, "alphas")
         check_on(bc_values, self.device, "bc_values")
         return self._batched_solver(alphas, bc_values)

@@ -1,0 +1,68 @@
+"""Test-time inference for held-out data (the "prediction ensemble").
+
+Port of ``PredictionEnsemble`` from
+``generative_physics_informed_pde_tpu/inference/prediction.py``: a fresh
+per-datapoint posterior ``q`` over the validation fields, optimised by its
+own Adam against the reconstruction-only ELBO ``logL_x - KLD``.  Only
+``q`` is optimised: the gradients are taken with respect to it alone, and
+the decoder runs in train mode (batch statistics) with its updated running
+statistics thrown away, as the reference discards them.  The
+reduced-precision hot-loop decode is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from . import variational as va
+
+
+class PredictionEnsemble:
+    """``q`` (an ``nn.ParameterDict``) and its Adam, driven by
+    ``schedule(count) -> lr`` with the optax count (update n uses
+    ``schedule(n)``)."""
+
+    def __init__(self, model, X: torch.Tensor, schedule: Callable):
+        self.model = model
+        self.X = X
+        self.schedule = schedule
+        self.q = va.init_variational(X.shape[0], model.dim_latent,
+                                     dtype=X.dtype, device=X.device)
+        self.optimizer = torch.optim.Adam(self.q.parameters(),
+                                          lr=schedule(0))
+        self.count = 0
+
+    def _bn_buffers(self):
+        return [b for name, b in self.model.f.named_buffers()
+                if name.endswith(("running_mean", "running_var"))]
+
+    def elbo(self, q, generator=None):
+        """Reconstruction-only ELBO -> (elbo, logL)."""
+        Z = va.sample(q, generator)
+        saved = [b.clone() for b in self._bn_buffers()]
+        predict_x = self.model.apply_decoder(Z, train=True)
+        with torch.no_grad():  # the reference discards the stats update
+            for b, s in zip(self._bn_buffers(), saved):
+                b.copy_(s)
+        logL = self.model.random_field_likelihood(predict_x, self.X)
+        return logL - va.kld(q), logL
+
+    def update(self, num_iter: int, generator=None):
+        """``num_iter`` Adam steps on q only -> (last elbo, last logL),
+        each as of before its step (detached)."""
+        params = [self.q["mean"], self.q["logsigma"]]
+        elbo = logL = torch.zeros((), dtype=self.X.dtype,
+                                  device=self.X.device)
+        for _ in range(num_iter):
+            elbo, logL = self.elbo(self.q, generator)
+            grads = torch.autograd.grad(-elbo, params)
+            for p, g in zip(params, grads):
+                p.grad = g
+            for group in self.optimizer.param_groups:
+                group["lr"] = self.schedule(self.count)
+            self.optimizer.step()
+            self.count += 1
+            elbo, logL = elbo.detach(), logL.detach()
+        return elbo, logL

@@ -1,0 +1,99 @@
+"""DenseNet decoder z -> random-field reconstruction ("f").
+
+Port of ``CNNDecoder`` from
+``generative_physics_informed_pde_tpu/models/decoder.py``:
+z --Dense--> latent image --conv3x3--> [DenseBlock -> TransitionUp]
+--LastDecoding--> a 2-channel image (mean, logsigma), or one channel
+(the mean alone) for a binary, homoscedastic or single-output decode.
+The public layout is the JAX package's: images (B, py, px) out.  The
+latent image is reshaped in Flax's (H, W, C) order so that the dense
+layer's weights carry over unchanged.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from .codec import DenseBlock, LastDecoding, SameConv2d, TransitionUp
+
+
+class CNNDecoder(nn.Module):
+    """``latent_img_size * 2**len(blocks)`` must equal
+    ``target_img_size``."""
+
+    def __init__(self, target_img_size: int, dim_latent: int,
+                 latent_img_size: int = 4, latent_img_features: int = 16,
+                 init_features: int = 32, blocks: Sequence[int] = (3, 5, 3),
+                 growth_rate: int = 8, drop_rate: float = 0.0,
+                 upsample: str = "nearest", binary: bool = False,
+                 homoscedastic: bool = False,
+                 force_single_output: bool = False):
+        super().__init__()
+        out_img = latent_img_size * 2 ** len(blocks)
+        if out_img != target_img_size:
+            raise ValueError(
+                f"latent image {latent_img_size} with {len(blocks)} blocks "
+                f"yields {out_img}, target is {target_img_size}")
+        if upsample != "nearest":
+            raise NotImplementedError(
+                f"upsample={upsample!r}: only 'nearest' is ported")
+        self.target_img_size = target_img_size
+        self.dim_latent = dim_latent
+        self.latent_img_size = latent_img_size
+        self.latent_img_features = latent_img_features
+        self.binary = binary
+        self.homoscedastic = homoscedastic
+        self.force_single_output = force_single_output
+        s = latent_img_size
+        self.Dense_0 = nn.Linear(dim_latent, s * s * latent_img_features)
+        self.Conv_0 = SameConv2d(latent_img_features, init_features, 3)
+        nf = init_features
+        for i, nl in enumerate(blocks):
+            self.add_module(f"DenseBlock_{i}", DenseBlock(
+                nf, nl, growth_rate, drop_rate=drop_rate))
+            nf += nl * growth_rate
+            if i < len(blocks) - 1:
+                self.add_module(f"TransitionUp_{i}", TransitionUp(
+                    nf, nf // 2, drop_rate))
+                nf //= 2
+        self.n_blocks = len(blocks)
+        self.LastDecoding_0 = LastDecoding(nf, self.out_channels, drop_rate)
+        if homoscedastic:
+            self.logsigma = nn.Parameter(torch.zeros(target_img_size,
+                                                     target_img_size))
+
+    @property
+    def out_channels(self) -> int:
+        return 1 if (self.binary or self.force_single_output
+                     or self.homoscedastic) else 2
+
+    @property
+    def dim_in(self) -> int:
+        return self.dim_latent
+
+    @property
+    def dim_out(self) -> int:
+        return self.target_img_size ** 2
+
+    def forward(self, z):
+        """z (B, dim_latent) -> (mean, logsigma), each (B, py, px); the
+        mean alone for binary or single-output decodes."""
+        b, s = z.shape[0], self.latent_img_size
+        x = self.Dense_0(z).reshape(b, s, s, self.latent_img_features)
+        x = self.Conv_0(x.permute(0, 3, 1, 2))  # Flax HWC -> NCHW
+        for i in range(self.n_blocks):
+            x = getattr(self, f"DenseBlock_{i}")(x)
+            if i < self.n_blocks - 1:
+                x = getattr(self, f"TransitionUp_{i}")(x)
+        x = self.LastDecoding_0(x)
+        if self.binary:
+            return torch.sigmoid(x[:, 0])
+        mean = x[:, 0]
+        if self.force_single_output:
+            return mean
+        if self.homoscedastic:
+            return mean, self.logsigma.to(mean.dtype).expand_as(mean)
+        return mean, x[:, 1]

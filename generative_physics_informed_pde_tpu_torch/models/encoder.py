@@ -1,4 +1,4 @@
-"""DenseNet conv encoder x -> (mu_z, logsigma_z), inference mode.
+"""DenseNet conv encoder x -> (mu_z, logsigma_z).
 
 Port of ``CNNEncoder`` and ``SplitHeads`` from
 ``generative_physics_informed_pde_tpu/models/encoder.py``.  The public
@@ -36,7 +36,7 @@ class CNNEncoder(nn.Module):
 
     def __init__(self, imsize: int, latent_dim: int,
                  blocks: Sequence[int] = (3, 5, 3), growth_rate: int = 8,
-                 init_features: int = 32):
+                 init_features: int = 32, drop_rate: float = 0.0):
         super().__init__()
         self.imsize = imsize
         self.latent_dim = latent_dim
@@ -44,10 +44,12 @@ class CNNEncoder(nn.Module):
         nf = init_features
         for i, nl in enumerate(blocks):
             self.add_module(f"DenseBlock_{i}", DenseBlock(
-                nf, nl, growth_rate, bn_size=8, bottleneck=True))
+                nf, nl, growth_rate, bn_size=8, bottleneck=True,
+                drop_rate=drop_rate))
             nf += nl * growth_rate
             self.add_module(f"TransitionDown_{i}",
-                            TransitionDown(nf, nf // 2))
+                            TransitionDown(nf, nf // 2,
+                                           drop_rate=drop_rate))
             nf //= 2
         self.n_blocks = len(blocks)
         self.imsize_out = imsize // (2 ** (len(blocks) + 1))

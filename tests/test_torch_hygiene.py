@@ -75,6 +75,30 @@ def test_default_device_raises_without_a_card(monkeypatch):
         SurrogateBundle.build(dm, (32, 32), 25)
 
 
+def test_training_entry_points_raise_without_a_card(monkeypatch):
+    from generative_physics_informed_pde_tpu_torch.data import DataLoader
+    from generative_physics_informed_pde_tpu_torch.factories import (
+        DataFactory)
+    from generative_physics_informed_pde_tpu_torch.training import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(highres32())
+    preset = DataFactory.FromIdentifier("highres32")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        preset.setup(N_u_max=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        preset.unlabeled(4)
+    rf = fem.GaussianRandomField.from_image(4, 4, 0.4, 0.8, 0.15)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rf.sample(batch_size=2)
+    dl = DataLoader(rf.sample(batch_size=6, device="cpu").numpy())
+    dl.ascending_partition({"a": 3})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dl.construct_dataset_dictionary(identifier="default",
+                                        dtype=torch.float32)
+
+
 def test_importing_chip_smoke_does_not_run_it(capsys):
     sys.path.insert(0, str(ROOT))
     try:
