@@ -13,15 +13,22 @@ its implicit-function VJP in both forms, and train the highres32 recipe
 for 200 SVI steps (128 labeled pairs labeled through K1, 1024 unlabeled
 fields from the port's random field, normals drawn on the host from a
 seeded generator and coloured on the card), then serve the
-trained surrogate.  Both kernels are built from the sources (``nvcc`` into
+trained surrogate.  Then the halo-padded symmetric apply
+``ops/csrc/stencil_sym_blocked.cu`` (K3) runs chained in its own layout, as
+the JAX package's roofline benchmark chains it.  Then the 'highres' 64^2
+recipe: label the preset's 2048 fields (Karhunen-Loeve draws, eigh on the
+card) with the multigrid-preconditioned solve, whose V-cycle sweeps and
+residuals all run on K1, in f32 and f64; differentiate that solve; and
+train the recipe of ``bench.py`` (FFT fields, channel dropout 0.2) for 200
+SVI steps.  All three kernels are built from the sources (``nvcc`` into
 ``build/torch_kernels/``) and held against their plain PyTorch versions on
 the card; the labels are checked against residuals recomputed with the
 plain apply, f64 solves and a dense direct solve, the gradients against
-the plain path and finite differences, and the training against the
-recipe's expectations and a CPU run of three f64 steps with the same
-draws.  Every phase raises on failure, so the script exits non-zero and
-never prints its last line.  Imports torch, numpy, the standard library
-and the port only.
+the plain path, a Jacobi-preconditioned solve and finite differences, and
+the training against the recipe's expectations and CPU runs of three f64
+steps with the same draws (dropout masks included).  Every phase raises
+on failure, so the script exits non-zero and never prints its last line.
+Imports torch, numpy, the standard library and the port only.
 
 Output: progress lines, the card's name and power limit as nvidia-smi
 prints them, one ``{"kernels": [...]}`` line with each kernel's launches on
@@ -77,6 +84,17 @@ FD_STEP, FD_TOL = 1e-4, 1e-12
 # cuDNN and the CPU convolutions sum in another order.
 SVI_CPU_RTOL = 1e-8
 SVI_STEPS = 200
+# K3 chained in its own layout: 8 applies checked bit for bit against the
+# plain chain (f32 values stay finite), then timed.
+K3_CHAIN = 8
+# The 'highres' MG VJP (f64, B=256): kernel path vs plain path (identical
+# applies), vs a Jacobi-preconditioned solve (two PCGs to 1e-10), vs a
+# central difference (as above).
+HR_VJP_B = 256
+MG_JACOBI_RTOL = 1e-8
+# The ELBO's terms reported over the 'highres' training run.
+HR_TERMS = ("elbo", "ARM_unsupervised_DKL_z", "ARM_unsupervised_logL_x",
+            "supervised_logL_x", "supervised_elbo")
 
 
 def say(msg: str) -> None:
@@ -96,9 +114,10 @@ def cuda_time_ms(fn, reps: int, flush=None) -> float:
 
     With ``flush`` (a tensor larger than the 50 MB L2) each call is timed
     alone, after the L2 cache was overwritten outside the timed interval,
-    so it reads from HBM.  Without, ``reps`` calls run back to back behind
-    a device-side sleep that lets the host enqueue them all first, so host
-    launch overhead is not in the time."""
+    so it reads from HBM; a device-side sleep after the flush lets the
+    host enqueue the timed call before the device reaches it, so a slow
+    host's launch overhead is not in the time.  Without, ``reps`` calls
+    run back to back behind such a sleep."""
     import torch
 
     for _ in range(3):
@@ -117,6 +136,7 @@ def cuda_time_ms(fn, reps: int, flush=None) -> float:
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     for s, e in zip(starts, ends):
         flush.zero_()
+        torch.cuda._sleep(200_000)
         s.record()
         fn()
         e.record()
@@ -194,31 +214,37 @@ def true_residual(fom, Y, alphas, vals, apply_plain):
 
 
 class plain_applies:
-    """Route the batched solver's stencil applies (both forms) through
-    their plain PyTorch versions for the duration of a ``with`` block."""
+    """Route the batched solver's stencil applies (both forms) and the
+    V-cycle's through their plain PyTorch versions for the duration of a
+    ``with`` block."""
 
     def __enter__(self):
-        from generative_physics_informed_pde_tpu_torch.fem import \
-            batched_solver
+        from generative_physics_informed_pde_tpu_torch.fem import (
+            batched_solver, multigrid)
         from generative_physics_informed_pde_tpu_torch.ops import (
             apply_stencil_reference, apply_stencil_sym_reference)
 
-        self.mod = batched_solver
-        self.saved = (batched_solver.apply_stencil,
-                      batched_solver.apply_stencil_sym)
-        batched_solver.apply_stencil = apply_stencil_reference
-        batched_solver.apply_stencil_sym = apply_stencil_sym_reference
+        self.targets = ((batched_solver, "apply_stencil",
+                         apply_stencil_reference),
+                        (batched_solver, "apply_stencil_sym",
+                         apply_stencil_sym_reference),
+                        (multigrid, "apply_stencil", apply_stencil_reference))
+        self.saved = [getattr(m, n) for m, n, _ in self.targets]
+        for m, n, f in self.targets:
+            setattr(m, n, f)
         return self
 
     def __exit__(self, *exc):
-        self.mod.apply_stencil, self.mod.apply_stencil_sym = self.saved
+        for (m, n, _), f in zip(self.targets, self.saved):
+            setattr(m, n, f)
 
 
 class injected_draws:
     """Replace the port's samplers (posterior draws, reparametrised draws,
-    minibatch indices) with numpy draws from ``seed`` in call order, on
-    the device of the tensors they feed, for a ``with`` block: two blocks
-    with one seed give a CPU and a card run the same randomness."""
+    minibatch indices, channel-dropout masks) with numpy draws from
+    ``seed`` in call order, on the device of the tensors they feed, for a
+    ``with`` block: two blocks with one seed give a CPU and a card run the
+    same randomness."""
 
     def __init__(self, seed: int):
         self.seed = seed
@@ -228,8 +254,8 @@ class injected_draws:
         import torch
         from generative_physics_informed_pde_tpu_torch.inference import \
             variational
-        from generative_physics_informed_pde_tpu_torch.models import \
-            generative
+        from generative_physics_informed_pde_tpu_torch.models import (
+            codec, generative)
         from generative_physics_informed_pde_tpu_torch.training import \
             trainer
 
@@ -251,9 +277,15 @@ class injected_draws:
             return torch.as_tensor(rng.permutation(num_data)[:batch_size],
                                    device=device)
 
+        def dropout_mask(shape, keep, generator, device):
+            n, c = shape[0], shape[1]
+            return torch.as_tensor(rng.random((n, c)) < keep,
+                                   device=device).reshape(n, c, 1, 1)
+
         self.targets = ((variational, "sample", sample),
                         (generative, "reparametrize", reparametrize),
-                        (trainer, "minibatch_indices", minibatch_indices))
+                        (trainer, "minibatch_indices", minibatch_indices),
+                        (codec, "dropout_mask", dropout_mask))
         self.saved = [getattr(m, n) for m, n, _ in self.targets]
         for m, n, f in self.targets:
             setattr(m, n, f)
@@ -284,13 +316,32 @@ def recipe_params(dtype: str = "float32"):
     return p
 
 
-def solve_grads(fom, alphas, vals, w, sym, tol=None):
+def highres_recipe_params(dtype: str = "float32"):
+    """The 'highres' recipe of bench.py (``build_trainer``): 128 labeled +
+    128 validation pairs, 1024 unlabeled fields, batch 64, Adam 1e-2 with
+    sqrt(0.1) decays at 250/1500, the preset's channel dropout 0.2, no
+    monitor points."""
+    from generative_physics_informed_pde_tpu_torch.training import (
+        TrainerParameters)
+
+    p = TrainerParameters()
+    p.identifier = "highres"
+    p.margs.update(dtype=dtype)
+    p.trainer.update(lr_init=1e-2, N_monitor_interval=10 ** 9)
+    p.scheduler = {"milestones": [250, 1500], "factor": 0.1 ** 0.5}
+    p.data.update(N_u=1024, N_s=128, N_u_max=1024, N_s_max=128, N_val=128,
+                  armortized_bs=64)
+    return p
+
+
+def solve_grads(fom, alphas, vals, w, sym, tol=None, precond="auto"):
     """(loss, d loss / d alphas, d loss / d bc, solver) of
     ``loss = sum(w * solve(alphas, vals))``."""
     from generative_physics_informed_pde_tpu_torch.fem.batched_solver \
         import make_batched_fom_solver
 
-    solve = make_batched_fom_solver(fom.op, fom.profile, sym=sym, tol=tol)
+    solve = make_batched_fom_solver(fom.op, fom.profile, sym=sym, tol=tol,
+                                    precond=precond)
     a = alphas.clone().requires_grad_()
     b = vals.clone().requires_grad_()
     loss = (w * solve(a, b)).sum()
@@ -298,23 +349,23 @@ def solve_grads(fom, alphas, vals, w, sym, tol=None):
     return loss.detach(), a.grad, b.grad, solve
 
 
-def k3_bound_bytes(Ny: int, Nx: int, B: int, itemsize: int) -> int:
-    """Bytes the TPU kernel ``apply_stencil_sym_blocked`` (K3, still to
-    port) must move at its own layout: 4 halo-padded coefficient grids and
-    v read once, the output written once, plus the padded mask.  The
-    layout is the reference's: 128-lane batch blocks, rows padded to a
-    multiple of the tile height plus a halo row each side, columns to a
-    multiple of 8 (``choose_tile_rows``, ``pad_blocked``)."""
-    lanes = 128
-    CP = -(-(Nx + 2) // 8) * 8
-    for TY in (32, 24, 16, 12, 8, 6, 4):
-        R = (-(-Ny // TY)) * TY + 2
-        need = ((2 * (1 + 4) * (TY + 2) + 2 * TY + 1) * CP * lanes
-                * itemsize + R * CP * itemsize)
-        if need <= 13 * 2 ** 20:
-            break
-    grid = -(-B // lanes) * R * CP * lanes * itemsize
-    return 6 * grid + R * CP * itemsize
+def blocked_inputs(grid, B, dtype, gen):
+    """K3's inputs in the halo-padded layout (c_halo, vb, mb) and the same
+    data in K2's layout (coefs4, v, mask), on the card."""
+    import torch
+    from generative_physics_informed_pde_tpu_torch import fem
+    from generative_physics_informed_pde_tpu_torch.ops import (
+        mask_blocked, pad_blocked, pad_coefs_blocked)
+
+    c4, v, mask = stencil_inputs(fem.StencilOperator(grid),
+                                 fem.DirichletProfile(grid), B, dtype, gen,
+                                 sym=True)
+    Ny, Nx = v.shape[0], v.shape[1]
+    c_halo = pad_coefs_blocked(c4.permute(3, 0, 1, 2), Ny, Nx)
+    vb = pad_blocked(v.permute(2, 0, 1), Ny, Nx)
+    mb = torch.as_tensor(mask_blocked(mask[..., 0].cpu().numpy()),
+                         device="cuda")
+    return (c_halo, vb, mb), (c4, v, mask)
 
 
 def rel_diff(a, b) -> float:
@@ -337,15 +388,17 @@ def main() -> int:
         DataFactory)
     from generative_physics_informed_pde_tpu_torch.fem.batched_solver \
         import make_batched_fom_solver
+    from generative_physics_informed_pde_tpu_torch.factories import highres
     from generative_physics_informed_pde_tpu_torch.ops import (
         _build, apply_stencil, apply_stencil_reference, apply_stencil_sym,
+        apply_stencil_sym_blocked, apply_stencil_sym_blocked_reference,
         apply_stencil_sym_reference)
     from generative_physics_informed_pde_tpu_torch.serving import (
         SurrogateBundle)
     from generative_physics_informed_pde_tpu_torch.training import (
         CreateTrainer)
 
-    kernels_ = (apply_stencil, apply_stencil_sym)
+    kernels_ = (apply_stencil, apply_stencil_sym, apply_stencil_sym_blocked)
     main_launches = {k.__name__: 0 for k in kernels_}
     path_launches = {}
 
@@ -719,11 +772,6 @@ def main() -> int:
             f"(L2 flushed), {k_ms_warm * 1e3:.2f} us (L2 warm); plain "
             f"{p_ms * 1e3:.2f} / {p_ms_warm * 1e3:.2f} us; bound "
             f"{bound_ms * 1e3:.2f} us by {bound_by} ({moved / 1e6:.1f} MB)")
-    k3_bytes = k3_bound_bytes(33, 33, 1024, 4)
-    k3_bound_ms = k3_bytes / HBM_BYTES_PER_S * 1e3
-    say(f"  apply_stencil_sym_blocked (K3, to port) at its TPU layout for "
-        f"(33, 33, 1024) f32: bound {k3_bound_ms * 1e3:.2f} us by bytes "
-        f"({k3_bytes / 1e6:.1f} MB)")
     say(f"  launches per label solve: {iters + 1} (K1) / {iters_sym + 1} "
         f"(K2): 1 rhs + one per PCG iteration; per VJP: "
         f"{vjp_iters[False] + 1} (K1) / {vjp_iters[True] + 1} (K2)")
@@ -801,7 +849,335 @@ def main() -> int:
         say(f"  predict bucket {b}: {predict_ms[b]:.3f} ms")
     say(f"  card: {card}")
 
-    # --------------------------------------------------------- 6. records
+
+    # ------------------- 6. K3: the halo-padded symmetric apply, chained
+    say("phase 6: apply_stencil_sym_blocked kernel vs its plain version and "
+        "K2")
+    name = apply_stencil_sym_blocked.__name__
+    worst = 0.0
+    for grid, B, dtype in ((g33, 1024, torch.float32),
+                           (g33, 1024, torch.float64),
+                           (g9, 11, torch.float32),
+                           (g33, 140, torch.float32)):
+        (c_halo, vb, mb), (c4, v, mask) = blocked_inputs(grid, B, dtype, gen)
+        got = apply_stencil_sym_blocked(c_halo, vb, mb)
+        ref = apply_stencil_sym_blocked_reference(c_halo, vb, mb)
+        k2 = apply_stencil_sym(c4, (mask * v).contiguous(), mask)
+        torch.cuda.synchronize()
+        abs_err = (got - ref).abs().max().item()
+        k2_err = (got[1:-1, 1:-1] - k2).abs().max().item()
+        halo = max(e.abs().max().item()
+                   for e in (got[0], got[-1], got[:, 0], got[:, -1]))
+        say(f"  {tuple(vb.shape)} {dtype}: max abs err vs plain {abs_err:.3e},"
+            f" interior vs K2 on the masked input {k2_err:.3e}, max |halo| "
+            f"{halo:.3e} (all must be 0)")
+        if abs_err != 0 or k2_err != 0 or halo != 0:
+            raise AssertionError(f"{name} is not bit-equal to its plain "
+                                 f"version and K2 at {tuple(vb.shape)} "
+                                 f"{dtype}")
+        worst = max(worst, abs_err)
+    errors[name] = (worst, 0.0)
+    (c_halo, vb, mb), _ = blocked_inputs(g33, 1024, torch.float32, gen)
+    start_path()
+    chain = vb
+    for _ in range(K3_CHAIN):
+        chain = apply_stencil_sym_blocked(c_halo, chain, mb)
+    k3_counts = end_path("6 K3 chained apply")
+    plain_chain = vb
+    for _ in range(K3_CHAIN):
+        plain_chain = apply_stencil_sym_blocked_reference(c_halo, plain_chain,
+                                                          mb)
+    say(f"  chained apply v <- K3(c, v, m), {K3_CHAIN} applies at "
+        f"{tuple(vb.shape)} f32: launches {k3_counts}")
+    if k3_counts[name] != K3_CHAIN or not torch.equal(chain, plain_chain) \
+            or not bool(torch.isfinite(chain).all()):
+        raise AssertionError("the K3 chain launched the kernel "
+                             f"{k3_counts[name]} times or differs from the "
+                             "plain chain")
+    state = [vb]
+
+    def k3_step(apply):
+        state[0] = apply(c_halo, state[0], mb)
+
+    R, C, B = vb.shape
+    item = vb.element_size()
+    moved = (4 + 1 + 1) * R * C * B * item + R * C * item
+    flops = 21 * (R - 2) * (C - 2) * B  # 14 as K2 plus 7 input-mask mul
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    timing[name] = dict(
+        ms=cuda_time_ms(lambda: k3_step(apply_stencil_sym_blocked), 100,
+                        flush),
+        ms_l2_warm=cuda_time_ms(lambda: k3_step(apply_stencil_sym_blocked),
+                                200),
+        plain_ms=cuda_time_ms(
+            lambda: k3_step(apply_stencil_sym_blocked_reference), 100, flush),
+        plain_ms_l2_warm=cuda_time_ms(
+            lambda: k3_step(apply_stencil_sym_blocked_reference), 200),
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=moved)
+    tk = timing[name]
+    say(f"  {name} chained {tuple(vb.shape)} f32: {tk['ms'] * 1e3:.2f} us "
+        f"(L2 flushed), {tk['ms_l2_warm'] * 1e3:.2f} us (L2 warm); plain "
+        f"{tk['plain_ms'] * 1e3:.2f} / {tk['plain_ms_l2_warm'] * 1e3:.2f} us;"
+        f" bound {tk['bound_ms'] * 1e3:.2f} us by {tk['bound_by']} "
+        f"({moved / 1e6:.1f} MB)")
+
+    # -------------- 7. 'highres': label the 64^2 pool under the V-cycle
+    say("phase 7: label the 'highres' pool (2048 fields of 64^2) with the "
+        "multigrid-preconditioned solve")
+    t0 = time.perf_counter()
+    dl_hr = DataFactory.FromIdentifier("highres").labeled(device="cuda")
+    draw_s = time.perf_counter() - t0
+    X_hr = dl_hr.X
+    if X_hr.shape != (2048, 64, 64) or not np.isfinite(X_hr).all():
+        raise AssertionError(f"the highres pool is {X_hr.shape}")
+    phys_hr = highres().setup(device="cuda")[0]
+    fom_hr = phys_hr["fom"]
+    solver_hr = fom_hr._batched_solver
+    if solver_hr.mg is None:
+        raise AssertionError("'auto' did not pick the V-cycle at 64^2")
+    per_cycle = solver_hr.mg.applies_per_cycle
+    say(f"  pool drawn in {draw_s:.2f} s (KL, {dl_hr.X.shape[0]} fields; "
+        f"eigh on the card); V-cycle {solver_hr.mg.num_levels} levels, "
+        f"{per_cycle} K1 applies per cycle, maxiter {solver_hr.maxiter}")
+    bce_hr = fem.BoundaryConditionEnsemble.from_factory(
+        "ND", X_hr.shape[0], np.random.default_rng(0))
+    bce_hr.register_function_space("fom", fom_hr.grid)
+    bce_hr.register_function_space("rom", phys_hr["rom"].grid)
+
+    def mg_launches(k, first=1):
+        """K1 launches of one MG-PCG: the rhs (or K lambda) apply, one
+        matvec per iteration, one V-cycle per iteration and one first."""
+        return first + k + (k + 1) * per_cycle
+
+    hr = {}
+    for dtype in (torch.float32, torch.float64):
+        x_hr = torch.as_tensor(X_hr, dtype=dtype, device="cuda")
+        a_hr = torch.exp(fom_hr.pixels.image_to_function(x_hr))
+        v_hr = torch.as_tensor(bce_hr.constrained_values("fom"), dtype=dtype,
+                               device="cuda")
+        start_path()
+        t_s, t_e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t_s.record()
+        Y_hr = fom_hr.solve_batched(a_hr, v_hr)
+        t_e.record()
+        counts = end_path(f"7 highres labels {dtype}")
+        k = fom_hr.last_iterations
+        res = true_residual(fom_hr, Y_hr, a_hr, v_hr,
+                            apply_stencil_reference).max().item()
+        hr[dtype] = dict(Y=Y_hr, alphas=a_hr, vals=v_hr, iterations=k,
+                         launches=counts["apply_stencil"], residual=res,
+                         ms_first=t_s.elapsed_time(t_e))
+        say(f"  {dtype}: {k} PCG iterations, {counts['apply_stencil']} K1 "
+            f"launches ({counts}), true relative residual max {res:.3e}, "
+            f"{hr[dtype]['ms_first']:.1f} ms (first call)")
+        if counts["apply_stencil"] != mg_launches(k) \
+                or sum(counts.values()) != counts["apply_stencil"]:
+            raise AssertionError(f"MG solve launches {counts}, expected "
+                                 f"{mg_launches(k)} of K1 only")
+        if not bool(torch.isfinite(Y_hr).all()) or not 0 < k < 60:
+            raise AssertionError(f"MG labels not finite or {k} iterations")
+    if not hr[torch.float32]["residual"] <= F32_FLOOR \
+            or not hr[torch.float64]["residual"] <= TOL_F64:
+        raise AssertionError("a highres label's true residual exceeds its "
+                             "bound")
+    Y32, Y64 = hr[torch.float32]["Y"], hr[torch.float64]["Y"]
+    hr_rel32 = ((Y32.double() - Y64).norm(dim=1) / Y64.norm(dim=1)).max(
+        ).item()
+    say(f"  f32 vs f64 labels: rel-L2 max {hr_rel32:.3e} (bound "
+        f"{F32_FLOOR:g}); residual bounds f32 {F32_FLOOR:g}, f64 "
+        f"{TOL_F64:g}")
+    if not hr_rel32 <= F32_FLOOR:
+        raise AssertionError("f32 highres labels far from the f64 labels")
+    jac_hr = make_batched_fom_solver(fom_hr.op, fom_hr.profile,
+                                     precond="jacobi")
+    a32, v32 = hr[torch.float32]["alphas"], hr[torch.float32]["vals"]
+    Y_jac = jac_hr(a32, v32)
+    jac_rel = ((Y_jac - Y32).norm(dim=1) / Y32.norm(dim=1)).max().item()
+    say(f"  Jacobi-PCG on the same pool (f32): {jac_hr.iterations} "
+        f"iterations vs {hr[torch.float32]['iterations']} under the V-cycle;"
+        f" labels rel-L2 max {jac_rel:.3e} apart (bound {F32_FLOOR:g})")
+    if not jac_rel <= F32_FLOOR:
+        raise AssertionError("Jacobi and MG labels disagree")
+    for i in (0, 2047):
+        a64 = hr[torch.float64]["alphas"][i].cpu().numpy()
+        direct = fom_hr.solve_direct(a64,
+                                     hr[torch.float64]["vals"][i].cpu().numpy())
+        err = np.abs(Y64[i].cpu().numpy() - direct).max() / np.abs(
+            direct).max()
+        if not err <= DIRECT_RTOL:
+            raise AssertionError(f"highres sample {i}: f64 MG label vs dense "
+                                 f"direct solve {err:.3e}")
+    say(f"  f64 MG labels agree with the dense direct solve on 2 samples "
+        f"(tolerance {DIRECT_RTOL:g})")
+    hr_ms = {str(d).split(".")[-1]: event_ms(
+        lambda d=d: fom_hr.solve_batched(hr[d]["alphas"], hr[d]["vals"]))
+        for d in hr}
+    jac_ms = event_ms(lambda: jac_hr(a32, v32))
+    say(f"  label solve, 2048 fields: MG f32 {hr_ms['float32']:.2f} ms, MG "
+        f"f64 {hr_ms['float64']:.2f} ms, Jacobi f32 {jac_ms:.2f} ms (median "
+        f"of 3)")
+    busy_hr = report_profile(
+        "MG label solve f32",
+        lambda: fom_hr.solve_batched(a32, v32))
+
+    # ------------------------------- 7b. the MG solve's VJP, f64, B=256
+    say(f"phase 7b: gradients of the MG solve, f64, 64^2, B={HR_VJP_B}")
+    a64 = hr[torch.float64]["alphas"][:HR_VJP_B]
+    v64 = hr[torch.float64]["vals"][:HR_VJP_B]
+    w_hr = torch.randn(HR_VJP_B, fom_hr.dim_out, generator=wgen,
+                       dtype=torch.float64).cuda()
+    start_path()
+    _, ga, gb, mg_solver = solve_grads(fom_hr, a64, v64, w_hr, False)
+    counts = end_path("7b MG VJP")
+    k, kadj = mg_solver.iterations, mg_solver.adjoint_iterations
+    mg_vjp_launches = mg_launches(k) + mg_launches(kadj)
+    say(f"  {k} forward + {kadj} adjoint iterations, launches {counts} "
+        f"(expected {mg_vjp_launches} of K1)")
+    if counts["apply_stencil"] != mg_vjp_launches \
+            or sum(counts.values()) != mg_vjp_launches:
+        raise AssertionError("MG VJP launches differ from the count of its "
+                             "applies")
+    with plain_applies():
+        _, pa, pb, _ = solve_grads(fom_hr, a64, v64, w_hr, False)
+    err = max(rel_diff(ga, pa), rel_diff(gb, pb))
+    say(f"  kernel path vs plain path: max rel diff {err:.3e} (tolerance "
+        f"{VJP_PATH_RTOL:g})")
+    if not err <= VJP_PATH_RTOL:
+        raise AssertionError("MG VJP: kernel path differs from plain path")
+    _, ja, jb, jsolver = solve_grads(fom_hr, a64, v64, w_hr, False,
+                                     precond="jacobi")
+    err = max(rel_diff(ga, ja), rel_diff(gb, jb))
+    say(f"  vs Jacobi-PCG solve + VJP ({jsolver.iterations} + "
+        f"{jsolver.adjoint_iterations} iterations): max rel diff {err:.3e} "
+        f"(tolerance {MG_JACOBI_RTOL:g})")
+    if not err <= MG_JACOBI_RTOL:
+        raise AssertionError("MG and Jacobi gradients disagree")
+    d_a = a64 * torch.randn(a64.shape, generator=wgen,
+                            dtype=torch.float64).cuda()
+    d_b = torch.randn(v64.shape, generator=wgen, dtype=torch.float64).cuda()
+    fd_mg = make_batched_fom_solver(fom_hr.op, fom_hr.profile, tol=FD_TOL)
+    with torch.no_grad():
+        lp = (w_hr * fd_mg(a64 + FD_STEP * d_a, v64 + FD_STEP * d_b)).sum()
+        lm = (w_hr * fd_mg(a64 - FD_STEP * d_a, v64 - FD_STEP * d_b)).sum()
+    fd = ((lp - lm) / (2 * FD_STEP)).item()
+    dd = ((ga * d_a).sum() + (gb * d_b).sum()).item()
+    err = abs(dd - fd) / abs(fd)
+    say(f"  directional derivative {dd:.12e} vs central difference "
+        f"{fd:.12e}: rel {err:.3e} (tolerance {VJP_FD_RTOL:g})")
+    if not err <= VJP_FD_RTOL:
+        raise AssertionError("MG VJP disagrees with finite differences")
+    mg_vjp_ms = event_ms(lambda: solve_grads(fom_hr, a64, v64, w_hr, False))
+    say(f"  MG solve + VJP, {HR_VJP_B} fields f64: {mg_vjp_ms:.2f} ms "
+        f"(median of 3)")
+
+    # ------------------------- 7c. train the 'highres' recipe (bench.py)
+    say(f"phase 7c: 'highres' SVI training (bench.py recipe), {SVI_STEPS} "
+        "steps f32")
+    rf_fft = fem.GaussianRandomField.from_image(64, 64, 0.4, 0.8, 0.04,
+                                                method="fft")
+    start_path()
+    t0 = time.perf_counter()
+    dl_t = DataLoader(rf_fft.sample(torch.Generator().manual_seed(0), 256,
+                                    dtype=torch.float64, device="cuda"
+                                    ).cpu().numpy())
+    dlu_t = DataLoader(rf_fft.sample(torch.Generator().manual_seed(1), 1024,
+                                     dtype=torch.float64, device="cuda"
+                                     ).cpu().numpy())
+    dlu_t.lock_physics_assembly()
+    trainer_hr = CreateTrainer(highres_recipe_params(), dl_t, dlu_t,
+                               device="cuda")
+    setup_hr_s = time.perf_counter() - t0
+    step_logs = []
+    step_fn = trainer_hr.step
+
+    def logged_step():
+        logs = step_fn()
+        step_logs.append([logs[k] for k in HR_TERMS])
+        return logs
+
+    trainer_hr.step = logged_step  # records the ELBO's terms of each step
+    t_s, t_e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t_s.record()
+    trainer_hr.run(SVI_STEPS, verbose=False)
+    t_e.record()
+    hr_train_counts = end_path("7c highres train")
+    trainer_hr.step = step_fn
+    terms = torch.tensor([[float(v) for v in row] for row in step_logs],
+                         dtype=torch.float64)
+    run_hr_s = t_s.elapsed_time(t_e) / 1e3
+    elbos_hr = trainer_hr.elbos()
+    res_hr = trainer_hr.results()
+    say(f"  set-up (256 labels via MG-PCG on K1, f64; FFT draws) "
+        f"{setup_hr_s:.2f} s; {SVI_STEPS} steps + final refinement "
+        f"{run_hr_s:.2f} s; launches {hr_train_counts}")
+    first, last = elbos_hr[:20].mean().item(), elbos_hr[-20:].mean().item()
+    say(f"  ELBO step 0 {elbos_hr[0].item():.6g}, mean steps 0-19 "
+        f"{first:.6g}, steps {SVI_STEPS - 20}-{SVI_STEPS - 1} {last:.6g}; "
+        f"results {res_hr}")
+    for j, k in enumerate(HR_TERMS):
+        a, b = terms[:20, j], terms[-20:, j]
+        say(f"    {k:>24s}: step 0 {terms[0, j].item():.6g}; steps 0-19 "
+            f"mean {a.mean().item():.6g} median {a.median().item():.6g}; "
+            f"steps {SVI_STEPS - 20}-{SVI_STEPS - 1} mean "
+            f"{b.mean().item():.6g} median {b.median().item():.6g}")
+    if hr_train_counts["apply_stencil"] == 0:
+        raise AssertionError("the highres training path launched "
+                             "apply_stencil 0 times")
+    if elbos_hr.shape != (SVI_STEPS,) \
+            or not bool(torch.isfinite(elbos_hr).all()) or not last > first:
+        raise AssertionError("the highres ELBO is not finite and rising")
+    if not all(np.isfinite(res_hr[k]) for k in ("relerr_y", "r2_y",
+                                                "logscore_y")):
+        raise AssertionError(f"highres results() not finite: {res_hr}")
+
+    def hr_steps(n):
+        for _ in range(n):
+            trainer_hr.step()
+
+    hr_steps(5)
+    t_s, t_e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t_s.record()
+    hr_steps(100)
+    t_e.record()
+    torch.cuda.synchronize()
+    hr_step_ms = t_s.elapsed_time(t_e) / 100
+    say(f"  SVI steps (f32, batch 64 + 128 labeled, dropout 0.2, PE every "
+        f"8th): {1e3 / hr_step_ms:.2f} steps/s over 100 steps (CUDA events)")
+    busy_hr_svi = report_profile("50 'highres' SVI steps",
+                                 lambda: hr_steps(50), 50 * hr_step_ms)
+
+    say("  3 f64 'highres' SVI steps, card vs CPU (plain path), same draws "
+        "and dropout masks")
+    elbo3 = {}
+    state = None
+    for run, device in (("card", "cuda"), ("cpu", "cpu")):
+        dl3 = DataLoader(dl_t.X, Y=dl_t.Y, BCE=dl_t.BCE,
+                         F_ROM_BC=dl_t.F_ROM_BC)
+        dlu3 = DataLoader(dlu_t.X)
+        dlu3.lock_physics_assembly()
+        tr = CreateTrainer(highres_recipe_params("float64"), dl3, dlu3,
+                           device=device)
+        if state is None:
+            state = {k: v.detach().cpu().clone()
+                     for k, v in tr.model.state_dict().items()}
+        else:
+            tr.model.load_state_dict(state)
+        with injected_draws(12):
+            for _ in range(3):
+                tr.step()
+        elbo3[run] = tr.elbos().double()
+    err = ((elbo3["card"] - elbo3["cpu"]).abs()
+           / elbo3["cpu"].abs()).max().item()
+    say(f"  ELBOs card {elbo3['card'].tolist()} vs CPU "
+        f"{elbo3['cpu'].tolist()}: max rel {err:.3e} (tolerance "
+        f"{SVI_CPU_RTOL:g})")
+    if not err <= SVI_CPU_RTOL:
+        raise AssertionError("f64 highres SVI steps on the card differ from "
+                             "the CPU")
+
+    # --------------------------------------------------------- 8. records
     say(f"done in {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     src = "generative_physics_informed_pde_tpu_torch/ops/csrc/"
@@ -811,13 +1187,24 @@ def main() -> int:
          {"launches_per_label_solve": iters + 1,
           "launches_per_vjp": vjp_iters[False] + 1,
           "label_solve_ms": label_ms, "vjp_ms": vjp_ms[False],
-          "label_solve_busy_share": busy_label}),
+          "label_solve_busy_share": busy_label,
+          "highres_mg": {
+              "launches_per_label_solve": {
+                  str(d).split(".")[-1]: hr[d]["launches"] for d in hr},
+              "pcg_iterations": {
+                  str(d).split(".")[-1]: hr[d]["iterations"] for d in hr},
+              "launches_per_vjp": mg_vjp_launches,
+              "label_solve_ms": hr_ms, "jacobi_label_solve_ms": jac_ms,
+              "jacobi_iterations": jac_hr.iterations,
+              "vjp_ms": mg_vjp_ms, "label_solve_busy_share": busy_hr}}),
         ("apply_stencil_sym", "stencil_sym.cu", f"{tpu}:129",
          "_make_sym_kernel",
          {"launches_per_label_solve": iters_sym + 1,
           "launches_per_vjp": vjp_iters[True] + 1,
           "label_solve_ms": sym_ms, "vjp_ms": vjp_ms[True],
           "label_solve_busy_share": busy_sym}),
+        ("apply_stencil_sym_blocked", "stencil_sym_blocked.cu", f"{tpu}:287",
+         "_make_sym_blocked_kernel", {"chained": True}),
     ]
     kernels = {"kernels": [{
         "name": name,
@@ -841,6 +1228,8 @@ def main() -> int:
         # paths that run no stencil kernel in their steady state
         "paths": {
             "svi": {"steps_per_s": steps_per_s, "busy_share": busy_svi},
+            "svi_highres": {"steps_per_s": 1e3 / hr_step_ms,
+                            "busy_share": busy_hr_svi},
             "predict_ms": {str(b): t for b, t in predict_ms.items()}}}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

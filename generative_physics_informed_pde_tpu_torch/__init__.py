@@ -8,12 +8,14 @@ first use into ``build/torch_kernels/``.  Every entry point takes
 ``device=`` and defaults to ``"cuda"``; without a card it raises unless
 the caller asks for ``device="cpu"``.
 
-Ported so far (the highres32 recipe): the structured-grid FEM, the
-batched Jacobi-PCG solve on the stencil kernels (7-grid and symmetric
-4-grid forms) with its implicit-function VJP, the Cholesky random field,
-the data loader and preset, the dense ROM solve, the DenseNet codec in
-train and eval mode, the ELBO, the prediction ensemble, the analysis
-metrics, the SVI trainer and pad-to-bucket serving.
+Ported so far (the highres32 and 'highres' 64^2 recipes): the
+structured-grid FEM, the batched PCG solve on the stencil kernels (7-grid
+and symmetric 4-grid forms) with its implicit-function VJP, Jacobi or the
+multigrid V-cycle, the halo-padded symmetric apply, the Cholesky,
+Karhunen-Loeve and FFT random fields, the data loader and presets, the
+dense ROM solve, the DenseNet codec in train and eval mode with seeded
+channel dropout, the ELBO, the prediction ensemble, the analysis metrics,
+the SVI trainer and pad-to-bucket serving.
 """
 
 __version__ = "0.1.0"

@@ -2,6 +2,6 @@
 (``data.py``)."""
 
 from .data import DataFactory
-from .model import ModelFactory, highres32
+from .model import ModelFactory, highres, highres32
 
-__all__ = ["DataFactory", "ModelFactory", "highres32"]
+__all__ = ["DataFactory", "ModelFactory", "highres", "highres32"]

@@ -1,13 +1,20 @@
 """Named data presets: a random field plus the labeled/unlabeled pools.
 
-Port of the ``highres32`` preset of
-``generative_physics_informed_pde_tpu/factories/data.py``: 1024 labeled
-fields and 20480 unlabeled ones from a 32^2 squared-exponential field
-(mean 0.4, stddev 0.8, corrlength 0.15, Cholesky factor).  The labeled
-fields are read read-only from ``cdata/highres32.labeled.npz``; the
-unlabeled ones are drawn from the port's random field with the caller's
-generator, so the 168 MB unlabeled file is never read.  Nothing here
-writes a dataset cache.
+Port of the ``highres`` and ``highres32`` presets of
+``generative_physics_informed_pde_tpu/factories/data.py``:
+
+* ``highres``: 2048 labeled and 20480 unlabeled fields from a 64^2
+  squared-exponential field (mean 0.4, stddev 0.8, corrlength 0.04,
+  adaptive Karhunen-Loeve truncation);
+* ``highres32``: 1024 labeled and 20480 unlabeled fields from a 32^2 field
+  (mean 0.4, stddev 0.8, corrlength 0.15, Cholesky factor).
+
+A labeled pool is read read-only from ``cdata/<preset>.labeled.npz`` where
+that file exists (``highres32``), else drawn from the preset's field with a
+generator seeded 0; unlabeled fields are drawn with the caller's generator
+(seeded 1 by default), so the 168 MB unlabeled file is never read.  The
+reference seeds its draws 0 and 1 the same way.  Nothing here writes a
+dataset cache.
 """
 
 from __future__ import annotations
@@ -49,10 +56,25 @@ class DataFactory:
                            f"identifier {identifier!r}")
         return factory_class(*args, **kwargs)
 
-    def labeled(self) -> DataLoader:
-        """The labeled pool's fields, read-only from
-        ``<path>/<identifier>.labeled.npz``."""
+    def _draw(self, N: int, generator: torch.Generator, device) -> np.ndarray:
+        """``N`` fields in float64 on ``device``, in batches of the
+        field's ``max_sample_batch``, returned on the host."""
+        step = self._rfs.max_sample_batch
+        return np.concatenate([
+            self._rfs.sample(generator, batch_size=min(step, N - i),
+                             dtype=torch.float64, device=device).cpu().numpy()
+            for i in range(0, N, step)])
+
+    def labeled(self, device="cuda") -> DataLoader:
+        """The labeled pool's fields: read-only from
+        ``<path>/<identifier>.labeled.npz`` where it exists, else drawn on
+        ``device`` with a generator seeded 0."""
         file = self.path / f"{self.identifier}.labeled.npz"
+        if not file.exists():
+            device = resolve_device(device)
+            return DataLoader(self._draw(self._N,
+                                         torch.Generator().manual_seed(0),
+                                         device))
         with np.load(file, allow_pickle=False) as state:
             X = np.array(state["X"], dtype=np.float64)
             h = bytes(state["hash"]).decode() if "hash" in state else None
@@ -65,12 +87,13 @@ class DataFactory:
                   generator: Optional[torch.Generator] = None,
                   device="cuda") -> DataLoader:
         """``N_u_max`` (default: the preset's count) unlabeled fields drawn
-        in float64 on ``device`` from the preset's random field."""
+        in float64 on ``device`` from the preset's random field with
+        ``generator`` (default: seeded 1)."""
         device = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator().manual_seed(1)
         N = self._N_unsupervised if N_u_max is None else int(N_u_max)
-        X = self._rfs.sample(generator, batch_size=N, dtype=torch.float64,
-                             device=device)
-        dlu = DataLoader(X.cpu().numpy())
+        dlu = DataLoader(self._draw(N, generator, device))
         dlu.lock_physics_assembly()
         return dlu
 
@@ -78,7 +101,20 @@ class DataFactory:
               generator: Optional[torch.Generator] = None, device="cuda"):
         """-> (labeled loader, unlabeled loader)."""
         device = resolve_device(device)
-        return self.labeled(), self.unlabeled(N_u_max, generator, device)
+        return (self.labeled(device),
+                self.unlabeled(N_u_max, generator, device))
+
+
+class highres(DataFactory):
+    """64x64 fields, adaptive Karhunen-Loeve truncation."""
+
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self._N = 2 * 1024
+        self._N_unsupervised = 2048 * 10
+        self._rfs = GaussianRandomField.from_image(
+            64, 64, mean=0.4, stddev=0.80, corrlength=0.04,
+            truncation="adaptive")
 
 
 class highres32(DataFactory):
@@ -92,4 +128,4 @@ class highres32(DataFactory):
             32, 32, mean=0.4, stddev=0.80, corrlength=0.15, truncation=None)
 
 
-_REGISTRY = {"highres32": highres32}
+_REGISTRY = {"highres": highres, "highres32": highres32}

@@ -1,6 +1,6 @@
 """Named model presets wiring physics and networks into models.
 
-Port of ``ModelFactory`` and its ``highres32`` preset from
+Port of ``ModelFactory`` and its ``highres`` and ``highres32`` presets from
 ``generative_physics_informed_pde_tpu/factories/model.py``: the fom/rom
 physics, the decoder, the encoder, gp and g wired into a
 ``GenerativeModel``.  The other presets and the reduced-precision, fused
@@ -36,18 +36,25 @@ def fetch_dtype(dtype: str) -> torch.dtype:
     raise ValueError(f"dtype option not recognized: {dtype}")
 
 
+# Flax's ``lecun_normal``: a standard normal truncated to [-2, 2], scaled so
+# that the variance is 1/fan_in (the truncated normal's std is 0.8796...)
+_TRUNC_STD = 0.87962566103423978
+
+
 @torch.no_grad()
 def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Seeded init in the spirit of Flax's defaults: conv and dense kernels
-    normal with std 1/sqrt(fan_in), biases zero, BatchNorm scale one and
-    bias zero with running stats (0, 1); other parameters keep their
-    constructor values (the logsigmas start at one)."""
+    """Seeded init with Flax's default distributions: conv and dense
+    kernels ``lecun_normal`` (truncated normal, variance 1/fan_in), biases
+    zero, BatchNorm scale one and bias zero with running stats (0, 1);
+    other parameters keep their constructor values (the logsigmas start at
+    one)."""
     for m in module.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             fan_in = m.weight[0].numel()
-            w = torch.randn(m.weight.shape, generator=generator,
-                            dtype=torch.float64) / math.sqrt(fan_in)
-            m.weight.copy_(w)
+            w = torch.empty(m.weight.shape, dtype=torch.float64)
+            torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
+                                        generator=generator)
+            m.weight.copy_(w / (_TRUNC_STD * math.sqrt(fan_in)))
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, BatchNorm):
@@ -56,7 +63,11 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 class ModelFactory:
-    """Base factory: a parameter dict with ``set`` overrides."""
+    """Base factory: a parameter dict with ``set`` overrides; a preset
+    names its codec widths in ``_decoder`` / ``_encoder``."""
+
+    _decoder: dict
+    _encoder: dict
 
     def __init__(self, **kwargs):
         self.params = {
@@ -118,8 +129,26 @@ class ModelFactory:
         model.to(device=device, dtype=self.dtype).eval()
         return physics, model, DiscriminativeModel(model), encoder, self.dtype
 
-    def setup(self, device="cuda", generator=None):
-        raise NotImplementedError
+    def setup(self, device="cuda", generator: Optional[torch.Generator] = None):
+        """-> (physics, model, discriminative, encoder, dtype) on
+        ``device``, weights drawn from ``generator`` (default seed 0)."""
+        device = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        physics = self._setup_physics(device)
+        target = self._gp("nx_rom") * 2 ** self._gp("num_refines")
+        decoder = CNNDecoder(
+            target_img_size=target, dim_latent=self._gp("dim_latent"),
+            upsample="nearest", drop_rate=self.params["droprate"],
+            binary=self.params["binary_field"],
+            homoscedastic=self.params["homoscedastic"], **self._decoder)
+        encoder = CNNEncoder(imsize=target,
+                             latent_dim=self._gp("dim_latent"),
+                             drop_rate=self.params["droprate"],
+                             **self._encoder)
+        if not self.params["use_encoder"]:
+            encoder = None
+        return self._closure(physics, encoder, decoder, device, generator)
 
     @classmethod
     def FromIdentifier(cls, identifier: str, *args, **kwargs):
@@ -131,8 +160,29 @@ class ModelFactory:
         return factory_class(*args, **kwargs)
 
 
+class highres(ModelFactory):
+    """64x64 FOM / 8x8 ROM on 'ND', channel dropout 0.2 -- the recipe of
+    ``bench.py``."""
+
+    _decoder = dict(latent_img_size=8, latent_img_features=1,
+                    init_features=6, blocks=(1, 2, 1), growth_rate=4)
+    _encoder = dict(blocks=(1, 2, 1), growth_rate=4, init_features=6)
+
+    def __init__(self, **kwargs):
+        super().__init__()
+        self.params.update(
+            ptype="ND", dim_latent=64, binary_field=False, dtype="float32",
+            nx_rom=8, ny_rom=8, eff_property_map_hidden_layers=0,
+            num_refines=3, droprate=0.2)
+        self.set(kwargs)
+
+
 class highres32(ModelFactory):
     """32x32 FOM / 4x4 ROM on 'NDP' -- the example-notebook recipe."""
+
+    _decoder = dict(latent_img_size=8, latent_img_features=1,
+                    init_features=4, blocks=(1, 1), growth_rate=4)
+    _encoder = dict(blocks=(1, 1), growth_rate=4, init_features=4)
 
     def __init__(self, **kwargs):
         super().__init__()
@@ -142,28 +192,5 @@ class highres32(ModelFactory):
             homoscedastic=False)
         self.set(kwargs)
 
-    def setup(self, device="cuda", generator: Optional[torch.Generator] = None):
-        """-> (physics, model, discriminative, encoder, dtype) on
-        ``device``, weights drawn from ``generator`` (default seed 0)."""
-        device = resolve_device(device)
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        physics = self._setup_physics(device)
-        target = self._gp("nx_rom") * 2 ** self._gp("num_refines")
-        decoder = CNNDecoder(
-            target_img_size=target, dim_latent=self._gp("dim_latent"),
-            latent_img_size=8, latent_img_features=1, init_features=4,
-            blocks=(1, 1), growth_rate=4, drop_rate=self.params["droprate"],
-            upsample="nearest", binary=self.params["binary_field"],
-            homoscedastic=self.params["homoscedastic"])
-        encoder = CNNEncoder(imsize=target,
-                             latent_dim=self._gp("dim_latent"),
-                             blocks=(1, 1), growth_rate=4, init_features=4,
-                             drop_rate=self.params["droprate"])
-        if not self.params["use_encoder"]:
-            encoder = None
-        return self._closure(physics, encoder, decoder, device, generator)
 
-
-
-_REGISTRY = {"highres32": highres32}
+_REGISTRY = {"highres": highres, "highres32": highres32}

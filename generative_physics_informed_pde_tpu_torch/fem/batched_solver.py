@@ -7,23 +7,30 @@ scalars reduce over the two spatial axes, and every stencil apply of the
 solve -- the PCG matvec, the rhs, and in the backward the adjoint PCG's
 matvec and the ``K lambda`` term -- goes through a stencil kernel of
 ``ops/stencil.py``: the 7-grid ``apply_stencil`` by default, the symmetric
-4-grid ``apply_stencil_sym`` with ``sym=True``.  Jacobi preconditioning
-only: the ``'auto'`` gate resolves to Jacobi below 64^2, and the multigrid
-V-cycle is not ported yet.
+4-grid ``apply_stencil_sym`` with ``sym=True``.  The preconditioner is
+Jacobi or the multigrid V-cycle of ``fem/multigrid.py`` (whose smoother
+and residual run on ``apply_stencil``), chosen by the reference's
+``'auto'`` gate: multigrid at min dim >= 64 with even dims and the
+standard profile.
 
 The solve is a ``torch.autograd.Function`` (the reference's
 ``jax.custom_vjp``): its backward is one adjoint batched PCG on the same
-operator plus two cheap contractions.  The stiffness operator is
-self-adjoint and the reference has no backward Pallas kernel, so the
-backward reuses the forward's stencil kernels and needs none of its own.
+operator, preconditioned by the forward's V-cycle levels, plus two cheap
+contractions.  The stiffness operator is self-adjoint and the reference
+has no backward Pallas kernel, so the backward reuses the forward's
+stencil kernels and needs none of its own.
 
-Left out as TPU-only: ``precond_dtype`` (a bf16 V-cycle), the
-``optimization_barrier`` fence around the preconditioner, the
-``effective_platform()`` gates and the ``use_pallas`` switch (on a card
-the apply is always the hand-written kernel).
+Left out as TPU-only: the bf16 V-cycle default (``precond_dtype`` resolves
+to float32 off a TPU, as in the reference), the ``optimization_barrier``
+fence around the preconditioner, the ``effective_platform()`` gates and
+the ``use_pallas`` switch (on a card the apply is always the hand-written
+kernel).
 """
 
 from __future__ import annotations
+
+import dataclasses
+import warnings
 
 import numpy as np
 import torch
@@ -102,8 +109,8 @@ class _Solve(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, solver, alphas, bc_values):
-        y_full, coefs, mask, tol = solver._forward(alphas, bc_values)
-        ctx.solver, ctx.tol = solver, tol
+        y_full, coefs, mask, tol, levels = solver._forward(alphas, bc_values)
+        ctx.solver, ctx.tol, ctx.levels = solver, tol, levels
         ctx.dtypes = (alphas.dtype, bc_values.dtype)
         ctx.save_for_backward(y_full, coefs, mask)
         return y_full[:, solver._idx("free", y_full.device)]
@@ -117,9 +124,11 @@ class _Solve(torch.autograd.Function):
         ybar_full = torch.zeros((B, s.Ny * s.Nx), dtype=ybar.dtype,
                                 device=device)
         ybar_full[:, s._idx("free", device)] = ybar
+        # the adjoint PCG reuses the forward's V-cycle levels
+        precond, _ = s._precond(coefs, mask, ctx.levels)
         lam_g, s.adjoint_iterations = _batched_pcg(
             lambda v: apply(coefs, mask * v, mask), s._to_blast(ybar_full),
-            mask, s._jacobi(coefs, mask), ctx.tol, s.maxiter)
+            mask, precond, ctx.tol, s.maxiter)
         alpha_bar = -s.op.cell_bilinear(s._from_blast(lam_g), y_full)
         # bc gradient: the direct part plus the coupling through K
         Klam = s._from_blast(apply(coefs, lam_g, torch.ones_like(mask)))
@@ -140,22 +149,47 @@ class BatchedFomSolver:
     and ``adjoint_iterations`` that of the last backward."""
 
     def __init__(self, op: StencilOperator, profile, *, tol=None,
-                 maxiter=None, precond: str = "auto", sym: bool = False):
+                 maxiter=None, precond: str = "auto", sym: bool = False,
+                 precond_dtype: str | None = None):
         grid = op.grid
         if precond not in ("auto", "mg", "jacobi"):
             raise ValueError(f"precond must be 'auto', 'mg' or 'jacobi', "
                              f"got {precond!r}")
+        # the V-cycle's level masks assume the standard left/right
+        # Dirichlet profile; for any other constraint set multigrid would
+        # smooth the wrong dof set
         from .bc import DirichletProfile
         std_profile = np.array_equal(
             np.asarray(profile.free_mask),
             np.asarray(DirichletProfile(grid).free_mask))
-        mg_ok = (min(grid.nx, grid.ny) >= 64 and grid.nx % 2 == 0
-                 and grid.ny % 2 == 0 and std_profile)
-        if precond == "mg" or (precond == "auto" and mg_ok):
-            raise NotImplementedError(
-                f"the multigrid preconditioner the reference uses at "
-                f"{grid.nx}x{grid.ny} is not ported yet; pass "
-                "precond='jacobi'")
+        if precond == "auto":
+            mg_ok = (min(grid.nx, grid.ny) >= 64 and grid.nx % 2 == 0
+                     and grid.ny % 2 == 0 and std_profile)
+            precond = "mg" if mg_ok else "jacobi"
+            if not mg_ok and min(grid.nx, grid.ny) >= 64:
+                if grid.nx % 2 or grid.ny % 2:
+                    why = ("an odd grid dimension prevents coarsening; pad "
+                           "the grid to even dims to enable it")
+                else:
+                    why = ("a non-standard constraint profile (the V-cycle "
+                           "level masks assume the left/right "
+                           "DirichletProfile)")
+                warnings.warn(
+                    f"auto precond chose Jacobi-PCG for {grid.nx}x{grid.ny} "
+                    f"because {why}; at this size multigrid-PCG needs far "
+                    "fewer iterations where it applies.", stacklevel=2)
+        self.mg = None
+        if precond == "mg":
+            if not std_profile:
+                raise ValueError(
+                    "precond='mg' requires the standard left/right "
+                    "DirichletProfile (the V-cycle level masks assume it); "
+                    "use 'jacobi' for custom constraint sets")
+            from .multigrid import MultigridPreconditioner
+            # the reference's bf16 default is for a TPU; off it, float32
+            self.mg = MultigridPreconditioner.for_grid(
+                grid, dtype=precond_dtype or "float32")
+            maxiter = maxiter or 60
         # the reference refuses sym=True at >= 256^2 on a TPU, a runtime
         # fault of that chip; no such refusal here
         self.op = op
@@ -186,14 +220,24 @@ class BatchedFomSolver:
     def _from_blast(self, grids):
         return grids.permute(2, 0, 1).reshape(-1, self.Ny * self.Nx)
 
-    @staticmethod
-    def _jacobi(coefs, mask):
-        diag = coefs[0]
-        inv_diag = mask / torch.where(diag <= 0, 1.0, diag)
-        return lambda r: inv_diag * r
+    def _precond(self, coefs, mask, levels=None, alphas=None):
+        """-> (precond r -> z, V-cycle levels): Jacobi on ``coefs[0]``, or
+        the V-cycle on ``levels`` (built from ``alphas`` when None; the
+        VJP passes the forward's).  An f64 solve runs the f64 V-cycle."""
+        if self.mg is None:
+            diag = coefs[0]
+            inv_diag = mask / torch.where(diag <= 0, 1.0, diag)
+            return (lambda r: inv_diag * r), None
+        mg = self.mg
+        if coefs.dtype == torch.float64:
+            mg = dataclasses.replace(mg, dtype="float64")
+        if levels is None:
+            levels = mg.setup(alphas)
+        return (lambda r: mg.apply(levels, r)), levels
 
     def _forward(self, alphas, bc_values):
-        """The forward solve: -> (y_full (B, n_nodes), coefs, mask, tol)."""
+        """The forward solve: -> (y_full (B, n_nodes), coefs, mask, tol,
+        V-cycle levels or None)."""
         dtype, device = alphas.dtype, alphas.device
         tol = self.tol if self.tol is not None else (
             1e-10 if dtype == torch.float64 else 2e-6)
@@ -209,10 +253,11 @@ class BatchedFomSolver:
         bc_full[:, self._idx("con", device)] = bc_values.to(dtype)
         bc_g = self._to_blast(bc_full)
         rhs = -apply(coefs, bc_g, torch.ones_like(mask))
+        precond, levels = self._precond(coefs, mask, alphas=alphas)
         y_free_g, self.iterations = _batched_pcg(
-            lambda v: apply(coefs, mask * v, mask), rhs, mask,
-            self._jacobi(coefs, mask), tol, self.maxiter)
-        return self._from_blast(y_free_g + bc_g), coefs, mask, tol
+            lambda v: apply(coefs, mask * v, mask), rhs, mask, precond, tol,
+            self.maxiter)
+        return self._from_blast(y_free_g + bc_g), coefs, mask, tol, levels
 
     def __call__(self, alphas: torch.Tensor, bc_values: torch.Tensor):
         return _Solve.apply(self, alphas, bc_values)
@@ -220,9 +265,17 @@ class BatchedFomSolver:
 
 def make_batched_fom_solver(op: StencilOperator, profile, *, tol=None,
                             maxiter=None, precond: str = "auto",
-                            sym: bool = False) -> BatchedFomSolver:
+                            sym: bool = False,
+                            precond_dtype: str | None = None
+                            ) -> BatchedFomSolver:
     """Build the batched differentiable solver (see
-    :class:`BatchedFomSolver`).  ``sym=True`` runs every stencil apply of
-    the solve and its VJP in the symmetric 4-grid form."""
+    :class:`BatchedFomSolver`).  ``precond``: 'jacobi' | 'mg' | 'auto'
+    (the V-cycle on grids with both dims even, min dim >= 64 and the
+    standard profile, else Jacobi, with a warning at >= 64).
+    ``precond_dtype``: the V-cycle's dtype for f32 solves (default
+    float32); f64 solves run it in float64.  ``sym=True`` runs every
+    outer stencil apply of the solve and its VJP in the symmetric 4-grid
+    form (the V-cycle keeps the 7-grid form, as in the reference)."""
     return BatchedFomSolver(op, profile, tol=tol, maxiter=maxiter,
-                            precond=precond, sym=sym)
+                            precond=precond, sym=sym,
+                            precond_dtype=precond_dtype)

@@ -1,0 +1,176 @@
+"""Matrix-free geometric multigrid preconditioner for the batched solver.
+
+Port of ``generative_physics_informed_pde_tpu/fem/multigrid.py``: a
+symmetric V-cycle on the nested grid hierarchy, built from the same
+closed-form stencils as the fine operator --
+
+* coarse conductivities: the geometric mean over the 8 fine triangles of
+  each coarse square,
+* smoother: damped Jacobi (symmetric, batched, mask-aware),
+* transfer: linear P1 interpolation along the triangulation diagonal and
+  its transpose,
+
+on batch-last ``(Ny, Nx, B)`` arrays.  Every smoother sweep and every
+residual is the masked 7-point apply ``mask * K z``, i.e. the function of
+kernel K1, so each goes through ``ops.stencil.apply_stencil``: the
+hand-written CUDA kernel on a card, its plain version on the CPU.  The
+reference's ``optimization_barrier`` fences are left out: they keep XLA
+from fusing the V-cycle into kernels that fault a TPU runtime.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .grid import StructuredTriGrid
+from .assembly import StencilOperator
+from .bc import DirichletProfile
+from ..ops.stencil import apply_stencil
+
+_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def _coarsen_alpha_cellgrid(a: torch.Tensor) -> torch.Tensor:
+    """Cell-grid conductivities (ny, nx, 2, B) -> (ny/2, nx/2, 2, B) via
+    the geometric mean over each coarse square's 8 fine triangles."""
+    ny, nx = a.shape[0], a.shape[1]
+    blocks = torch.log(a).reshape(ny // 2, 2, nx // 2, 2, 2, a.shape[-1])
+    m = blocks.mean(dim=(1, 3, 4))                        # (ny/2, nx/2, B)
+    return torch.exp(m)[:, :, None, :].expand(-1, -1, 2, -1).contiguous()
+
+
+def _interleave(a: torch.Tensor, b: torch.Tensor, axis: int) -> torch.Tensor:
+    """a (n slices) and b (n-1 slices) along ``axis`` -> (2n-1 slices):
+    a0 b0 a1 b1 ... a_{n-1}.  Strided slice assignment (the reference's
+    stack+reshape avoids strided scatters, which a TPU runtime lowers
+    badly; the values are the same)."""
+    a_, b_ = a.movedim(axis, 0), b.movedim(axis, 0)
+    out = a_.new_empty((2 * a_.shape[0] - 1,) + tuple(a_.shape[1:]))
+    out[0::2] = a_
+    out[1::2] = b_
+    return out.movedim(0, axis)
+
+
+def _prolong(e: torch.Tensor) -> torch.Tensor:
+    """Coarse node grid (Nyc, Nxc, B) -> fine (2*Nyc-1, 2*Nxc-1, B):
+    linear interpolation respecting the right-diagonal triangulation
+    (odd-odd nodes average the lower-left/upper-right coarse pair)."""
+    ex = 0.5 * (e[:, :-1] + e[:, 1:])
+    rows_even = _interleave(e, ex, axis=1)        # (Nyc, Nx, B)
+    ey = 0.5 * (e[:-1, :] + e[1:, :])
+    ed = 0.5 * (e[:-1, :-1] + e[1:, 1:])
+    rows_odd = _interleave(ey, ed, axis=1)        # (Nyc-1, Nx, B)
+    return _interleave(rows_even, rows_odd, axis=0)
+
+
+def _restrict(r: torch.Tensor) -> torch.Tensor:
+    """Transpose of ``_prolong``: fine (Ny, Nx, B) -> coarse
+    ((Ny+1)/2, (Nx+1)/2, B)."""
+    rp = F.pad(r, (0, 0, 1, 1, 1, 1))
+    c = rp[1:-1:2, 1:-1:2]
+    return (c
+            + 0.5 * (rp[1:-1:2, 0:-2:2] + rp[1:-1:2, 2::2]
+                     + rp[0:-2:2, 1:-1:2] + rp[2::2, 1:-1:2]
+                     + rp[0:-2:2, 0:-2:2] + rp[2::2, 2::2]))
+
+
+@dataclasses.dataclass(frozen=True)
+class MultigridPreconditioner:
+    """Static V-cycle setup for one (grid, BC) pair; ``setup(alphas)``
+    builds the per-sample level data, ``apply`` runs one symmetric
+    V-cycle in ``dtype``."""
+
+    grid: StructuredTriGrid
+    num_levels: int
+    nu_pre: int = 2
+    nu_post: int = 2
+    nu_coarse: int = 24
+    omega: float = 0.8
+    dtype: str = "float32"
+
+    @classmethod
+    def for_grid(cls, grid: StructuredTriGrid, min_size: int = 4, **kw):
+        """Coarsen while both dims stay even and the min dim stays >=
+        ``min_size`` (96^2 coarsens 96 -> 48 -> 24 -> 12 -> 6, 128x64 to
+        8x4)."""
+        levels = 1
+        nx, ny = grid.nx, grid.ny
+        while (nx % 2 == 0 and ny % 2 == 0
+               and min(nx, ny) // 2 >= min_size):
+            nx //= 2
+            ny //= 2
+            levels += 1
+        return cls(grid=grid, num_levels=levels, **kw)
+
+    @property
+    def applies_per_cycle(self) -> int:
+        """Stencil applies (K1 launches on a card) of one V-cycle: the
+        pre- and post-smoothing sweeps and the residual on every level
+        above the coarsest, the coarse sweeps on the coarsest."""
+        return (self.num_levels - 1) * (self.nu_pre + 1 + self.nu_post) \
+            + self.nu_coarse
+
+    def _level_static(self) -> List[Tuple[StencilOperator, np.ndarray]]:
+        ops = []
+        g = self.grid
+        for _ in range(self.num_levels):
+            mask = DirichletProfile(g).free_mask.reshape(
+                g.ny + 1, g.nx + 1)[..., None]
+            ops.append((StencilOperator(g), mask))
+            g = StructuredTriGrid(g.nx // 2, g.ny // 2, g.lx, g.ly)
+        return ops
+
+    def setup(self, alphas: torch.Tensor):
+        """alphas (B, n_cells) -> per-level (coefs, inv_diag, mask), coefs
+        contiguous (7, Ny, Nx, B) batch-last, all in ``self.dtype``."""
+        statics = self._level_static()
+        B = alphas.shape[0]
+        dt = _DTYPES[self.dtype]
+        a = statics[0][0].alpha_to_cellgrid(alphas)      # (B, ny, nx, 2)
+        a = a.permute(1, 2, 3, 0)                        # (ny, nx, 2, B)
+        levels = []
+        for li, (op, mask_np) in enumerate(statics):
+            coefs = op.coefficients(a.permute(3, 0, 1, 2).reshape(B, -1))
+            coefs = coefs.permute(1, 2, 3, 0)
+            mask = torch.as_tensor(mask_np, dtype=alphas.dtype,
+                                   device=alphas.device)
+            diag = coefs[0]
+            inv_diag = mask / torch.where(diag <= 0, 1.0, diag)
+            levels.append((coefs.to(dt).contiguous(), inv_diag.to(dt),
+                           mask.to(dt)))
+            if li + 1 < len(statics):  # a coarser level follows
+                a = _coarsen_alpha_cellgrid(a)
+        return levels
+
+    def apply(self, levels, r: torch.Tensor) -> torch.Tensor:
+        """One symmetric V-cycle: r (Ny, Nx, B) -> z ~ A^{-1} r, computed
+        in ``self.dtype`` and returned in r's dtype."""
+        out_dtype = r.dtype
+        r = r.to(_DTYPES[self.dtype])
+        omega = self.omega
+
+        def smooth(coefs, inv_diag, mask, z, r, nu):
+            for _ in range(nu):
+                z = z + omega * inv_diag * (r - apply_stencil(coefs, z, mask))
+            return z
+
+        def vcycle(li, r):
+            coefs, inv_diag, mask = levels[li]
+            if li == len(levels) - 1:
+                return smooth(coefs, inv_diag, mask, torch.zeros_like(r), r,
+                              self.nu_coarse)
+            z = smooth(coefs, inv_diag, mask, torch.zeros_like(r), r,
+                       self.nu_pre)
+            resid = mask * (r - apply_stencil(coefs, z, mask))
+            coarse_mask = levels[li + 1][2]
+            rc = (coarse_mask * _restrict(resid)).contiguous()
+            ec = vcycle(li + 1, rc)
+            z = z + mask * _prolong(ec)
+            return smooth(coefs, inv_diag, mask, z, r, self.nu_post)
+
+        return vcycle(0, r.contiguous()).to(out_dtype)

@@ -70,8 +70,9 @@ class LinearEllipticPhysics:
     def solve_batched(self, alphas: torch.Tensor,
                       bc_values: torch.Tensor) -> torch.Tensor:
         """Batched differentiable solve: (N, n_cells), (N, n_constrained)
-        -> (N, n_free), one batch-last Jacobi-PCG whose stencil applies run
-        on the CUDA kernel (its plain version on the CPU); gradients with
+        -> (N, n_free), one batch-last PCG (the multigrid V-cycle on even
+        grids of min dim >= 64, else Jacobi) whose stencil applies run on
+        the CUDA kernel (its plain version on the CPU); gradients with
         respect to both inputs come from one adjoint PCG.  Inputs lie on
         the physics' device."""
         check_on(alphas, self.device, "alphas")

@@ -42,7 +42,8 @@ class PredictionEnsemble:
         """Reconstruction-only ELBO -> (elbo, logL)."""
         Z = va.sample(q, generator)
         saved = [b.clone() for b in self._bn_buffers()]
-        predict_x = self.model.apply_decoder(Z, train=True)
+        predict_x = self.model.apply_decoder(Z, train=True,
+                                             generator=generator)
         with torch.no_grad():  # the reference discards the stats update
             for b, s in zip(self._bn_buffers(), saved):
                 b.copy_(s)

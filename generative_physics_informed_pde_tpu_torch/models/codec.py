@@ -14,8 +14,11 @@ statistics as ``0.9 * running + 0.1 * batch`` (Flax ``momentum=0.9``) with
 the biased variance, which torch's own BatchNorm would store unbiased --
 so the update is written out here.  Channel dropout (Flax ``Dropout`` with
 ``broadcast_dims=(1, 2)``) is a function call, not a submodule, so the
-module tree stays the Flax parameter tree.  Channel padding, bilinear
-upsampling and the reduced-precision compute dtypes are not ported yet.
+module tree stays the Flax parameter tree.  Its masks come from the
+caller's ``torch.Generator``, handed down every ``forward`` as
+``generator``, through :func:`dropout_mask`, the one place a mask is
+drawn.  Channel padding, bilinear upsampling and the reduced-precision
+compute dtypes are not ported yet.
 """
 
 from __future__ import annotations
@@ -74,14 +77,25 @@ class BatchNorm(nn.BatchNorm2d):
             + self.bias[:, None, None]
 
 
-def channel_dropout(x, rate: float, training: bool):
+def dropout_mask(shape, keep: float, generator, device) -> torch.Tensor:
+    """Boolean Bernoulli(``keep``) mask of ``shape`` on ``device``, drawn
+    from ``generator`` on the generator's own device (torch's default
+    generator when None)."""
+    gen_device = generator.device if generator is not None else device
+    u = torch.rand(tuple(shape), generator=generator, dtype=torch.float32,
+                   device=gen_device)
+    return (u < keep).to(device)
+
+
+def channel_dropout(x, rate: float, training: bool, generator=None):
     """Flax ``Dropout(rate, broadcast_dims=(1, 2))`` on NCHW: whole
-    channels of a sample are zeroed, the rest scaled by 1/(1-rate)."""
+    channels of a sample are zeroed, the rest scaled by 1/(1-rate); the
+    (N, C, 1, 1) mask comes from :func:`dropout_mask`."""
     if not training or rate <= 0:
         return x
     keep = 1.0 - rate
-    u = torch.rand(x.shape[:2] + (1, 1), dtype=x.dtype, device=x.device)
-    return torch.where(u < keep, x / keep, torch.zeros_like(x))
+    mask = dropout_mask(x.shape[:2] + (1, 1), keep, generator, x.device)
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def upsample_nearest_2x(x):
@@ -100,9 +114,9 @@ class NormReluConv(nn.Module):
         self.BatchNorm_0 = BatchNorm(in_features)
         self.Conv_0 = SameConv2d(in_features, features, kernel, stride)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         x = self.Conv_0(F.relu(self.BatchNorm_0(x)))
-        return channel_dropout(x, self.drop_rate, self.training)
+        return channel_dropout(x, self.drop_rate, self.training, generator)
 
 
 class DenseLayer(nn.Module):
@@ -121,15 +135,24 @@ class DenseLayer(nn.Module):
             self.NormReluConv_0 = NormReluConv(in_features, growth_rate,
                                                kernel=3)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         y = x
         for layer in self.children():
-            y = layer(y)
-        y = channel_dropout(y, self.drop_rate, self.training)
+            y = layer(y, generator)
+        y = channel_dropout(y, self.drop_rate, self.training, generator)
         return torch.cat([x, y], dim=1)
 
 
-class DenseBlock(nn.Sequential):
+class _GeneratorSequential(nn.Sequential):
+    """``nn.Sequential`` that hands the dropout generator to each child."""
+
+    def forward(self, x, generator=None):
+        for layer in self:
+            x = layer(x, generator)
+        return x
+
+
+class DenseBlock(_GeneratorSequential):
     """num_layers stacked DenseLayers."""
 
     def __init__(self, in_features: int, num_layers: int, growth_rate: int,
@@ -142,7 +165,7 @@ class DenseBlock(nn.Sequential):
                 bottleneck, drop_rate))
 
 
-class TransitionDown(nn.Sequential):
+class TransitionDown(_GeneratorSequential):
     """Downsampling transition: norm-relu-conv1x1 -> norm-relu-conv3x3
     (stride 2) with bottleneck (the reference default), else a single
     strided conv3x3."""
@@ -175,10 +198,10 @@ class TransitionUp(nn.Module):
         self.BatchNorm_0 = BatchNorm(out_features)
         self.Conv_0 = SameConv2d(out_features, out_features, 3)
 
-    def forward(self, x):
-        x = F.relu(self.BatchNorm_0(self.NormReluConv_0(x)))
+    def forward(self, x, generator=None):
+        x = F.relu(self.BatchNorm_0(self.NormReluConv_0(x, generator)))
         x = self.Conv_0(upsample_nearest_2x(x))
-        return channel_dropout(x, self.drop_rate, self.training)
+        return channel_dropout(x, self.drop_rate, self.training, generator)
 
 
 class LastDecoding(nn.Module):
@@ -197,7 +220,7 @@ class LastDecoding(nn.Module):
         self.BatchNorm_1 = BatchNorm(f // 4)
         self.Conv_1 = SameConv2d(f // 4, out_channels, 5, bias=bias)
 
-    def forward(self, x):
-        x = F.relu(self.BatchNorm_0(self.NormReluConv_0(x)))
+    def forward(self, x, generator=None):
+        x = F.relu(self.BatchNorm_0(self.NormReluConv_0(x, generator)))
         x = self.Conv_0(upsample_nearest_2x(x))
         return self.Conv_1(F.relu(self.BatchNorm_1(x)))

@@ -78,17 +78,18 @@ class CNNDecoder(nn.Module):
     def dim_out(self) -> int:
         return self.target_img_size ** 2
 
-    def forward(self, z):
+    def forward(self, z, generator=None):
         """z (B, dim_latent) -> (mean, logsigma), each (B, py, px); the
-        mean alone for binary or single-output decodes."""
+        mean alone for binary or single-output decodes.  In train mode the
+        dropout masks come from ``generator``."""
         b, s = z.shape[0], self.latent_img_size
         x = self.Dense_0(z).reshape(b, s, s, self.latent_img_features)
         x = self.Conv_0(x.permute(0, 3, 1, 2))  # Flax HWC -> NCHW
         for i in range(self.n_blocks):
-            x = getattr(self, f"DenseBlock_{i}")(x)
+            x = getattr(self, f"DenseBlock_{i}")(x, generator)
             if i < self.n_blocks - 1:
-                x = getattr(self, f"TransitionUp_{i}")(x)
-        x = self.LastDecoding_0(x)
+                x = getattr(self, f"TransitionUp_{i}")(x, generator)
+        x = self.LastDecoding_0(x, generator)
         if self.binary:
             return torch.sigmoid(x[:, 0])
         mean = x[:, 0]

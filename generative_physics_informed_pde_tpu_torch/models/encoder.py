@@ -61,12 +61,13 @@ class CNNEncoder(nn.Module):
     def dim_in(self) -> int:
         return self.imsize ** 2
 
-    def forward(self, x):
-        """x (B, H, W) -> (mean, logsigma), each (B, latent_dim)."""
+    def forward(self, x, generator=None):
+        """x (B, H, W) -> (mean, logsigma), each (B, latent_dim).  In train
+        mode the dropout masks come from ``generator``."""
         x = self.Conv_0(x[:, None])
         for i in range(self.n_blocks):
-            x = getattr(self, f"DenseBlock_{i}")(x)
-            x = getattr(self, f"TransitionDown_{i}")(x)
+            x = getattr(self, f"DenseBlock_{i}")(x, generator)
+            x = getattr(self, f"TransitionDown_{i}")(x, generator)
         if x.shape[-2:] != (self.imsize_out, self.imsize_out):
             raise ValueError(f"encoder trunk produced {tuple(x.shape)}, "
                              f"expected {self.imsize_out}^2")

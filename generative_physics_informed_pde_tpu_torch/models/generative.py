@@ -89,15 +89,16 @@ class GenerativeModel(nn.Module):
         return self
 
     # ------------------------------------------------------- applications
-    def apply_decoder(self, z, *, train: bool):
-        """Decode in train mode (batch statistics, running-stat update)
-        or eval mode (running statistics)."""
+    def apply_decoder(self, z, *, train: bool, generator=None):
+        """Decode in train mode (batch statistics, running-stat update,
+        dropout masks from ``generator``) or eval mode (running
+        statistics, no dropout)."""
         self.f.train(train)
-        return self.f(z)
+        return self.f(z, generator)
 
-    def apply_encoder(self, x, *, train: bool = False):
+    def apply_encoder(self, x, *, train: bool = False, generator=None):
         self.encoder.train(train)
-        return self.encoder(x)
+        return self.encoder(x, generator)
 
     def apply_gp(self, z):
         return self.gp(z)
@@ -126,7 +127,7 @@ class GenerativeModel(nn.Module):
         X, Y, F_ = data["X"], data["Y"], data["F_ROM_BC"]
         qz = self.q_z["supervised"]
         Z = va.sample(qz, generator)
-        predict_x = self.apply_decoder(Z, train=train)
+        predict_x = self.apply_decoder(Z, train=train, generator=generator)
         logL_x = self.random_field_likelihood(predict_x, X)
         DKL = va.kld(qz)
         if self.independent_X:
@@ -160,9 +161,10 @@ class GenerativeModel(nn.Module):
         """Amortized unlabeled term on a minibatch -> (elbo, logs)."""
         if self.disable_elbo_unsupervised:
             return 0.0, {}
-        mean, logsigma = self.apply_encoder(X_batch, train=train)
+        mean, logsigma = self.apply_encoder(X_batch, train=train,
+                                            generator=generator)
         Z = reparametrize(generator, mean, logsigma)
-        predict_x = self.apply_decoder(Z, train=train)
+        predict_x = self.apply_decoder(Z, train=train, generator=generator)
         logL_x = self.random_field_likelihood(predict_x, X_batch)
         DKL = unit_gaussian_kld(mean, 2 * logsigma)
         if normalize:

@@ -1,7 +1,12 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch versions."""
 
 from .stencil import (apply_stencil, apply_stencil_reference,
-                      apply_stencil_sym, apply_stencil_sym_reference)
+                      apply_stencil_sym, apply_stencil_sym_reference,
+                      apply_stencil_sym_blocked,
+                      apply_stencil_sym_blocked_reference, mask_blocked,
+                      pad_blocked, pad_coefs_blocked, unpad_blocked)
 
 __all__ = ["apply_stencil", "apply_stencil_reference", "apply_stencil_sym",
-           "apply_stencil_sym_reference"]
+           "apply_stencil_sym_reference", "apply_stencil_sym_blocked",
+           "apply_stencil_sym_blocked_reference", "mask_blocked",
+           "pad_blocked", "pad_coefs_blocked", "unpad_blocked"]

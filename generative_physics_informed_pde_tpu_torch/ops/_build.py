@@ -24,7 +24,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = {"stencil": CSRC / "stencil.cu",
-           "stencil_sym": CSRC / "stencil_sym.cu"}
+           "stencil_sym": CSRC / "stencil_sym.cu",
+           "stencil_sym_blocked": CSRC / "stencil_sym_blocked.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

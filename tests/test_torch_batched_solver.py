@@ -83,12 +83,16 @@ def test_solver_options_and_devices():
     with pytest.raises(ValueError):
         batched_solver.make_batched_fom_solver(fom.op, fom.profile,
                                                precond="ilu")
-    with pytest.raises(NotImplementedError):
-        batched_solver.make_batched_fom_solver(fom.op, fom.profile,
-                                               precond="mg")
+    # multigrid forced at 32^2: 4 levels, 60 iterations at most
+    mg = batched_solver.make_batched_fom_solver(fom.op, fom.profile,
+                                                precond="mg")
+    assert mg.mg.num_levels == 4 and mg.maxiter == 60
     big = tfem.make_fom_rom_pair("NDP", 8, 8, 3, device="cpu")["fom"]
-    with pytest.raises(NotImplementedError):
-        batched_solver.make_batched_fom_solver(big.op, big.profile)
+    # 'auto' at 64^2 picks the V-cycle, as the physics' own solver does
+    assert batched_solver.make_batched_fom_solver(
+        big.op, big.profile).mg.num_levels == 5
+    assert big._batched_solver.mg is not None and fom._batched_solver.mg \
+        is None
     assert batched_solver.make_batched_fom_solver(
         big.op, big.profile, precond="jacobi").maxiter == 30 * 64
     assert fom._batched_solver.maxiter == 960

@@ -31,7 +31,8 @@ def test_covariance_and_factor_match_jax(kernel):
         C, jrf.stationary_covariance(X, 0.8, 0.15, kernel),
         rtol=1e-10, atol=1e-10)
     j, t = _fields()
-    np.testing.assert_allclose(t._L, j._L, rtol=1e-10, atol=1e-10)
+    np.testing.assert_allclose(t._L("cpu").numpy(), j._L, rtol=1e-10,
+                               atol=1e-10)
     np.testing.assert_allclose(trf.convert_log_mean_std(1.3, 0.4),
                                jrf.convert_log_mean_std(1.3, 0.4),
                                rtol=1e-12)
@@ -57,9 +58,16 @@ def test_sample_draws_from_the_generator():
     assert torch.equal(a, b) and a.shape == (4, 12, 12)
     assert t.sample(torch.Generator().manual_seed(3), device="cpu").shape \
         == (12, 12)
-    with pytest.raises(NotImplementedError):
-        trf.GaussianRandomField.from_image(8, 8, 0.4, 0.8, 0.1,
-                                           truncation="adaptive")
+    # the Karhunen-Loeve path draws its dim_in normals from the generator
+    kl = trf.GaussianRandomField.from_image(8, 8, 0.4, 0.8, 0.1,
+                                            truncation="adaptive")
+    x = kl.sample(torch.Generator().manual_seed(3), batch_size=2,
+                  device="cpu", dtype=torch.float64)
+    gamma = torch.randn((2, kl.dim_in), generator=torch.Generator(
+        ).manual_seed(3), dtype=torch.float64)
+    np.testing.assert_allclose(x.numpy(), kl.sample(
+        batch_size=2, gamma=gamma, device="cpu", dtype=torch.float64).numpy(),
+        rtol=1e-12)
 
 
 def test_highres32_preset_pools():
