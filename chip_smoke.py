@@ -38,6 +38,7 @@ line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -347,6 +348,28 @@ def solve_grads(fom, alphas, vals, w, sym, tol=None, precond="auto"):
     loss = (w * solve(a, b)).sum()
     loss.backward()
     return loss.detach(), a.grad, b.grad, solve
+
+
+def k3_read_nodes(R, C):
+    """Per grid, the nodes of a padded (R, C) grid that one K3 apply reads:
+    c0 at the interior nodes, each direction grid at the interior and its
+    shift against that direction, v and the mask at the interior and its
+    six neighbours (the halo's two far corners are never read)."""
+    import numpy as np
+
+    def shifted(dy, dx):  # the nodes (y + dy, x + dx) of interior (y, x)
+        s = np.zeros((R, C), bool)
+        s[1 + dy:R - 1 + dy, 1 + dx:C - 1 + dx] = True
+        return s
+
+    inner = shifted(0, 0)
+    v = inner.copy()
+    for d in ((1, 0), (0, 1), (1, 1)):
+        v |= shifted(*d) | shifted(-d[0], -d[1])
+    return dict(c0=int(inner.sum()),
+                **{f"c{n}": int((inner | shifted(-d[0], -d[1])).sum())
+                   for n, d in (("N", (1, 0)), ("E", (0, 1)), ("D", (1, 1)))},
+                v=int(v.sum()))
 
 
 def blocked_inputs(grid, B, dtype, gen):
@@ -901,8 +924,13 @@ def main() -> int:
 
     R, C, B = vb.shape
     item = vb.element_size()
-    moved = (4 + 1 + 1) * R * C * B * item + R * C * item
-    flops = 21 * (R - 2) * (C - 2) * B  # 14 as K2 plus 7 input-mask mul
+    # what one apply must move: every element it reads, once (the mask as
+    # many nodes as v), and the whole output, halo included, once
+    reads = k3_read_nodes(R, C)
+    moved = (sum(reads.values()) * B + R * C * B + reads["v"]) * item
+    whole = (4 + 1 + 1) * R * C * B * item + R * C * item  # 6 whole grids
+    # 14 per interior output as K2, plus one input-mask multiply per v read
+    flops = 14 * (R - 2) * (C - 2) * B + reads["v"] * B
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
     timing[name] = dict(
@@ -915,13 +943,16 @@ def main() -> int:
         plain_ms_l2_warm=cuda_time_ms(
             lambda: k3_step(apply_stencil_sym_blocked_reference), 200),
         bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=moved)
+        bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=moved,
+        whole_grids_bound_ms=whole / HBM_BYTES_PER_S * 1e3)
     tk = timing[name]
     say(f"  {name} chained {tuple(vb.shape)} f32: {tk['ms'] * 1e3:.2f} us "
         f"(L2 flushed), {tk['ms_l2_warm'] * 1e3:.2f} us (L2 warm); plain "
         f"{tk['plain_ms'] * 1e3:.2f} / {tk['plain_ms_l2_warm'] * 1e3:.2f} us;"
         f" bound {tk['bound_ms'] * 1e3:.2f} us by {tk['bound_by']} "
-        f"({moved / 1e6:.1f} MB)")
+        f"({moved / 1e6:.2f} MB read and written; nodes read per grid "
+        f"{reads}); six whole padded grids would be {whole / 1e6:.2f} MB, "
+        f"{tk['whole_grids_bound_ms'] * 1e3:.2f} us")
 
     # -------------- 7. 'highres': label the 64^2 pool under the V-cycle
     say("phase 7: label the 'highres' pool (2048 fields of 64^2) with the "
@@ -990,6 +1021,38 @@ def main() -> int:
         f"{TOL_F64:g}")
     if not hr_rel32 <= F32_FLOOR:
         raise AssertionError("f32 highres labels far from the f64 labels")
+    # K1 at every V-cycle level of this batch (the fine level and the
+    # coarse ones), bit for bit against its plain version
+    for dtype in hr:
+        mg = dataclasses.replace(solver_hr.mg,
+                                 dtype=str(dtype).split(".")[-1])
+        shapes = []
+        for coefs, _, mask in mg.setup(hr[dtype]["alphas"]):
+            v = torch.randn(coefs.shape[1:], generator=gen,
+                            dtype=dtype).cuda()
+            got = apply_stencil(coefs, v, mask)
+            if not torch.equal(got, apply_stencil_reference(coefs, v, mask)):
+                raise AssertionError(f"apply_stencil differs from its plain "
+                                     f"version at {tuple(v.shape)} {dtype}")
+            shapes.append(tuple(v.shape))
+        say(f"  K1 bit-equal to its plain version on every V-cycle level "
+            f"{dtype}: {shapes}")
+    with plain_applies():
+        before = apply_stencil.launches
+        Y_plain_hr = fom_hr.solve_batched(hr[torch.float32]["alphas"],
+                                          hr[torch.float32]["vals"])
+        if apply_stencil.launches != before:
+            raise AssertionError("the plain-path MG solve launched the kernel")
+    k_plain = fom_hr.last_iterations
+    path_err = ((Y32 - Y_plain_hr).abs().max() / Y_plain_hr.abs().max()
+                ).item()
+    say(f"  plain-path MG solve f32: {k_plain} iterations (kernel path "
+        f"{hr[torch.float32]['iterations']}); labels max rel diff "
+        f"{path_err:.3e} (tolerance {PATH_RTOL:g})")
+    if k_plain != hr[torch.float32]["iterations"] or not path_err <= PATH_RTOL:
+        raise AssertionError("the MG solve on the kernel path differs from "
+                             "the plain path")
+    del Y_plain_hr
     jac_hr = make_batched_fom_solver(fom_hr.op, fom_hr.profile,
                                      precond="jacobi")
     a32, v32 = hr[torch.float32]["alphas"], hr[torch.float32]["vals"]
@@ -1204,7 +1267,9 @@ def main() -> int:
           "label_solve_ms": sym_ms, "vjp_ms": vjp_ms[True],
           "label_solve_busy_share": busy_sym}),
         ("apply_stencil_sym_blocked", "stencil_sym_blocked.cu", f"{tpu}:287",
-         "_make_sym_blocked_kernel", {"chained": True}),
+         "_make_sym_blocked_kernel",
+         {"chained": True, "whole_grids_bound_ms":
+          timing["apply_stencil_sym_blocked"]["whole_grids_bound_ms"]}),
     ]
     kernels = {"kernels": [{
         "name": name,

@@ -20,8 +20,10 @@ contractions.  The stiffness operator is self-adjoint and the reference
 has no backward Pallas kernel, so the backward reuses the forward's
 stencil kernels and needs none of its own.
 
-Left out as TPU-only: the bf16 V-cycle default (``precond_dtype`` resolves
-to float32 off a TPU, as in the reference), the ``optimization_barrier``
+Left out as TPU-only: the ``precond_dtype`` knob (the reference's bf16
+V-cycle is for a TPU; off it the reference resolves float32, which is the
+V-cycle of every f32 solve here, and an f64 solve runs the f64 V-cycle),
+the ``optimization_barrier``
 fence around the preconditioner, the ``effective_platform()`` gates and
 the ``use_pallas`` switch (on a card the apply is always the hand-written
 kernel).
@@ -149,8 +151,7 @@ class BatchedFomSolver:
     and ``adjoint_iterations`` that of the last backward."""
 
     def __init__(self, op: StencilOperator, profile, *, tol=None,
-                 maxiter=None, precond: str = "auto", sym: bool = False,
-                 precond_dtype: str | None = None):
+                 maxiter=None, precond: str = "auto", sym: bool = False):
         grid = op.grid
         if precond not in ("auto", "mg", "jacobi"):
             raise ValueError(f"precond must be 'auto', 'mg' or 'jacobi', "
@@ -186,9 +187,8 @@ class BatchedFomSolver:
                     "DirichletProfile (the V-cycle level masks assume it); "
                     "use 'jacobi' for custom constraint sets")
             from .multigrid import MultigridPreconditioner
-            # the reference's bf16 default is for a TPU; off it, float32
-            self.mg = MultigridPreconditioner.for_grid(
-                grid, dtype=precond_dtype or "float32")
+            # float32 V-cycle; _precond switches f64 solves to float64
+            self.mg = MultigridPreconditioner.for_grid(grid, dtype="float32")
             maxiter = maxiter or 60
         # the reference refuses sym=True at >= 256^2 on a TPU, a runtime
         # fault of that chip; no such refusal here
@@ -265,17 +265,13 @@ class BatchedFomSolver:
 
 def make_batched_fom_solver(op: StencilOperator, profile, *, tol=None,
                             maxiter=None, precond: str = "auto",
-                            sym: bool = False,
-                            precond_dtype: str | None = None
-                            ) -> BatchedFomSolver:
+                            sym: bool = False) -> BatchedFomSolver:
     """Build the batched differentiable solver (see
     :class:`BatchedFomSolver`).  ``precond``: 'jacobi' | 'mg' | 'auto'
     (the V-cycle on grids with both dims even, min dim >= 64 and the
     standard profile, else Jacobi, with a warning at >= 64).
-    ``precond_dtype``: the V-cycle's dtype for f32 solves (default
-    float32); f64 solves run it in float64.  ``sym=True`` runs every
+    The V-cycle runs in the solve's dtype.  ``sym=True`` runs every
     outer stencil apply of the solve and its VJP in the symmetric 4-grid
     form (the V-cycle keeps the 7-grid form, as in the reference)."""
     return BatchedFomSolver(op, profile, tol=tol, maxiter=maxiter,
-                            precond=precond, sym=sym,
-                            precond_dtype=precond_dtype)
+                            precond=precond, sym=sym)

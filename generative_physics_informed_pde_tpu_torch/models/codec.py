@@ -79,18 +79,21 @@ class BatchNorm(nn.BatchNorm2d):
 
 def dropout_mask(shape, keep: float, generator, device) -> torch.Tensor:
     """Boolean Bernoulli(``keep``) mask of ``shape`` on ``device``, drawn
-    from ``generator`` on the generator's own device (torch's default
-    generator when None)."""
-    gen_device = generator.device if generator is not None else device
+    from ``generator`` on the generator's own device.  It never draws from
+    torch's global RNG: an active dropout needs the caller's generator."""
+    if generator is None:
+        raise ValueError("channel dropout in train mode needs a "
+                         "torch.Generator for its masks")
     u = torch.rand(tuple(shape), generator=generator, dtype=torch.float32,
-                   device=gen_device)
+                   device=generator.device)
     return (u < keep).to(device)
 
 
 def channel_dropout(x, rate: float, training: bool, generator=None):
     """Flax ``Dropout(rate, broadcast_dims=(1, 2))`` on NCHW: whole
     channels of a sample are zeroed, the rest scaled by 1/(1-rate); the
-    (N, C, 1, 1) mask comes from :func:`dropout_mask`."""
+    (N, C, 1, 1) mask comes from :func:`dropout_mask`, which raises
+    without a ``generator``."""
     if not training or rate <= 0:
         return x
     keep = 1.0 - rate

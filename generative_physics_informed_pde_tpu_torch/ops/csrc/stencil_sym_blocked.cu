@@ -21,9 +21,11 @@
 //
 // Bound on the H100: memory.  Each interior output costs 7 multiplies, 6
 // adds, the mask multiply and 7 input-mask multiplies against 4 coefficient
-// reads, one v read and one write.  One apply must read the 4 coefficient
-// grids, v and the mask and write one grid: at (33, 33, 1024) f32 padded to
-// (35, 35, 1024), 6 grids of 5.02 MB, 30.1 MB, or 9.0 us at 3.35 TB/s.
+// reads, one v read and one write.  One apply must read c0 at the interior,
+// each direction grid at the interior and its shift, v and the mask at all
+// but two halo corners, and write the whole output: at (33, 33, 1024) f32
+// padded to (35, 35, 1024), 28.4 MB, or 8.5 us at 3.35 TB/s (six whole
+// padded grids would be 30.1 MB, 9.0 us).
 //
 // Design: one thread per element (y, x, b) of the padded output, b fastest,
 // kThreads consecutive batch entries of one node per block, exactly as

@@ -235,6 +235,8 @@ def test_dropout_masks_come_from_the_callers_generator():
     # whole channels: one value per (sample, channel)
     assert torch.equal(a, kept[:, :, None, None].expand_as(a))
     assert torch.equal(tcodec.channel_dropout(x, RATE, False), x)
+    with pytest.raises(ValueError, match="Generator"):
+        tcodec.channel_dropout(x, RATE, True)  # no unseeded fallback
 
 
 def test_codec_dropout_matches_flax(setting, monkeypatch):

@@ -164,8 +164,6 @@ def test_vcycle_dtype():
     _, levels = solve._precond(coefs.float(), mask.float(),
                                alphas=alphas.float())
     assert [lv[0].dtype for lv in levels] == [torch.float32] * 3
-    assert t_make_solver(op, prof, precond="mg",
-                         precond_dtype="float64").mg.dtype == "float64"
     _, levels = t_make_solver(op, prof, precond="jacobi")._precond(
         coefs, mask)
     assert levels is None
