@@ -96,6 +96,24 @@ MG_JACOBI_RTOL = 1e-8
 # The ELBO's terms reported over the 'highres' training run.
 HR_TERMS = ("elbo", "ARM_unsupervised_DKL_z", "ARM_unsupervised_logL_x",
             "supervised_logL_x", "supervised_elbo")
+# Every shape (nodes a side, B, dtype) the main paths launch K1 and K2 at:
+# the highres32 label solve (f32), its VJP (f64) and training labels (f64,
+# B=256); the five V-cycle levels of the 'highres' MG solve (f32, f64 at
+# B=2048), of its VJP and of its training labels (f64, B=256).  Phase 8
+# derives each shape's launches from the paths' iteration counts and holds
+# this list to them.
+MG_NODES = (65, 33, 17, 9, 5)
+STENCIL_SHAPES = {
+    "apply_stencil": sorted({(33, 1024, "float32"), (33, 1024, "float64"),
+                             (33, 256, "float64")}
+                            | {(n, B, d) for n in MG_NODES
+                               for B, d in ((2048, "float32"),
+                                            (2048, "float64"),
+                                            (256, "float64"))},
+                            key=lambda s: (-s[0], -s[1], s[2])),
+    "apply_stencil_sym": [(33, 1024, "float32"), (33, 1024, "float64")]}
+STENCIL_GRIDS = {"apply_stencil": 7, "apply_stencil_sym": 4}
+L2_BYTES = 50e6  # H100 L2: an apply moving more finds it cold anyway
 
 
 def say(msg: str) -> None:
@@ -113,7 +131,8 @@ def card_line() -> str:
 def cuda_time_ms(fn, reps: int, flush=None) -> float:
     """Mean device time of ``fn`` by CUDA events, after 3 warm-up calls.
 
-    With ``flush`` (a tensor larger than the 50 MB L2) each call is timed
+    With ``flush`` (a tensor larger than the 50 MB L2, zeroed, or a
+    function that reads one) each call is timed
     alone, after the L2 cache was overwritten outside the timed interval,
     so it reads from HBM; a device-side sleep after the flush lets the
     host enqueue the timed call before the device reaches it, so a slow
@@ -136,7 +155,7 @@ def cuda_time_ms(fn, reps: int, flush=None) -> float:
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     for s, e in zip(starts, ends):
-        flush.zero_()
+        flush() if callable(flush) else flush.zero_()
         torch.cuda._sleep(200_000)
         s.record()
         fn()
@@ -170,6 +189,46 @@ def device_profile(fn):
     rows = sorted(((k, ms, n) for k, (ms, n) in kernels.items()),
                   key=lambda r: -r[1])
     return sum(r[1] for r in rows), wall, rows
+
+
+def stencil_cost(name, Ny, Nx, B, item):
+    """(bytes, bound ms, bound_by) of one K1/K2 apply: each input read
+    once (coefficient grids, v, mask), the output written once, and 14 f32
+    flops per output (7 mul, 6 add, 1 mask mul)."""
+    moved = (STENCIL_GRIDS[name] + 2) * Ny * Nx * B * item + Ny * Nx * item
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = 14 * Ny * Nx * B / F32_FLOPS_PER_S * 1e3
+    return moved, max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                        else "operations")
+
+
+def shape_inputs(name, n, B, dtype, gen):
+    """Random K1 (``apply_stencil``) or K2 inputs at (n, n, B) on the
+    card: coefficients of log-normal conductivities, normal v, the 'ND'
+    free mask; ``gen`` is a CUDA generator."""
+    import torch
+    from generative_physics_informed_pde_tpu_torch import fem
+
+    grid = fem.StructuredTriGrid(n - 1, n - 1)
+    op = fem.StencilOperator(grid)
+    dt = getattr(torch, dtype)
+    alphas = torch.exp(torch.randn(B, grid.n_cells, generator=gen,
+                                   device="cuda", dtype=dt))
+    c = op.coefficients_sym(alphas) if name == "apply_stencil_sym" \
+        else op.coefficients(alphas)
+    coefs = c.permute(1, 2, 3, 0).contiguous()
+    v = torch.randn(n, n, B, generator=gen, device="cuda", dtype=dt)
+    mask = torch.as_tensor(fem.DirichletProfile(grid).free_mask.reshape(
+        n, n, 1), dtype=dt, device="cuda")
+    return coefs, v, mask
+
+
+def bits(x):
+    """The bit patterns of a float tensor (signed zeros and NaNs
+    compare as bits)."""
+    import torch
+
+    return x.view(torch.int32 if x.element_size() == 4 else torch.int64)
 
 
 def stencil_inputs(op, profile, B, dtype, gen, sym=False):
@@ -643,7 +702,7 @@ def main() -> int:
     wgen = torch.Generator().manual_seed(7)
     w = torch.randn(N, fom.dim_out, generator=wgen,
                     dtype=torch.float64).cuda()
-    grads, vjp_iters = {}, {}
+    grads, vjp_iters, vjp_solves = {}, {}, {}
     for sym in (False, True):
         start_path()
         _, ga, gb, solver = solve_grads(fom, alphas64, vals64, w, sym)
@@ -666,6 +725,7 @@ def main() -> int:
                                  "differ from the plain path")
         grads[sym] = (ga, gb)
         vjp_iters[sym] = solver.adjoint_iterations
+        vjp_solves[sym] = (solver.iterations, solver.adjoint_iterations)
     err = max(rel_diff(grads[True][0], grads[False][0]),
               rel_diff(grads[True][1], grads[False][1]))
     say(f"  K2-form vs K1-form gradients: max rel diff {err:.3e} "
@@ -702,6 +762,7 @@ def main() -> int:
     dlu = DataFactory.FromIdentifier("highres32").unlabeled(
         1024, torch.Generator().manual_seed(1), device="cuda")
     trainer = CreateTrainer(recipe_params(), dl, dlu, device="cuda")
+    train_label_iters = trainer.physics["fom"].last_iterations
     setup_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     trainer.run(SVI_STEPS, verbose=False)
@@ -1151,6 +1212,7 @@ def main() -> int:
     dlu_t.lock_physics_assembly()
     trainer_hr = CreateTrainer(highres_recipe_params(), dl_t, dlu_t,
                                device="cuda")
+    hr_train_label_iters = trainer_hr.physics["fom"].last_iterations
     setup_hr_s = time.perf_counter() - t0
     step_logs = []
     step_fn = trainer_hr.step
@@ -1240,7 +1302,104 @@ def main() -> int:
         raise AssertionError("f64 highres SVI steps on the card differ from "
                              "the CPU")
 
-    # --------------------------------------------------------- 8. records
+    # ------------------------------ 8. K1 and K2 at every main-path shape
+    say("phase 8: K1 and K2 at every shape of the main paths: launches, "
+        "bit-equality, times")
+    mg = solver_hr.mg
+    if mg.num_levels != len(MG_NODES):
+        raise AssertionError(f"the V-cycle has {mg.num_levels} levels")
+
+    def mg_by_level(k):
+        """K1 launches per V-cycle level (fine first) of one MG-PCG of k
+        iterations: the rhs apply and one matvec per iteration on the fine
+        level, then per V-cycle the sweeps and residual of each level."""
+        per = [(mg.nu_pre + 1 + mg.nu_post) * (k + 1)] * (mg.num_levels - 1)
+        per = per + [mg.nu_coarse * (k + 1)]
+        per[0] += 1 + k
+        return per
+
+    derived = []  # (path, kernel, nodes, B, dtype, launches)
+    derived.append(("3+4 label + serve", "apply_stencil", 33, N, "float32",
+                    iters + 1))
+    derived.append(("3b sym label solve", "apply_stencil_sym", 33, N,
+                    "float32", iters_sym + 1))
+    for sym, (kf, ka) in vjp_solves.items():
+        derived.append((f"3c VJP sym={sym}", "apply_stencil_sym" if sym
+                        else "apply_stencil", 33, N, "float64", kf + ka + 2))
+    # the recipes' labeled pairs are one label dispatch of the pool
+    derived.append(("4b train + serve", "apply_stencil", 33, len(dl.X),
+                    "float64", train_label_iters + 1))
+    mg_solves = [(f"7 highres labels {d}", X_hr.shape[0],
+                  str(d).split(".")[-1], hr[d]["iterations"]) for d in hr]
+    mg_solves += [("7b MG VJP", HR_VJP_B, "float64", mg_solver.iterations),
+                  ("7b MG VJP", HR_VJP_B, "float64",
+                   mg_solver.adjoint_iterations),
+                  ("7c highres train", len(dl_t.X), "float64",
+                   hr_train_label_iters)]
+    for path, B, dname, k in mg_solves:
+        for nodes, count in zip(MG_NODES, mg_by_level(k)):
+            derived.append((path, "apply_stencil", nodes, B, dname, count))
+    shape_launches = {}
+    for path, counts in path_launches.items():
+        for kname in STENCIL_SHAPES:
+            got = sum(r[5] for r in derived if r[0] == path and r[1] == kname)
+            if got != counts[kname]:
+                raise AssertionError(f"path {path!r}: {kname} launched "
+                                     f"{counts[kname]} times, the iteration "
+                                     f"counts give {got}")
+    for _, kname, nodes, B, dname, count in derived:
+        key = (kname, nodes, B, dname)
+        shape_launches[key] = shape_launches.get(key, 0) + count
+    listed = {(k, *sh) for k, shapes in STENCIL_SHAPES.items()
+              for sh in shapes}
+    if set(shape_launches) != listed:
+        raise AssertionError(f"main-path shapes {sorted(shape_launches)} "
+                             f"differ from STENCIL_SHAPES")
+    say(f"  launches per shape sum to each path's count: {shape_launches}")
+    cgen = torch.Generator(device="cuda").manual_seed(8)
+    kern = {"apply_stencil": (apply_stencil, apply_stencil_reference),
+            "apply_stencil_sym": (apply_stencil_sym,
+                                  apply_stencil_sym_reference)}
+    shape_rows = {}
+    for kname, shapes in STENCIL_SHAPES.items():
+        kernel, plain = kern[kname]
+        rows = shape_rows[kname] = []
+        for nodes, B, dname in shapes:
+            coefs, v, mask = shape_inputs(kname, nodes, B, dname, cgen)
+            ref = plain(coefs, v, mask)
+            got = kernel(coefs, v, mask)
+            if not torch.equal(bits(got), bits(ref)):
+                raise AssertionError(f"{kname} is not bit-equal to its plain "
+                                     f"version at {(nodes, nodes, B)} "
+                                     f"{dname}")
+            moved, bound, by = stencil_cost(kname, nodes, nodes, B,
+                                            v.element_size())
+            t_f = cuda_time_ms(lambda: kernel(coefs, v, mask), 100, flush)
+            t_w = cuda_time_ms(lambda: kernel(coefs, v, mask), 200)
+            t = t_f if moved > L2_BYTES else t_w
+            launches = shape_launches[(kname, nodes, B, dname)]
+            rows.append(dict(
+                shape=[nodes, nodes, B], dtype=dname, launches=launches,
+                bytes=moved, bound_ms=bound, bound_by=by, ms=t_f,
+                ms_l2_warm=t_w, ranked_by="flushed" if moved > L2_BYTES
+                else "warm", share_of_bound=bound / t,
+                excess_ms=launches * (t - bound)))
+            del coefs, v, mask, ref, got
+    ranked = sorted((r | {"kernel": k} for k, rs in shape_rows.items()
+                     for r in rs), key=lambda r: -r["excess_ms"])
+    say("  ranked by launches x (time - bound); the time is the flushed one "
+        "where an apply moves more than the 50 MB L2, else the warm one; "
+        "all bit-equal to the plain versions:")
+    for r in ranked:
+        say(f"    {r['kernel']:>17s} {tuple(r['shape'])!s:>16s} "
+            f"{r['dtype']}: {r['launches']:5d} launches, "
+            f"{r['ms'] * 1e3:8.2f} / {r['ms_l2_warm'] * 1e3:8.2f} us "
+            f"(flushed / warm), bound {r['bound_ms'] * 1e3:7.2f} us "
+            f"({100 * r['share_of_bound']:.1f}% of it, {r['ranked_by']}), "
+            f"excess {r['excess_ms']:.3f} ms")
+    say(f"  card: {card}")
+
+    # --------------------------------------------------------- 9. records
     say(f"done in {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     src = "generative_physics_informed_pde_tpu_torch/ops/csrc/"
@@ -1279,6 +1438,7 @@ def main() -> int:
         "tpu": f"ops/stencil.py:{body}",
         "launches": main_launches[name],
         "launches_by_path": {p: c[name] for p, c in path_launches.items()},
+        **({"shapes": shape_rows[name]} if name in shape_rows else {}),
         "max_abs_err": errors[name][0],
         "max_rel_err": errors[name][1],
         "ms": timing[name]["ms"],

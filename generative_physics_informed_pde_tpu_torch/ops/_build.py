@@ -47,7 +47,10 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SOURCES[name].read_bytes()
+    """The library of ``name``, keyed by its source, the headers of
+    ``csrc/`` and the flags."""
+    src = SOURCES[name].read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{key}.so"
 

@@ -36,6 +36,8 @@ kernel launches in ``<wrapper>.launches``.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -83,28 +85,188 @@ def _check(coefs, v, mask, n_grids):
                          "coefficients contiguous once per solve)")
 
 
-def _kernel(library, symbol):
-    from ._build import load_library
+# ---------------------------------------------------------------------------
+# Launch plan of K1 and K2
+# ---------------------------------------------------------------------------
+#
+# A block of K1 or K2 owns a tile of nodes for one chunk of the batch (one
+# 128-byte line of it), stages v for the tile and a one-node halo (K2 also
+# c_N, c_E, c_D on the -dir side) into shared memory, zero outside the grid,
+# and walks over work items (tile, chunk) in a persistent loop that copies
+# the next item while it sums this one.  The geometry is a function of the
+# shape alone; the kernel reads it from ``LaunchPlan.as_ints()``.
 
-    fn = getattr(load_library(library), symbol)
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
-            + [ctypes.c_void_p]
+_LINE_BYTES = 128          # one L2 line of the batch per tile
+_TILE = 8                  # target tile side, nodes
+_THREADS = 256             # threads per block, the kernels' most
+# threads resident per SM under the kernels' __launch_bounds__: (256, 3)
+# with staging, (256, 4) direct (stencil_tile.cuh min_blocks)
+_SM_THREADS = {True: 768, False: 1024}
+_SM_SMEM = 233472          # shared memory per SM, bytes (228 KB)
+_BLOCK_SMEM = 232448       # most dynamic shared memory of one block (227 KB)
+_BLOCK_SMEM_RESERVED = 1024  # reserved by the runtime per resident block
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """Geometry of one K1 or K2 launch.
+
+    Tile ``ty`` covers node rows ``tile_span(ty, Ny, tiles_y)`` to
+    ``tile_span(ty + 1, Ny, tiles_y)`` (at most ``tile_rows``), columns
+    likewise; chunk ``c`` covers batch entries ``c * chunk`` up to
+    ``min((c + 1) * chunk, B)``.  Work item ``i`` is tile ``i // chunks``
+    (row major), chunk ``i % chunks``, so neighbouring blocks read
+    neighbouring bytes; block ``k`` takes items ``k, k + blocks, ...``.  ``vec`` is the
+    elements per load: ``16 // itemsize`` on the 16-byte path, 1 on the
+    scalar path.  ``smem_bytes`` holds ``stages`` buffers of the staged
+    grids: two when a block takes more than one item (the next item's copy
+    overlaps this item's sums), else one."""
+
+    tiles_y: int
+    tiles_x: int
+    tile_rows: int
+    tile_cols: int
+    chunk: int
+    vec: int
+    threads: int
+    blocks: int
+    smem_bytes: int
+    stages: int
+    chunks: int
+    per_thread: int        # outputs of one thread per work item, at most
+
+    @property
+    def vec16(self) -> bool:
+        return self.vec > 1
+
+    @property
+    def items(self) -> int:
+        return self.tiles_y * self.tiles_x * self.chunks
+
+    def as_ints(self):
+        """The C entry points' plan argument, in this order."""
+        return (self.tiles_y, self.tiles_x, self.tile_rows, self.tile_cols,
+                self.chunk, self.vec, self.threads, self.blocks,
+                self.smem_bytes, self.stages)
+
+
+def tile_span(i: int, n: int, parts: int) -> int:
+    """First index of part ``i`` of ``n`` cut into ``parts`` near-equal
+    parts (the kernels compute the same)."""
+    return i * n // parts
+
+
+def staged_nodes(tile_rows: int, tile_cols: int, sym: bool) -> int:
+    """Nodes of one shared-memory buffer: v on the tile and a one-node
+    halo; with ``sym`` also c_N, c_E, c_D on the tile and the -dir halo."""
+    n = (tile_rows + 2) * (tile_cols + 2)
+    return n + 3 * (tile_rows + 1) * (tile_cols + 1) if sym else n
+
+
+@lru_cache(maxsize=None)
+def launch_plan(Ny: int, Nx: int, B: int, dtype: torch.dtype, sm_count: int,
+                sym: bool = False, aligned: bool = True) -> LaunchPlan:
+    """The geometry K1 (``sym=False``) or K2 (``sym=True``) is launched
+    with on a card of ``sm_count`` SMs.  ``aligned``: every data pointer is
+    16-byte aligned (torch allocations are); the 16-byte path also needs
+    the batch row ``B * itemsize`` to be a multiple of 16 bytes."""
+    item = torch.empty((), dtype=dtype).element_size()
+    return _plan(Ny, Nx, B, item, sm_count, sym, aligned)
+
+
+def _plan(Ny, Nx, B, item, sm_count, sym, aligned, tile=_TILE, lines=1,
+          threads=_THREADS, stages=None):
+    """``launch_plan`` for tiles of about ``tile`` nodes a side, chunks of
+    ``lines`` 128-byte lines, ``threads`` per block and ``stages`` buffers
+    (default: two if a block takes more than one item)."""
+    vec = 16 // item if aligned and (B * item) % 16 == 0 else 1
+    line = lines * _LINE_BYTES // item
+    chunk = min(line, max(vec, 1 << (B - 1).bit_length()))
+    # tiles of about `tile` nodes a side: 8-9 on the 2^k + 1 node grids
+    tiles_y, tiles_x = (max(1, (2 * n + tile) // (2 * tile)) for n in (Ny, Nx))
+    tile_rows, tile_cols = -(-Ny // tiles_y), -(-Nx // tiles_x)
+    chunks = -(-B // chunk)
+    buffer = staged_nodes(tile_rows, tile_cols, sym) * chunk * item
+    items = tiles_y * tiles_x * chunks
+
+    def resident(stages):  # blocks of `stages` buffers the whole card holds
+        return sm_count * min(_SM_THREADS[stages > 0] // threads, _SM_SMEM
+                              // (stages * buffer + _BLOCK_SMEM_RESERVED))
+
+    if stages is None:
+        stages = 1 if items <= resident(1) else 2
+    if stages * buffer > _BLOCK_SMEM or resident(stages) == 0:
+        raise ValueError(f"no launch plan for {(Ny, Nx, B)}, {item}-byte "
+                         f"entries, tiles of {tile_rows} x {tile_cols}")
+    lanes = chunk // vec
+    return LaunchPlan(tiles_y, tiles_x, tile_rows, tile_cols, chunk, vec,
+                      threads, min(items, resident(stages)), stages * buffer,
+                      stages, chunks,
+                      -(-tile_rows * tile_cols // max(1, threads // lanes)))
+
+
+@lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_FNS = {}
+
+
+def _kernel(library, symbol, planned):
+    """``symbol`` of ``library`` with its argument types set, resolved once
+    per process: four data pointers, Ny, Nx, B, the plan (K1, K2:
+    ``planned``), the device index and the stream."""
+    fn = _FNS.get(symbol)
+    if fn is None:
+        from ._build import load_library
+
+        fn = getattr(load_library(library), symbol)
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
+            + [ctypes.POINTER(ctypes.c_int)] * planned \
+            + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        _FNS[symbol] = fn
     return fn
 
 
-def _launch(name, library, coefs, v, mask):
+_PLANS = {}
+
+
+def _plan_ints(plan: LaunchPlan):
+    return (ctypes.c_int * len(plan.as_ints()))(*plan.as_ints())
+
+
+def _launch(name, library, coefs, v, mask, sym=None, plan=None):
     """Allocate the output and launch ``gpipde_<name>_<dtype>`` of
-    ``library`` on the current stream; raises on a refused launch."""
-    if v.device.type != "cuda":
-        raise ValueError(f"{name} runs on cuda or cpu, not {v.device}")
+    ``library`` on the current stream; raises on a refused launch.  K1 and
+    K2 (``sym`` False, True) follow ``plan``, by default ``launch_plan``'s
+    for these tensors (looked up once per shape); K3 (``sym`` None) takes
+    none."""
+    device = v.device
+    if device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {device}")
     Ny, Nx, B = v.shape
     out = torch.empty_like(v)
-    stream = torch.cuda.current_stream(v.device).cuda_stream
-    fn = _kernel(library, f"gpipde_{name}_{_DTYPE_SUFFIX[v.dtype]}")
-    rc = fn(coefs.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            Ny, Nx, B, v.device.index, stream)
+    index = device.index
+    stream = torch.cuda.current_stream(device).cuda_stream
+    symbol = f"gpipde_{name}_{_DTYPE_SUFFIX[v.dtype]}"
+    ptrs = (coefs.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr())
+    if sym is None:
+        rc = _kernel(library, symbol, False)(*ptrs, Ny, Nx, B, index,
+                                             stream)
+    else:
+        if plan is None:
+            key = (Ny, Nx, B, v.dtype, index, sym,
+                   (ptrs[0] | ptrs[1] | ptrs[3]) % 16 == 0)
+            ints = _PLANS.get(key)
+            if ints is None:
+                ints = _PLANS[key] = _plan_ints(launch_plan(
+                    Ny, Nx, B, v.dtype, _sm_count(index), sym, key[-1]))
+        else:
+            ints = _plan_ints(plan)
+        rc = _kernel(library, symbol, True)(*ptrs, Ny, Nx, B, ints, index,
+                                            stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error "
                            f"{rc} at shape {(Ny, Nx, B)}")
@@ -118,7 +280,8 @@ def apply_stencil(coefs: torch.Tensor, v: torch.Tensor,
     _check(coefs, v, mask, 7)
     if v.device.type == "cpu":
         return apply_stencil_reference(coefs, v, mask)
-    out = _launch("apply_stencil", "stencil", coefs, v, mask)
+    out = _launch("apply_stencil", "stencil", coefs, v, mask,
+                  sym=False)
     apply_stencil.launches += 1
     return out
 
@@ -134,7 +297,8 @@ def apply_stencil_sym(coefs4: torch.Tensor, v: torch.Tensor,
     _check(coefs4, v, mask, 4)
     if v.device.type == "cpu":
         return apply_stencil_sym_reference(coefs4, v, mask)
-    out = _launch("apply_stencil_sym", "stencil_sym", coefs4, v, mask)
+    out = _launch("apply_stencil_sym", "stencil_sym", coefs4, v, mask,
+                  sym=True)
     apply_stencil_sym.launches += 1
     return out
 

@@ -6,6 +6,7 @@ installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -183,3 +184,99 @@ def test_mg_solve_on_the_kernel_matches_the_plain_path(monkeypatch):
     pa, pb, _ = grads()
     for got, ref in ((ga, pa), (gb, pb)):
         assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-12
+
+
+def _hazard_inputs(Ny, Nx, B, dtype, n_grids, seed, hazards):
+    """Seeded coefficients, v (with +0 and -0 entries) and a 0/1 mask on
+    the card; with ``hazards`` the grid's edge nodes carry +-inf, -0 and
+    negative coefficients."""
+    rng = np.random.default_rng(seed)
+    coefs = rng.standard_normal((n_grids, Ny, Nx, B))
+    v = rng.standard_normal((Ny, Nx, B))
+    v[rng.random(v.shape) < 0.2] = 0.0
+    v[rng.random(v.shape) < 0.1] = -0.0
+    mask = (rng.random((Ny, Nx, 1)) < 0.8).astype(float)
+    if hazards:
+        edge = np.zeros((Ny, Nx), bool)
+        edge[[0, -1], :] = edge[:, [0, -1]] = True
+        for k in range(n_grids):
+            pick = edge[..., None] & (rng.random((Ny, Nx, B)) < 0.3)
+            coefs[k][pick] = rng.choice([np.inf, -np.inf, -0.0, -2.5],
+                                        size=int(pick.sum()))
+    return tuple(torch.as_tensor(a, dtype=dtype, device="cuda")
+                 for a in (coefs, v, mask))
+
+
+def _bits(x):
+    return x.view(torch.int32 if x.dtype == torch.float32 else torch.int64)
+
+
+def _assert_bit_equal(kernel, plain, coefs, v, mask):
+    before = kernel.launches
+    got = kernel(coefs, v, mask)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert torch.equal(_bits(got), _bits(plain(coefs, v, mask)))
+
+
+_FORMS = [(apply_stencil, apply_stencil_reference, 7),
+          (apply_stencil_sym, apply_stencil_sym_reference, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("Ny,Nx,B", [(13, 7, 1), (10, 23, 3), (70, 41, 257),
+                                     (26, 26, 200), (1, 5, 33)])
+def test_tiled_kernels_bit_equal_at_tile_edges(Ny, Nx, B, dtype, form):
+    """Grids that are no multiple of the tile, batches of 1, 3 and 257
+    (the scalar path) and 200 (the 16-byte path, a partial chunk)."""
+    _need_cuda()
+    kernel, plain, n = _FORMS[form]
+    _assert_bit_equal(kernel, plain, *_hazard_inputs(Ny, Nx, B, dtype, n,
+                                                     Ny * Nx + B, False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", [0, 1])
+@pytest.mark.parametrize("dtype,B", [(torch.float32, 2048),
+                                     (torch.float64, 2048),
+                                     (torch.float64, 256)])
+def test_tiled_kernels_bit_equal_on_every_v_cycle_level(dtype, B, form):
+    _need_cuda()
+    kernel, plain, n = _FORMS[form]
+    for nodes in (65, 33, 17, 9, 5):
+        _assert_bit_equal(kernel, plain, *_hazard_inputs(
+            nodes, nodes, B, dtype, n, nodes, False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("Ny,Nx,B", [(9, 9, 16), (33, 33, 64), (17, 12, 3)])
+def test_tiled_kernels_keep_inf_nan_and_signed_zeros_at_the_edge(Ny, Nx, B,
+                                                                 dtype, form):
+    """+-inf, -0 and negative coefficients on the edge nodes: the zero halo
+    gives inf * 0 = NaN and the signs of zero as the plain version's zero
+    padding does; compared as bit patterns."""
+    _need_cuda()
+    kernel, plain, n = _FORMS[form]
+    coefs, v, mask = _hazard_inputs(Ny, Nx, B, dtype, n, B, True)
+    ref = plain(coefs, v, mask)
+    assert bool(torch.isnan(ref).any()) and bool(torch.isinf(ref).any())
+    _assert_bit_equal(kernel, plain, coefs, v, mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", [0, 1])
+def test_tiled_kernels_take_the_scalar_path_off_16_byte_alignment(form):
+    """A contiguous view 4 bytes into its storage: the plan drops to scalar
+    copies and loads, and the result is still bit-equal."""
+    _need_cuda()
+    kernel, plain, n = _FORMS[form]
+    coefs, v, mask = _hazard_inputs(17, 17, 64, torch.float32, n, 5, False)
+    store = torch.empty(v.numel() + 1, dtype=v.dtype, device="cuda")
+    v_off = store[1:].view(v.shape)
+    v_off.copy_(v)
+    assert v_off.is_contiguous() and v_off.data_ptr() % 16 != 0
+    _assert_bit_equal(kernel, plain, coefs, v_off, mask)
