@@ -20,9 +20,12 @@ recipe: label the preset's 2048 fields (Karhunen-Loeve draws, eigh on the
 card) with the multigrid-preconditioned solve, whose V-cycle sweeps and
 residuals all run on K1, in f32 and f64; differentiate that solve; and
 train the recipe of ``bench.py`` (FFT fields, channel dropout 0.2) for 200
-SVI steps.  All three kernels are built from the sources (``nvcc`` into
-``build/torch_kernels/``) and held against their plain PyTorch versions on
-the card; the labels are checked against residuals recomputed with the
+SVI steps.  Last, K1 and K2 run at every shape the main paths launched
+them at, each held bit for bit against its plain version and timed, with
+its launches derived from the paths' iteration counts (and checked against
+the counted launches).  All three kernels are built from the sources
+(``nvcc`` into ``build/torch_kernels/``) and held against their plain
+PyTorch versions on the card; the labels are checked against residuals recomputed with the
 plain apply, f64 solves and a dense direct solve, the gradients against
 the plain path, a Jacobi-preconditioned solve and finite differences, and
 the training against the recipe's expectations and CPU runs of three f64
@@ -32,8 +35,8 @@ Imports torch, numpy, the standard library and the port only.
 
 Output: progress lines, the card's name and power limit as nvidia-smi
 prints them, one ``{"kernels": [...]}`` line with each kernel's launches on
-the main paths, error against its plain version and times, and as the last
-line ``{"ok": true, "device": {...}}``.
+the main paths, error against its plain version and times (K1 and K2 also
+per shape), and as the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations

@@ -15,27 +15,24 @@
 // ~20 flop/byte.  One apply must read 8 grids (7 coefficient grids and v)
 // plus the mask and write one grid; at the highres32 label shape
 // (33 x 33 x 1024, f32, 4.46 MB a grid) that is 40 MB, or 12 us at 3.35 TB/s.
+// At the V-cycle's coarse levels (5^2-17^2 nodes) an apply moves 0.1-12 MB
+// and its time is launch and memory latency, not bandwidth.
 //
-// Design.  A block owns a tile of about 8 x 8 nodes for one chunk of the
-// batch (one 128-byte line: 32 f32 or 16 f64 entries) and walks over such
-// work items in a persistent loop (ops/stencil.py launch_plan gives the
-// geometry).  Per item:
-//  - v on the tile and a one-node halo is copied into shared memory with
-//    cp.async (16-byte copies on the 16-byte path), zero-filled outside the
-//    grid, so each v value crosses L2 -> SM (tile + halo) / tile times
-//    instead of seven; with two buffers the next item's copy is in flight
-//    while this item is summed;
-//  - the seven coefficient grids, read once, stream straight to registers
-//    with 16-byte evict-first loads (__ldcs), issued for several outputs of
-//    a thread before it waits for the staged v;
-//  - each output is summed in _OFFSETS order from +0 with round-to-nearest
-//    multiplies and adds that are never contracted into fused multiply-adds,
-//    and the zero halo supplies the out-of-grid terms as c * 0, exactly as
-//    the plain version pads v with zeros; so the result equals the plain
-//    PyTorch version (apply_stencil_reference) bit for bit, signed zeros and
-//    inf * 0 = NaN included.
-// A batch row that is not a multiple of 16 bytes (or a pointer that is not
-// 16-byte aligned) takes the same kernel with scalar copies and loads.
+// Design (ops/stencil.py launch_plan gives the geometry per shape): a block
+// owns a tile of nodes for one chunk of the batch; the chunks of a tile go
+// to adjacent blocks, so the card streams each grid in address order.  A
+// thread owns `vec` consecutive batch entries of one node at a time (16-byte
+// loads where the batch row allows, else scalar) and issues all fourteen
+// loads of its output at once: the seven coefficients, read once, as
+// evict-first streaming loads; v at the node and its six neighbours through
+// L1, where the other threads of the tile read the same lines.  Measured on
+// the card (PERF.md), staging v with a halo into shared memory lost
+// to these direct loads at every main-path shape, so nothing is staged.
+// The sum runs in _OFFSETS order from +0 with round-to-nearest multiplies
+// and adds that are never contracted into fused multiply-adds, and a
+// neighbour outside the grid contributes c * 0 as the plain version's zero
+// padding does; so the result equals apply_stencil_reference bit for bit,
+// signed zeros and inf * 0 = NaN included.
 
 #include <cuda_runtime.h>
 #include <cstddef>
@@ -47,157 +44,65 @@ namespace {
 
 using namespace gpipde;
 
-// outputs whose loads a thread issues at once: staged, the 7 coefficient
-// packs of each; direct, also the 7 v packs
-template <bool STAGED>
-__host__ __device__ constexpr int per_thread() { return STAGED ? 2 : 1; }
-
-// STAGED: v of the item's tile and halo is copied to shared memory (plan
-// stages 1 or 2).  Direct (plan stages 0): each thread loads its outputs'
-// seven v neighbours itself, 16 bytes at a time through L1, where the other
-// threads of its tile find them again.
-template <typename T, int V, bool STAGED>
-__global__ void __launch_bounds__(kMaxThreads, min_blocks<STAGED>())
+template <typename T, int V>
+__global__ void __launch_bounds__(kMaxThreads)
 apply_stencil_kernel(const T* __restrict__ coefs, const T* __restrict__ v,
                      const T* __restrict__ mask, T* __restrict__ out,
-                     int Ny, int Nx, int B, Plan p, int n_items) {
-  constexpr int kPer = per_thread<STAGED>();
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int sc = p.tile_cols + 2;                       // v region stride, nodes
-  const int region = (p.tile_rows + 2) * sc * p.chunk;  // elements per buffer
-  T* const buf0 = reinterpret_cast<T*>(smem_raw);
+                     int Ny, int Nx, int B, Plan p) {
+  const Item it = item_of(Ny, Nx, p);
+  const Lanes ln = lanes_of<V>(p.chunk);
+  const int b = it.b0 + ln.lane * V;
+  if (b >= B) return;
   const ptrdiff_t plane = static_cast<ptrdiff_t>(Ny) * Nx * B;
   const ptrdiff_t row = static_cast<ptrdiff_t>(Nx) * B;
-  const Lanes ln = lanes_of<V>(p.chunk);
-  // offsets of the _OFFSETS neighbours, in shared memory and in v
-  const int off[7] = {0, sc * p.chunk, -sc * p.chunk, p.chunk, -p.chunk,
-                      (sc + 1) * p.chunk, -(sc + 1) * p.chunk};
-  const ptrdiff_t goff[7] = {0, row, -row, B, -B, row + B, -row - B};
-
-  auto stage_item = [&](T* buf, const Item& it) {
-    stage<T, V>(buf, v, it.y0 - 1, it.x0 - 1, it.h + 2, it.w + 2, sc, Ny, Nx,
-                B, it.b0, p.chunk);
-  };
-
-  int item = blockIdx.x;
-  if (STAGED && p.stages == 2 && item < n_items) stage_item(buf0, decode(item, Ny, Nx, B, p));
-  if (STAGED) cp_async_commit();
-  for (int k = 0; item < n_items; ++k, item += gridDim.x) {
-    const Item it = decode(item, Ny, Nx, B, p);
-    T* const buf = buf0 + (p.stages == 2 ? (k & 1) * region : 0);
-    if constexpr (STAGED) {
-      if (p.stages == 2) {
-        const int next = item + gridDim.x;
-        if (next < n_items)
-          stage_item(buf0 + ((k + 1) & 1) * region, decode(next, Ny, Nx, B, p));
-      } else {
-        stage_item(buf, it);
-      }
-      cp_async_commit();
+  for (NodeWalk nw(ln.slot, ln.slots, it.w); nw.ly < it.h; nw.next()) {
+    const int y = it.y0 + nw.ly, x = it.x0 + nw.lx;
+    const int node = y * Nx + x;
+    const ptrdiff_t i = static_cast<ptrdiff_t>(node) * B + b;
+    const bool n_ = y + 1 < Ny, s_ = y > 0, e_ = x + 1 < Nx, w_ = x > 0;
+    Pack<T, V> c[7], u[7];
+#pragma unroll
+    for (int q = 0; q < 7; ++q) c[q] = ld_stream<T, V>(coefs + q * plane + i);
+    u[0] = ld_cached<T, V>(v + i, true);               // ( 0, 0)
+    u[1] = ld_cached<T, V>(v + i + row, n_);           // ( 1, 0)
+    u[2] = ld_cached<T, V>(v + i - row, s_);           // (-1, 0)
+    u[3] = ld_cached<T, V>(v + i + B, e_);             // ( 0, 1)
+    u[4] = ld_cached<T, V>(v + i - B, w_);             // ( 0,-1)
+    u[5] = ld_cached<T, V>(v + i + row + B, n_ && e_); // ( 1, 1)
+    u[6] = ld_cached<T, V>(v + i - row - B, s_ && w_); // (-1,-1)
+    const T m = __ldg(mask + node);
+    Pack<T, V> r;
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      T acc = T(0);
+#pragma unroll
+      for (int q = 0; q < 7; ++q) acc = add_rn(acc, mul_rn(c[q].e[e], u[q].e[e]));
+      r.e[e] = mul_rn(m, acc);
     }
-
-    const int nodes = it.h * it.w;
-    const int b = it.b0 + ln.lane * V;
-    const bool lane_ok = ln.slot < ln.slots && b < B;
-    Pack<T, V> c[kPer][7];
-    Pack<T, V> vv[kPer][7];    // direct: the v neighbours
-    ptrdiff_t gi[kPer];        // global element index of each output, -1: none
-    int si[kPer];              // staged: its shared-memory element index
-    int gm[kPer];              // its node (mask index)
-    auto load = [&](int n0) {
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const int n = n0 + j * ln.slots;
-        gi[j] = -1;
-        if (lane_ok && n < nodes) {
-          const int ly = n / it.w, lx = n - ly * it.w;
-          const int y = it.y0 + ly, x = it.x0 + lx;
-          gm[j] = y * Nx + x;
-          gi[j] = static_cast<ptrdiff_t>(gm[j]) * B + b;
-          si[j] = ((ly + 1) * sc + lx + 1) * p.chunk + ln.lane * V;
-#pragma unroll
-          for (int q = 0; q < 7; ++q) c[j][q] = ld_stream<T, V>(coefs + q * plane + gi[j]);
-          if constexpr (!STAGED) {
-            const bool n_ = y + 1 < Ny, s_ = y > 0, e_ = x + 1 < Nx, w_ = x > 0;
-            const bool in[7] = {true, n_, s_, e_, w_, n_ && e_, s_ && w_};
-#pragma unroll
-            for (int q = 0; q < 7; ++q)
-              vv[j][q] = ld_cached_or_zero<T, V>(v + gi[j] + goff[q], in[q]);
-          }
-        }
-      }
-    };
-    auto sum_store = [&](const T* s) {
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        if (gi[j] < 0) continue;
-        const T m = __ldg(mask + gm[j]);
-        Pack<T, V> r;
-#pragma unroll
-        for (int e = 0; e < V; ++e) r.e[e] = T(0);
-#pragma unroll
-        for (int q = 0; q < 7; ++q) {
-          Pack<T, V> x;
-          if constexpr (STAGED) x = ld_shared<T, V>(s + si[j] + off[q]);
-          else x = vv[j][q];
-#pragma unroll
-          for (int e = 0; e < V; ++e) r.e[e] = add_rn(r.e[e], mul_rn(c[j][q].e[e], x.e[e]));
-        }
-#pragma unroll
-        for (int e = 0; e < V; ++e) r.e[e] = mul_rn(m, r.e[e]);
-        st_stream<T, V>(out + gi[j], r);
-      }
-    };
-
-    load(ln.slot);  // staged: in flight while the staged v lands
-    if constexpr (STAGED) {
-      if (p.stages == 2) cp_async_wait<1>(); else cp_async_wait<0>();
-      __syncthreads();
-    }
-    for (int n0 = ln.slot;;) {
-      sum_store(buf);
-      n0 += kPer * ln.slots;
-      if (n0 >= nodes) break;
-      load(n0);
-    }
-    if constexpr (STAGED) __syncthreads();  // the buffer is free to be overwritten
+    st_stream<T, V>(out + i, r);
   }
-  if constexpr (STAGED) cp_async_wait<0>();
-}
-
-template <typename T, int V, bool STAGED>
-int launch_v(const T* coefs, const T* v, const T* mask, T* out, int Ny, int Nx,
-             int B, const Plan& p, int n_items, int device, cudaStream_t s) {
-  static int allowed[kMaxDevices] = {};
-  const int err = allow_smem(apply_stencil_kernel<T, V, STAGED>, p.smem, &allowed[device]);
-  if (err != 0) return err;
-  apply_stencil_kernel<T, V, STAGED><<<p.blocks, p.threads, p.smem, s>>>(
-      coefs, v, mask, out, Ny, Nx, B, p, n_items);
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* coefs, const void* v, const void* mask, void* out,
            int Ny, int Nx, int B, const int* plan, int device, void* stream) {
   Plan p;
-  int n_items = 0;
-  int err = check_plan(plan, Ny, Nx, B, sizeof(T), false, &p, &n_items);
+  int err = check_plan(plan, Ny, Nx, B, sizeof(T), &p);
   if (err == 0) err = use_device(device);
   if (err == 0 && p.vec > 1 && !aligned16(coefs, v, out))
     err = static_cast<int>(cudaErrorInvalidValue);
   if (err != 0) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const T* c = static_cast<const T*>(coefs);
   const T* vv = static_cast<const T*>(v);
   const T* m = static_cast<const T*>(mask);
   T* o = static_cast<T*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  constexpr int V16 = 16 / sizeof(T);
-  if (p.stages == 0) {
-    if (p.vec == 1) return launch_v<T, 1, false>(c, vv, m, o, Ny, Nx, B, p, n_items, device, s);
-    return launch_v<T, V16, false>(c, vv, m, o, Ny, Nx, B, p, n_items, device, s);
-  }
-  if (p.vec == 1) return launch_v<T, 1, true>(c, vv, m, o, Ny, Nx, B, p, n_items, device, s);
-  return launch_v<T, V16, true>(c, vv, m, o, Ny, Nx, B, p, n_items, device, s);
+  if (p.vec == 1)
+    apply_stencil_kernel<T, 1><<<grid_of(p), p.threads, 0, s>>>(c, vv, m, o, Ny, Nx, B, p);
+  else
+    apply_stencil_kernel<T, 16 / sizeof(T)><<<grid_of(p), p.threads, 0, s>>>(c, vv, m, o, Ny,
+                                                                          Nx, B, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

@@ -18,20 +18,18 @@
 // 6 grids, at the highres32 label shape (33 x 33 x 1024, f32, 4.46 MB a grid)
 // 26.8 MB, or 8.0 us at 3.35 TB/s -- two thirds of the 7-grid kernel's bytes.
 //
-// Design: the tiled persistent loop of stencil.cu (K1), with more staged.
-// Each direction grid c_dir is read at two nodes per output, its own and
-// its -dir neighbour's, and v at seven; so per work item (a tile of about
-// 8 x 8 nodes and one 128-byte line of the batch) the block copies with
-// cp.async into shared memory, zero-filled outside the grid:
-//  - v on the tile and a one-node halo on both sides,
-//  - c_N, c_E, c_D on the tile and a one-node halo on the -dir side,
-// two buffers deep, so the next item's copy overlaps this item's sums.  c0,
-// read once, streams to registers with 16-byte evict-first loads.  The sum
-// runs in the order of _apply_stencil_sym_blast (c0*v, then per dir the
-// +dir term and the -dir term) with round-to-nearest multiplies and adds
-// that are never contracted into fused multiply-adds; the zero fill gives
-// the out-of-grid terms as the plain version's zero padding does (c * 0 and
-// 0 * 0), so the result equals apply_stencil_sym_reference bit for bit.
+// Design: that of stencil.cu (K1), with the geometry of ops/stencil.py
+// launch_plan.  Each direction grid c_dir is read at two nodes per output,
+// its own and its -dir neighbour's, and v at seven; a block owns a tile of
+// nodes for one chunk of the batch, so both reads of c_dir and the seven of
+// v hit lines the tile's threads share in L1, and a thread issues its 14
+// loads at once (16-byte loads where the batch row allows).  c0, read once,
+// streams with evict-first loads.  The sum runs in the order of
+// _apply_stencil_sym_blast (c0*v, then per dir the +dir term and the -dir
+// term) with round-to-nearest multiplies and adds that are never contracted
+// into fused multiply-adds; a node outside the grid contributes zeros, as
+// the plain version's zero padding does (c * 0 and 0 * 0), so the result
+// equals apply_stencil_sym_reference bit for bit.
 
 #include <cuda_runtime.h>
 #include <cstddef>
@@ -43,180 +41,69 @@ namespace {
 
 using namespace gpipde;
 
-// outputs whose loads a thread issues at once: staged, the c0 pack of each;
-// direct, also its 6 coefficient and 7 v packs
-template <bool STAGED>
-__host__ __device__ constexpr int per_thread() { return STAGED ? 4 : 1; }
-
-// STAGED: v and c_N, c_E, c_D of the item's tile and halo are copied to
-// shared memory (plan stages 1 or 2).  Direct (plan stages 0): each thread
-// loads them itself, 16 bytes at a time through L1.
-template <typename T, int V, bool STAGED>
-__global__ void __launch_bounds__(kMaxThreads, min_blocks<STAGED>())
+template <typename T, int V>
+__global__ void __launch_bounds__(kMaxThreads)
 apply_stencil_sym_kernel(const T* __restrict__ coefs4, const T* __restrict__ v,
                          const T* __restrict__ mask, T* __restrict__ out,
-                         int Ny, int Nx, int B, Plan p, int n_items) {
-  constexpr int kPer = per_thread<STAGED>();
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int sv = p.tile_cols + 2;  // v region stride, nodes
-  const int sd = p.tile_cols + 1;  // c_dir region stride, nodes
-  const int v_elems = (p.tile_rows + 2) * sv * p.chunk;
-  const int d_elems = (p.tile_rows + 1) * sd * p.chunk;
-  const int region = v_elems + 3 * d_elems;  // elements per buffer
-  T* const buf0 = reinterpret_cast<T*>(smem_raw);
+                         int Ny, int Nx, int B, Plan p) {
+  const Item it = item_of(Ny, Nx, p);
+  const Lanes ln = lanes_of<V>(p.chunk);
+  const int b = it.b0 + ln.lane * V;
+  if (b >= B) return;
   const ptrdiff_t plane = static_cast<ptrdiff_t>(Ny) * Nx * B;
   const ptrdiff_t row = static_cast<ptrdiff_t>(Nx) * B;
-  const Lanes ln = lanes_of<V>(p.chunk);
-  const int ch = p.chunk;
-  // the terms after c0 * v, in the plain order: (grid, its shift in
-  // shared memory and in global memory; v's shifts)
-  const int dsh[6] = {0, -sd * ch, 0, -ch, 0, -(sd + 1) * ch};
-  const int vsh[6] = {sv * ch, -sv * ch, ch, -ch, (sv + 1) * ch, -(sv + 1) * ch};
-  const ptrdiff_t gdsh[6] = {0, -row, 0, -B, 0, -row - B};
-  const ptrdiff_t gvsh[6] = {row, -row, B, -B, row + B, -row - B};
-
-  auto stage_item = [&](T* buf, const Item& it) {
-    stage<T, V>(buf, v, it.y0 - 1, it.x0 - 1, it.h + 2, it.w + 2, sv, Ny, Nx, B,
-                it.b0, ch);
-    for (int d = 0; d < 3; ++d)
-      stage<T, V>(buf + v_elems + d * d_elems, coefs4 + (d + 1) * plane, it.y0 - 1,
-                  it.x0 - 1, it.h + 1, it.w + 1, sd, Ny, Nx, B, it.b0, ch);
-  };
-
-  int item = blockIdx.x;
-  if (STAGED && p.stages == 2 && item < n_items) stage_item(buf0, decode(item, Ny, Nx, B, p));
-  if (STAGED) cp_async_commit();
-  for (int k = 0; item < n_items; ++k, item += gridDim.x) {
-    const Item it = decode(item, Ny, Nx, B, p);
-    T* const buf = buf0 + (p.stages == 2 ? (k & 1) * region : 0);
-    if constexpr (STAGED) {
-      if (p.stages == 2) {
-        const int next = item + gridDim.x;
-        if (next < n_items)
-          stage_item(buf0 + ((k + 1) & 1) * region, decode(next, Ny, Nx, B, p));
-      } else {
-        stage_item(buf, it);
-      }
-      cp_async_commit();
+  const T* cN = coefs4 + plane;
+  const T* cE = coefs4 + 2 * plane;
+  const T* cD = coefs4 + 3 * plane;
+  for (NodeWalk nw(ln.slot, ln.slots, it.w); nw.ly < it.h; nw.next()) {
+    const int y = it.y0 + nw.ly, x = it.x0 + nw.lx;
+    const int node = y * Nx + x;
+    const ptrdiff_t i = static_cast<ptrdiff_t>(node) * B + b;
+    const bool n_ = y + 1 < Ny, s_ = y > 0, e_ = x + 1 < Nx, w_ = x > 0;
+    const Pack<T, V> c0 = ld_stream<T, V>(coefs4 + i);
+    const Pack<T, V> v0 = ld_cached<T, V>(v + i, true);
+    // (coefficient, v) of each term after c0 * v, in the plain order
+    const Pack<T, V> t[6][2] = {
+        {ld_cached<T, V>(cN + i, true), ld_cached<T, V>(v + i + row, n_)},
+        {ld_cached<T, V>(cN + i - row, s_), ld_cached<T, V>(v + i - row, s_)},
+        {ld_cached<T, V>(cE + i, true), ld_cached<T, V>(v + i + B, e_)},
+        {ld_cached<T, V>(cE + i - B, w_), ld_cached<T, V>(v + i - B, w_)},
+        {ld_cached<T, V>(cD + i, true), ld_cached<T, V>(v + i + row + B, n_ && e_)},
+        {ld_cached<T, V>(cD + i - row - B, s_ && w_),
+         ld_cached<T, V>(v + i - row - B, s_ && w_)}};
+    const T m = __ldg(mask + node);
+    Pack<T, V> r;
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      T acc = mul_rn(c0.e[e], v0.e[e]);
+#pragma unroll
+      for (int q = 0; q < 6; ++q) acc = add_rn(acc, mul_rn(t[q][0].e[e], t[q][1].e[e]));
+      r.e[e] = mul_rn(m, acc);
     }
-
-    const int nodes = it.h * it.w;
-    const int b = it.b0 + ln.lane * V;
-    const bool lane_ok = ln.slot < ln.slots && b < B;
-    Pack<T, V> c0[kPer];
-    Pack<T, V> vc[kPer];       // direct: v at the node
-    Pack<T, V> tc[kPer][6];    // direct: the terms' coefficients
-    Pack<T, V> tv[kPer][6];    // direct: the terms' v
-    ptrdiff_t gi[kPer];        // global element index of each output, -1: none
-    int vi[kPer];              // staged: its element index in the v region
-    int di[kPer];              // staged: its element index in a c_dir region
-    int gm[kPer];              // its node (mask index)
-    auto load = [&](int n0) {
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const int n = n0 + j * ln.slots;
-        gi[j] = -1;
-        if (lane_ok && n < nodes) {
-          const int ly = n / it.w, lx = n - ly * it.w;
-          const int y = it.y0 + ly, x = it.x0 + lx;
-          gm[j] = y * Nx + x;
-          gi[j] = static_cast<ptrdiff_t>(gm[j]) * B + b;
-          vi[j] = ((ly + 1) * sv + lx + 1) * ch + ln.lane * V;
-          di[j] = ((ly + 1) * sd + lx + 1) * ch + ln.lane * V;
-          c0[j] = ld_stream<T, V>(coefs4 + gi[j]);
-          if constexpr (!STAGED) {
-            const bool n_ = y + 1 < Ny, s_ = y > 0, e_ = x + 1 < Nx, w_ = x > 0;
-            const bool vin[6] = {n_, s_, e_, w_, n_ && e_, s_ && w_};
-            const bool cin[6] = {true, s_, true, w_, true, s_ && w_};
-            vc[j] = ld_cached<T, V>(v + gi[j]);
-#pragma unroll
-            for (int q = 0; q < 6; ++q) {
-              tc[j][q] = ld_cached_or_zero<T, V>(coefs4 + (1 + q / 2) * plane + gi[j] + gdsh[q],
-                                                 cin[q]);
-              tv[j][q] = ld_cached_or_zero<T, V>(v + gi[j] + gvsh[q], vin[q]);
-            }
-          }
-        }
-      }
-    };
-    auto sum_store = [&](const T* s) {
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        if (gi[j] < 0) continue;
-        const T m = __ldg(mask + gm[j]);
-        Pack<T, V> x = STAGED ? ld_shared<T, V>(s + vi[j]) : vc[j];
-        Pack<T, V> r;
-#pragma unroll
-        for (int e = 0; e < V; ++e) r.e[e] = mul_rn(c0[j].e[e], x.e[e]);
-#pragma unroll
-        for (int q = 0; q < 6; ++q) {
-          Pack<T, V> cq, vq;
-          if constexpr (STAGED) {
-            cq = ld_shared<T, V>(s + v_elems + (q / 2) * d_elems + di[j] + dsh[q]);
-            vq = ld_shared<T, V>(s + vi[j] + vsh[q]);
-          } else {
-            cq = tc[j][q];
-            vq = tv[j][q];
-          }
-#pragma unroll
-          for (int e = 0; e < V; ++e) r.e[e] = add_rn(r.e[e], mul_rn(cq.e[e], vq.e[e]));
-        }
-#pragma unroll
-        for (int e = 0; e < V; ++e) r.e[e] = mul_rn(m, r.e[e]);
-        st_stream<T, V>(out + gi[j], r);
-      }
-    };
-
-    load(ln.slot);  // staged: in flight while the staged grids land
-    if constexpr (STAGED) {
-      if (p.stages == 2) cp_async_wait<1>(); else cp_async_wait<0>();
-      __syncthreads();
-    }
-    for (int n0 = ln.slot;;) {
-      sum_store(buf);
-      n0 += kPer * ln.slots;
-      if (n0 >= nodes) break;
-      load(n0);
-    }
-    if constexpr (STAGED) __syncthreads();  // the buffer is free to be overwritten
+    st_stream<T, V>(out + i, r);
   }
-  if constexpr (STAGED) cp_async_wait<0>();
-}
-
-template <typename T, int V, bool STAGED>
-int launch_v(const T* coefs4, const T* v, const T* mask, T* out, int Ny, int Nx,
-             int B, const Plan& p, int n_items, int device, cudaStream_t s) {
-  static int allowed[kMaxDevices] = {};
-  const int err =
-      allow_smem(apply_stencil_sym_kernel<T, V, STAGED>, p.smem, &allowed[device]);
-  if (err != 0) return err;
-  apply_stencil_sym_kernel<T, V, STAGED><<<p.blocks, p.threads, p.smem, s>>>(
-      coefs4, v, mask, out, Ny, Nx, B, p, n_items);
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* coefs4, const void* v, const void* mask, void* out,
            int Ny, int Nx, int B, const int* plan, int device, void* stream) {
   Plan p;
-  int n_items = 0;
-  int err = check_plan(plan, Ny, Nx, B, sizeof(T), true, &p, &n_items);
+  int err = check_plan(plan, Ny, Nx, B, sizeof(T), &p);
   if (err == 0) err = use_device(device);
   if (err == 0 && p.vec > 1 && !aligned16(coefs4, v, out))
     err = static_cast<int>(cudaErrorInvalidValue);
   if (err != 0) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const T* c = static_cast<const T*>(coefs4);
   const T* vv = static_cast<const T*>(v);
   const T* m = static_cast<const T*>(mask);
   T* o = static_cast<T*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  constexpr int V16 = 16 / sizeof(T);
-  if (p.stages == 0) {
-    if (p.vec == 1) return launch_v<T, 1, false>(c, vv, m, o, Ny, Nx, B, p, n_items, device, s);
-    return launch_v<T, V16, false>(c, vv, m, o, Ny, Nx, B, p, n_items, device, s);
-  }
-  if (p.vec == 1) return launch_v<T, 1, true>(c, vv, m, o, Ny, Nx, B, p, n_items, device, s);
-  return launch_v<T, V16, true>(c, vv, m, o, Ny, Nx, B, p, n_items, device, s);
+  if (p.vec == 1)
+    apply_stencil_sym_kernel<T, 1><<<grid_of(p), p.threads, 0, s>>>(c, vv, m, o, Ny, Nx, B, p);
+  else
+    apply_stencil_sym_kernel<T, 16 / sizeof(T)><<<grid_of(p), p.threads, 0, s>>>(c, vv, m, o,
+                                                                              Ny, Nx, B, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

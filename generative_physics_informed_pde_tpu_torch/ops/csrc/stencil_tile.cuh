@@ -1,29 +1,22 @@
 // Shared pieces of the tiled stencil kernels K1 (stencil.cu) and K2
 // (stencil_sym.cu): the launch plan as the kernels read it, work-item
-// decoding, cp.async staging with zero fill, 16-byte streaming loads and
-// stores, exact round-to-nearest arithmetic, and the launch checks.
+// decoding, 16-byte (or scalar) loads and stores, exact round-to-nearest
+// arithmetic, and the launch checks.
 #pragma once
 
 #include <cuda_runtime.h>
-#include <climits>
 #include <cstddef>
 #include <cstdint>
 
 namespace gpipde {
 
-// __launch_bounds__(kMaxThreads, min_blocks<STAGED>()) of the kernels: the
-// staged form keeps three blocks of 256 threads resident per SM (at most 85
-// registers a thread), the direct form four (64 registers); ops/stencil.py
-// _SM_THREADS mirrors both.
-constexpr int kMaxThreads = 256;
-template <bool STAGED>
-__host__ __device__ constexpr int min_blocks() { return STAGED ? 3 : 4; }
+constexpr int kMaxThreads = 256;  // __launch_bounds__ of the kernels
 constexpr int kMaxDevices = 64;
+constexpr int kMaxTiles = 65535;  // gridDim.y and gridDim.z
 
 // ops/stencil.py LaunchPlan.as_ints(), in this order.
 struct Plan {
-  int tiles_y, tiles_x, tile_rows, tile_cols, chunk, vec, threads, blocks,
-      smem, stages;
+  int tiles_y, tiles_x, tile_rows, tile_cols, chunk, vec, threads, blocks;
 };
 
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
@@ -38,8 +31,9 @@ struct Pack {
   T e[V];
 };
 
+// Read once (the coefficients a node owns): evict first.
 template <typename T, int V>
-__device__ __forceinline__ Pack<T, V> ld_stream(const T* p) {  // read once: evict first
+__device__ __forceinline__ Pack<T, V> ld_stream(const T* p) {
   Pack<T, V> r;
   if constexpr (V == 1) {
     r.e[0] = __ldcs(p);
@@ -53,42 +47,21 @@ __device__ __forceinline__ Pack<T, V> ld_stream(const T* p) {  // read once: evi
   return r;
 }
 
+// Read again by neighbouring outputs of the block: through L1; zeros where
+// the node leaves the grid (the plain version's zero padding).
 template <typename T, int V>
-__device__ __forceinline__ Pack<T, V> ld_cached(const T* p) {  // read again nearby: L1
+__device__ __forceinline__ Pack<T, V> ld_cached(const T* p, bool in_grid) {
   Pack<T, V> r;
-  if constexpr (V == 1) {
+  if (!in_grid) {
+#pragma unroll
+    for (int e = 0; e < V; ++e) r.e[e] = T(0);
+  } else if constexpr (V == 1) {
     r.e[0] = __ldg(p);
   } else if constexpr (sizeof(T) == 4) {
     const float4 q = __ldg(reinterpret_cast<const float4*>(p));
     r.e[0] = q.x; r.e[1] = q.y; r.e[2] = q.z; r.e[3] = q.w;
   } else {
     const double2 q = __ldg(reinterpret_cast<const double2*>(p));
-    r.e[0] = q.x; r.e[1] = q.y;
-  }
-  return r;
-}
-
-// ld_cached where `in` (the node lies in the grid), else zeros: the plain
-// version's zero padding.
-template <typename T, int V>
-__device__ __forceinline__ Pack<T, V> ld_cached_or_zero(const T* p, bool in) {
-  if (in) return ld_cached<T, V>(p);
-  Pack<T, V> z;
-#pragma unroll
-  for (int e = 0; e < V; ++e) z.e[e] = T(0);
-  return z;
-}
-
-template <typename T, int V>
-__device__ __forceinline__ Pack<T, V> ld_shared(const T* p) {
-  Pack<T, V> r;
-  if constexpr (V == 1) {
-    r.e[0] = *p;
-  } else if constexpr (sizeof(T) == 4) {
-    const float4 q = *reinterpret_cast<const float4*>(p);
-    r.e[0] = q.x; r.e[1] = q.y; r.e[2] = q.z; r.e[3] = q.w;
-  } else {
-    const double2 q = *reinterpret_cast<const double2*>(p);
     r.e[0] = q.x; r.e[1] = q.y;
   }
   return r;
@@ -105,59 +78,27 @@ __device__ __forceinline__ void st_stream(T* p, const Pack<T, V>& r) {
   }
 }
 
-// cp.async of N bytes global -> shared; with !valid nothing is read and the
-// N bytes are zero-filled (src-size 0).
-template <int N>
-__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? N : 0;
-  if constexpr (N == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n)
-                 : "memory");
-  } else if constexpr (N == 8) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src), "r"(n)
-                 : "memory");
-  } else {
-    static_assert(N == 4, "cp.async copies 4, 8 or 16 bytes");
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(n)
-                 : "memory");
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// A work item: node rows [y0, y0 + h), columns [x0, x0 + w), batch entries
-// from b0 (ops/stencil.py tile_span and LaunchPlan).
+// The work item of a block of the grid (chunks, tiles_x, tiles_y): node
+// rows [y0, y0 + h), columns [x0, x0 + w), batch entries from b0.  Chunks
+// are the fastest grid dimension, so a tile's chunks go to adjacent blocks,
+// which read adjacent bytes.
 struct Item {
   int y0, h, x0, w, b0;
 };
 
-__device__ __forceinline__ int span(int i, int n, int parts) {
-  return static_cast<int>(static_cast<long long>(i) * n / parts);
-}
-
-__device__ __forceinline__ Item decode(int item, int Ny, int Nx, int B, const Plan& p) {
-  const int chunks = (B + p.chunk - 1) / p.chunk;  // tile-major: a tile's chunks are adjacent
-  const int t = item / chunks, c = item - t * chunks;
-  const int ty = t / p.tiles_x, tx = t - ty * p.tiles_x;
+__device__ __forceinline__ Item item_of(int Ny, int Nx, const Plan& p) {
   Item it;
-  it.y0 = span(ty, Ny, p.tiles_y);
-  it.h = span(ty + 1, Ny, p.tiles_y) - it.y0;
-  it.x0 = span(tx, Nx, p.tiles_x);
-  it.w = span(tx + 1, Nx, p.tiles_x) - it.x0;
-  it.b0 = c * p.chunk;
+  it.y0 = static_cast<int>(blockIdx.z) * p.tile_rows;
+  it.x0 = static_cast<int>(blockIdx.y) * p.tile_cols;
+  it.h = min(p.tile_rows, Ny - it.y0);
+  it.w = min(p.tile_cols, Nx - it.x0);
+  it.b0 = static_cast<int>(blockIdx.x) * p.chunk;
   return it;
 }
 
-// A thread's lane (V batch entries of the chunk) and node slot; threads at
-// slot >= slots compute nothing (they help to stage).
+// A thread's lane (V batch entries of the chunk) and its nodes of the tile:
+// the slot-th, then every slots-th, row-major.  lanes = chunk / V is a
+// power of two that divides the block.
 struct Lanes {
   int lane, slot, slots;
 };
@@ -165,63 +106,63 @@ struct Lanes {
 template <int V>
 __device__ __forceinline__ Lanes lanes_of(int chunk) {
   const int lanes = chunk / V;
+  const int shift = __ffs(lanes) - 1;
   const int t = static_cast<int>(threadIdx.x);
-  return {t % lanes, t / lanes, static_cast<int>(blockDim.x) / lanes};
+  return {t & (lanes - 1), t >> shift, static_cast<int>(blockDim.x) >> shift};
 }
 
-// Copy the chunk of grid `src` (Ny, Nx, B) on node rows [gy0, gy0 + rh),
-// columns [gx0, gx0 + rw) into dst[(ry * stride + rx) * chunk + b - b0],
-// zero where the node leaves the grid or b >= B.
-template <typename T, int V>
-__device__ __forceinline__ void stage(T* dst, const T* __restrict__ src, int gy0, int gx0,
-                                      int rh, int rw, int stride, int Ny, int Nx, int B,
-                                      int b0, int chunk) {
-  constexpr int kBytes = static_cast<int>(sizeof(T)) * V;
-  const int lanes = chunk / V;
-  const int n = rh * rw * lanes;
-  for (int k = static_cast<int>(threadIdx.x); k < n; k += static_cast<int>(blockDim.x)) {
-    const int node = k / lanes, lane = k - node * lanes;
-    const int ry = node / rw, rx = node - ry * rw;
-    const int gy = gy0 + ry, gx = gx0 + rx, b = b0 + lane * V;
-    const bool ok = gy >= 0 && gy < Ny && gx >= 0 && gx < Nx && b < B;
-    const T* g = ok ? src + (static_cast<ptrdiff_t>(gy) * Nx + gx) * B + b : src;
-    cp_async<kBytes>(dst + (ry * stride + rx) * chunk + lane * V, g, ok);
+// Walk a thread's nodes (ly, lx) of a tile of width w: two divisions a
+// thread, none per node.
+struct NodeWalk {
+  int ly, lx, dy, dx, w;
+  __device__ __forceinline__ NodeWalk(int slot, int slots, int w_) : w(w_) {
+    ly = slot / w;
+    lx = slot - ly * w;
+    dy = slots / w;
+    dx = slots - dy * w;
   }
-}
+  __device__ __forceinline__ void next() {
+    ly += dy;
+    lx += dx;
+    if (lx >= w) {
+      lx -= w;
+      ++ly;
+    }
+  }
+};
 
 // Host side ------------------------------------------------------------------
 
-// Nodes of one shared-memory buffer (ops/stencil.py staged_nodes): v on the
-// tile and a one-node halo; K2 (`sym`) also c_N, c_E, c_D on the tile and
-// the -dir halo.
-__host__ __device__ inline long long staged_nodes(int tile_rows, int tile_cols, bool sym) {
-  const long long v = static_cast<long long>(tile_rows + 2) * (tile_cols + 2);
-  return sym ? v + 3LL * (tile_rows + 1) * (tile_cols + 1) : v;
-}
-
 // Read and check a plan against the shape.  0 or cudaErrorInvalidValue.
-inline int check_plan(const int* q, int Ny, int Nx, int B, int item, bool sym, Plan* p,
-                      int* n_items) {
+inline int check_plan(const int* q, int Ny, int Nx, int B, int item, Plan* p) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (q == nullptr || Ny <= 0 || Nx <= 0 || B <= 0) return bad;
-  *p = Plan{q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7], q[8], q[9]};
-  if (p->tiles_y <= 0 || p->tiles_x <= 0 || p->tiles_y > Ny || p->tiles_x > Nx) return bad;
-  // the largest tile, ceil(N / tiles), fits the buffer
-  if (static_cast<long long>(p->tile_rows) * p->tiles_y < Ny ||
-      static_cast<long long>(p->tile_cols) * p->tiles_x < Nx)
+  *p = Plan{q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7]};
+  // tiles of tile_rows x tile_cols cover the grid, the last row and column
+  // of tiles cut short, none empty
+  if (p->tiles_y <= 0 || p->tiles_x <= 0 || p->tiles_y > kMaxTiles || p->tiles_x > kMaxTiles ||
+      p->tile_rows <= 0 || p->tile_cols <= 0 ||
+      static_cast<long long>(p->tile_rows) * p->tiles_y < Ny ||
+      static_cast<long long>(p->tile_rows) * (p->tiles_y - 1) >= Ny ||
+      static_cast<long long>(p->tile_cols) * p->tiles_x < Nx ||
+      static_cast<long long>(p->tile_cols) * (p->tiles_x - 1) >= Nx)
     return bad;
   if (!(p->vec == 1 || p->vec * item == 16) || p->chunk <= 0 || p->chunk % p->vec != 0 ||
       B % p->vec != 0)
     return bad;
-  if (p->threads <= 0 || p->threads > kMaxThreads || p->threads < p->chunk / p->vec) return bad;
-  if (p->stages < 0 || p->stages > 2) return bad;  // 0: direct, no staging
-  if (p->smem < p->stages * staged_nodes(p->tile_rows, p->tile_cols, sym) * p->chunk * item)
-    return bad;
-  const long long items =
+  const int lanes = p->chunk / p->vec;
+  if ((lanes & (lanes - 1)) != 0) return bad;
+  if (p->threads <= 0 || p->threads > kMaxThreads || p->threads % lanes != 0) return bad;
+  const long long blocks =
       static_cast<long long>(p->tiles_y) * p->tiles_x * ((B + p->chunk - 1) / p->chunk);
-  if (items > INT_MAX || p->blocks <= 0 || p->blocks > items) return bad;
-  *n_items = static_cast<int>(items);
+  if (p->blocks != blocks) return bad;  // one work item per block
   return 0;
+}
+
+// The grid of a plan: (chunks, tiles_x, tiles_y).
+inline dim3 grid_of(const Plan& p) {
+  return dim3(static_cast<unsigned>(p.blocks / (p.tiles_y * p.tiles_x)),
+              static_cast<unsigned>(p.tiles_x), static_cast<unsigned>(p.tiles_y));
 }
 
 // Make `device` current only if it is not already.
@@ -236,17 +177,6 @@ inline int use_device(int device) {
 inline bool aligned16(const void* a, const void* b, const void* c) {
   return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
            reinterpret_cast<uintptr_t>(c)) & 15u) == 0;
-}
-
-// Dynamic shared memory above 48 KB must be allowed once per kernel and
-// device; `allowed` remembers the most allowed so far.
-template <typename K>
-int allow_smem(K kernel, int smem, int* allowed) {
-  if (smem <= 48 * 1024 || smem <= *allowed) return 0;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e == cudaSuccess) *allowed = smem;
-  return static_cast<int>(e);
 }
 
 }  // namespace gpipde

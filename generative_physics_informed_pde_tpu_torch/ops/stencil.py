@@ -89,38 +89,31 @@ def _check(coefs, v, mask, n_grids):
 # Launch plan of K1 and K2
 # ---------------------------------------------------------------------------
 #
-# A block of K1 or K2 owns a tile of nodes for one chunk of the batch (one
-# 128-byte line of it), stages v for the tile and a one-node halo (K2 also
-# c_N, c_E, c_D on the -dir side) into shared memory, zero outside the grid,
-# and walks over work items (tile, chunk) in a persistent loop that copies
-# the next item while it sums this one.  The geometry is a function of the
-# shape alone; the kernel reads it from ``LaunchPlan.as_ints()``.
+# A block of K1 or K2 owns a tile of nodes for one chunk of the batch; a
+# thread owns ``vec`` consecutive batch entries of one node at a time and
+# loads the coefficients and v it needs itself (16 bytes a load where the
+# batch row allows), the tile's threads sharing v's lines in L1.  The
+# geometry is a function of the shape alone; the kernels read it from
+# ``LaunchPlan.as_ints()``.
 
-_LINE_BYTES = 128          # one L2 line of the batch per tile
-_TILE = 8                  # target tile side, nodes
-_THREADS = 256             # threads per block, the kernels' most
-# threads resident per SM under the kernels' __launch_bounds__: (256, 3)
-# with staging, (256, 4) direct (stencil_tile.cuh min_blocks)
-_SM_THREADS = {True: 768, False: 1024}
-_SM_SMEM = 233472          # shared memory per SM, bytes (228 KB)
-_BLOCK_SMEM = 232448       # most dynamic shared memory of one block (227 KB)
-_BLOCK_SMEM_RESERVED = 1024  # reserved by the runtime per resident block
+_LINE_BYTES = 128          # one L2 line of the batch
+_THREADS = 256             # the kernels' __launch_bounds__
 
 
 @dataclass(frozen=True)
 class LaunchPlan:
     """Geometry of one K1 or K2 launch.
 
-    Tile ``ty`` covers node rows ``tile_span(ty, Ny, tiles_y)`` to
-    ``tile_span(ty + 1, Ny, tiles_y)`` (at most ``tile_rows``), columns
-    likewise; chunk ``c`` covers batch entries ``c * chunk`` up to
-    ``min((c + 1) * chunk, B)``.  Work item ``i`` is tile ``i // chunks``
-    (row major), chunk ``i % chunks``, so neighbouring blocks read
-    neighbouring bytes; block ``k`` takes items ``k, k + blocks, ...``.  ``vec`` is the
-    elements per load: ``16 // itemsize`` on the 16-byte path, 1 on the
-    scalar path.  ``smem_bytes`` holds ``stages`` buffers of the staged
-    grids: two when a block takes more than one item (the next item's copy
-    overlaps this item's sums), else one."""
+    Tile ``(ty, tx)`` covers node rows ``ty * tile_rows`` up to
+    ``min((ty + 1) * tile_rows, Ny)``, columns likewise; chunk ``c`` covers
+    batch entries ``c * chunk`` up to ``min((c + 1) * chunk, B)``.  The
+    grid is ``(chunks, tiles_x, tiles_y)`` blocks, chunks fastest, so
+    neighbouring blocks read neighbouring bytes.  ``vec`` is the batch
+    entries per load and thread:
+    ``16 // itemsize`` on the 16-byte path, 1 on the scalar path; the
+    ``chunk // vec`` lanes of a node are a power of two that divides
+    ``threads``, and each thread sums every ``threads // lanes``-th node of
+    its tile.  No shared memory is used."""
 
     tiles_y: int
     tiles_x: int
@@ -130,37 +123,25 @@ class LaunchPlan:
     vec: int
     threads: int
     blocks: int
-    smem_bytes: int
-    stages: int
-    chunks: int
-    per_thread: int        # outputs of one thread per work item, at most
 
     @property
     def vec16(self) -> bool:
         return self.vec > 1
 
     @property
-    def items(self) -> int:
-        return self.tiles_y * self.tiles_x * self.chunks
+    def chunks(self) -> int:
+        return self.blocks // (self.tiles_y * self.tiles_x)
+
+    @property
+    def per_thread(self) -> int:
+        """Outputs of ``vec`` entries one thread sums, at most."""
+        return -(-self.tile_rows * self.tile_cols
+                 // (self.threads // (self.chunk // self.vec)))
 
     def as_ints(self):
         """The C entry points' plan argument, in this order."""
         return (self.tiles_y, self.tiles_x, self.tile_rows, self.tile_cols,
-                self.chunk, self.vec, self.threads, self.blocks,
-                self.smem_bytes, self.stages)
-
-
-def tile_span(i: int, n: int, parts: int) -> int:
-    """First index of part ``i`` of ``n`` cut into ``parts`` near-equal
-    parts (the kernels compute the same)."""
-    return i * n // parts
-
-
-def staged_nodes(tile_rows: int, tile_cols: int, sym: bool) -> int:
-    """Nodes of one shared-memory buffer: v on the tile and a one-node
-    halo; with ``sym`` also c_N, c_E, c_D on the tile and the -dir halo."""
-    n = (tile_rows + 2) * (tile_cols + 2)
-    return n + 3 * (tile_rows + 1) * (tile_cols + 1) if sym else n
+                self.chunk, self.vec, self.threads, self.blocks)
 
 
 @lru_cache(maxsize=None)
@@ -171,38 +152,23 @@ def launch_plan(Ny: int, Nx: int, B: int, dtype: torch.dtype, sm_count: int,
     16-byte aligned (torch allocations are); the 16-byte path also needs
     the batch row ``B * itemsize`` to be a multiple of 16 bytes."""
     item = torch.empty((), dtype=dtype).element_size()
-    return _plan(Ny, Nx, B, item, sm_count, sym, aligned)
+    return _plan(Ny, Nx, B, item, aligned, 8, 8, 1, _THREADS)
 
 
-def _plan(Ny, Nx, B, item, sm_count, sym, aligned, tile=_TILE, lines=1,
-          threads=_THREADS, stages=None):
-    """``launch_plan`` for tiles of about ``tile`` nodes a side, chunks of
-    ``lines`` 128-byte lines, ``threads`` per block and ``stages`` buffers
-    (default: two if a block takes more than one item)."""
-    vec = 16 // item if aligned and (B * item) % 16 == 0 else 1
-    line = lines * _LINE_BYTES // item
-    chunk = min(line, max(vec, 1 << (B - 1).bit_length()))
-    # tiles of about `tile` nodes a side: 8-9 on the 2^k + 1 node grids
-    tiles_y, tiles_x = (max(1, (2 * n + tile) // (2 * tile)) for n in (Ny, Nx))
-    tile_rows, tile_cols = -(-Ny // tiles_y), -(-Nx // tiles_x)
-    chunks = -(-B // chunk)
-    buffer = staged_nodes(tile_rows, tile_cols, sym) * chunk * item
-    items = tiles_y * tiles_x * chunks
-
-    def resident(stages):  # blocks of `stages` buffers the whole card holds
-        return sm_count * min(_SM_THREADS[stages > 0] // threads, _SM_SMEM
-                              // (stages * buffer + _BLOCK_SMEM_RESERVED))
-
-    if stages is None:
-        stages = 1 if items <= resident(1) else 2
-    if stages * buffer > _BLOCK_SMEM or resident(stages) == 0:
-        raise ValueError(f"no launch plan for {(Ny, Nx, B)}, {item}-byte "
-                         f"entries, tiles of {tile_rows} x {tile_cols}")
-    lanes = chunk // vec
-    return LaunchPlan(tiles_y, tiles_x, tile_rows, tile_cols, chunk, vec,
-                      threads, min(items, resident(stages)), stages * buffer,
-                      stages, chunks,
-                      -(-tile_rows * tile_cols // max(1, threads // lanes)))
+def _plan(Ny, Nx, B, item, aligned, tile_y, tile_x, lines, threads,
+          vec16=True):
+    """The plan for tiles of ``tile_y`` x ``tile_x`` nodes (at most the
+    grid), chunks of ``lines`` 128-byte lines (fewer if B is smaller), at
+    least ``threads`` a block, 16-byte loads if ``vec16`` and the shape
+    allow them."""
+    vec = 16 // item if vec16 and aligned and (B * item) % 16 == 0 else 1
+    chunk = min(lines * _LINE_BYTES // item,
+                max(vec, 1 << (B - 1).bit_length()))
+    threads = max(threads, chunk // vec)
+    rows, cols = min(tile_y, Ny), min(tile_x, Nx)
+    tiles_y, tiles_x = -(-Ny // rows), -(-Nx // cols)
+    return LaunchPlan(tiles_y, tiles_x, rows, cols, chunk, vec, threads,
+                      tiles_y * tiles_x * -(-B // chunk))
 
 
 @lru_cache(maxsize=None)

@@ -27,7 +27,6 @@ library and the two ports only.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import importlib
 import importlib.util
 import itertools
@@ -54,26 +53,21 @@ def load_other_port(root: Path):
     return importlib.import_module("gpipde_other.ops")
 
 
-def sweep_plans(Ny, Nx, B, item, sm, sym, aligned):
-    """Other geometries of this checkout's plan: tile side, chunk lines,
-    threads, buffers, and one block per item."""
+def sweep_plans(Ny, Nx, B, item, aligned):
+    """Other geometries of this checkout's plan: tile shape, chunk lines,
+    threads, 16-byte or scalar loads."""
     from generative_physics_informed_pde_tpu_torch.ops import stencil
 
     seen, out = set(), []
-    for tile, lines, threads, stages, vec16 in itertools.product(
-            (1, 2, 4, 8, 12), (1, 2, 4, 8), (64, 128, 256), (0, 1, 2),
-            (True, False)):
-        if stages and (tile < 4 or not vec16):
-            continue
-        try:
-            p = stencil._plan(Ny, Nx, B, item, sm, sym, aligned and vec16,
-                              tile, lines, threads, stages)
-        except ValueError:
-            continue
-        for q in (p, dataclasses.replace(p, blocks=p.items)):
-            if q.as_ints() not in seen and q.threads >= q.chunk // q.vec:
-                seen.add(q.as_ints())
-                out.append(q)
+    tiles = [(t, t) for t in (1, 2, 3, 4, 6, 8, 12, 17)] \
+        + [(1, Nx), (2, Nx), (4, Nx)]
+    for (ty, tx), lines, threads, vec16 in itertools.product(
+            tiles, (1, 2, 4, 8), (64, 128, 256), (True, False)):
+        p = stencil._plan(Ny, Nx, B, item, aligned, ty, tx, lines, threads,
+                          vec16)
+        if p.as_ints() not in seen:
+            seen.add(p.as_ints())
+            out.append(p)
     return out
 
 
@@ -150,13 +144,13 @@ def main() -> int:
             if args.sweep and "new" in versions:
                 row["sweep"] = []
                 lib = "stencil_sym" if sym else "stencil"
-                for p in sweep_plans(n, n, B, item, sm, sym, True):
+                for p in sweep_plans(n, n, B, item, True):
                     def run(p=p):
                         return stencil._launch(name, lib, coefs, v, mask,
                                                sym=sym, plan=p)
                     ok = bool(torch.equal(cs.bits(run()), ref))
-                    t_f = 1e3 * cs.cuda_time_ms(run, 30, flush)
-                    t_w = 1e3 * cs.cuda_time_ms(run, 60)
+                    t_f = 1e3 * cs.cuda_time_ms(run, FLUSHED_REPS // 2, flush)
+                    t_w = 1e3 * cs.cuda_time_ms(run, WARM_REPS)
                     row["sweep"].append({"plan": p.as_ints(), "flushed": t_f,
                                          "warm": t_w, "bit_equal": ok})
                 best = min(row["sweep"], key=lambda r: r["flushed"]

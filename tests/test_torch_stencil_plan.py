@@ -3,10 +3,11 @@
 
 The CUDA kernels run only on a card (``tests/test_torch_cuda.py``); what
 they do with the plan's geometry is mirrored here in PyTorch: the work
-items, the staged tile with its zero-filled halo, the threads' share of
-each item and the sum in the plain version's order.  The mirror must equal
-the plain versions bit for bit, also where coefficients next to the grid
-edge hold +-inf and negative values (a zero halo then gives -0 * ... and
+items, the threads' share of each item, and per item the tile's values
+with zeros outside the grid (where the kernels load zeros instead of
+reading) summed in the plain version's order.  The mirror must equal the
+plain versions bit for bit, also where coefficients next to the grid edge
+hold +-inf and negative values (a zero neighbour then gives -0 * ... and
 inf * 0 = NaN, exactly as the plain version's zero padding does).
 """
 
@@ -18,47 +19,40 @@ import torch
 
 from generative_physics_informed_pde_tpu_torch.ops import stencil
 from generative_physics_informed_pde_tpu_torch.ops.stencil import (
-    apply_stencil_reference, apply_stencil_sym_reference, launch_plan,
-    staged_nodes, tile_span)
+    apply_stencil_reference, apply_stencil_sym_reference, launch_plan)
 
 LEVELS = (65, 33, 17, 9, 5)             # V-cycle node counts at 64^2
 BATCHES = (1, 3, 11, 200, 256, 257, 1024, 2048)
 SM_COUNTS = (1, 16, 132)
 DTYPES = (torch.float32, torch.float64)
-# per_thread<STAGED>() of stencil.cu (K1) and stencil_sym.cu (K2)
-PER_THREAD = {(False, True): 2, (True, True): 4, (False, False): 1,
-              (True, False): 1}
-SMEM_BLOCK = 232448                     # 227 KB, the most one block may use
 
 
 def _items(plan, Ny, Nx, B):
     """(y0, y1, x0, x1, b0, b1) of every work item, in item order."""
-    for i in range(plan.items):
-        t, c = divmod(i, plan.chunks)
-        ty, tx = divmod(t, plan.tiles_x)
-        yield (tile_span(ty, Ny, plan.tiles_y), tile_span(ty + 1, Ny,
-                                                          plan.tiles_y),
-               tile_span(tx, Nx, plan.tiles_x), tile_span(tx + 1, Nx,
-                                                          plan.tiles_x),
+    for ty, tx, c in itertools.product(range(plan.tiles_y),
+                                       range(plan.tiles_x),
+                                       range(plan.chunks)):
+        yield (ty * plan.tile_rows, min((ty + 1) * plan.tile_rows, Ny),
+               tx * plan.tile_cols, min((tx + 1) * plan.tile_cols, Nx),
                c * plan.chunk, min((c + 1) * plan.chunk, B))
 
 
-def _thread_nodes(plan, nodes, sym):
-    """Per node of an item, how many threads sum it, for each lane."""
+def _thread_nodes(plan, h, w):
+    """Per node of an h x w tile, how many threads sum it, for each lane:
+    the kernels' walk (``NodeWalk``) from node ``slot`` in steps of
+    ``slots`` nodes, row-major."""
     lanes = plan.chunk // plan.vec
     slots = plan.threads // lanes
-    hits = np.zeros((nodes, lanes), int)
-    for t in range(slots * lanes):
+    hits = np.zeros((h, w, lanes), int)
+    for t in range(plan.threads):
         lane, slot = t % lanes, t // lanes
-        n0 = slot
-        while True:  # the kernels' loop: kPerThread outputs slots apart
-            per = PER_THREAD[sym, plan.stages > 0]
-            for j in range(per):
-                if n0 + j * slots < nodes:
-                    hits[n0 + j * slots, lane] += 1
-            n0 += per * slots
-            if n0 >= nodes:
-                break
+        ly, lx = divmod(slot, w)
+        dy, dx = divmod(slots, w)
+        while ly < h:
+            hits[ly, lx, lane] += 1
+            ly, lx = ly + dy, lx + dx
+            if lx >= w:
+                ly, lx = ly + 1, lx - w
     return hits
 
 
@@ -69,7 +63,7 @@ def _shapes():
 
 @pytest.mark.parametrize("sym", [False, True])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_plan_covers_every_output_once_within_shared_memory(dtype, sym):
+def test_plan_covers_every_output_once(dtype, sym):
     item = torch.empty((), dtype=dtype).element_size()
     for (Ny, Nx), B, sm in itertools.product(_shapes(), BATCHES, SM_COUNTS):
         for aligned in (True, False):
@@ -79,13 +73,11 @@ def test_plan_covers_every_output_once_within_shared_memory(dtype, sym):
             assert p.vec in (1, 16 // item), where
             assert (p.vec > 1) == (aligned and (B * item) % 16 == 0), where
             assert p.chunk % p.vec == 0 and B % p.vec == 0, where
-            assert p.chunk * item <= 128, where
-            # shared memory: the staged grids, within one block's 227 KB
-            assert p.smem_bytes == p.stages * p.chunk * item * staged_nodes(
-                p.tile_rows, p.tile_cols, sym) <= SMEM_BLOCK, where
-            assert p.stages in (0, 1, 2)
-            assert 0 < p.blocks <= p.items and p.threads <= 256, where
-            assert p.threads >= p.chunk // p.vec, where
+            lanes = p.chunk // p.vec
+            assert lanes & (lanes - 1) == 0, where  # a power of two
+            assert p.threads <= 256 and p.threads % lanes == 0, where
+            # one block per (tile, chunk), as many as the C side requires
+            assert p.blocks == p.tiles_y * p.tiles_x * p.chunks, where
             # tiles and chunks partition the grid and the batch
             count = np.zeros((Ny, Nx), int)
             for y0, y1, x0, x1, b0, b1 in _items(p, Ny, Nx, B):
@@ -103,7 +95,7 @@ def test_threads_sum_every_node_of_an_item_once(sym):
         p = launch_plan(Ny, Nx, B, dtype, 132, sym)
         for y0, y1, x0, x1, _, _ in itertools.islice(_items(p, Ny, Nx, B),
                                                      0, None, p.chunks):
-            hits = _thread_nodes(p, (y1 - y0) * (x1 - x0), sym)
+            hits = _thread_nodes(p, y1 - y0, x1 - x0)
             assert (hits == 1).all(), (Ny, Nx, B, dtype, p)
 
 
@@ -115,34 +107,29 @@ def test_plan_is_chosen_by_shape_and_the_16_byte_path_by_alignment():
     assert launch_plan(33, 33, 257, torch.float32, 132).vec == 1
     assert launch_plan(33, 33, 1024, torch.float32, 132,
                        aligned=False).vec == 1
-    # a block takes several items (two buffers) only where the card cannot
-    # hold one block per item
-    big = launch_plan(65, 65, 2048, torch.float64, 132)
-    assert big.items > big.blocks and big.stages == 2
-    small = launch_plan(5, 5, 2048, torch.float32, 132)
-    assert small.items == small.blocks and small.stages == 1
 
 
 def _mirror(plan, coefs, v, mask, sym):
-    """The kernels' algorithm in PyTorch: per work item, stage v (and for
-    K2 c_N, c_E, c_D) into a zero-filled tile with a halo, then sum each
-    output from the tile in the plain version's order."""
+    """The kernels' algorithm in PyTorch: per work item, the tile of v
+    (and for K2 c_N, c_E, c_D) with a one-node halo, zero outside the grid
+    (the kernels' guarded loads), each output summed from it in the plain
+    version's order."""
     Ny, Nx, B = v.shape
     out = torch.zeros_like(v)
     written = torch.zeros(v.shape, dtype=torch.int64)
 
-    def staged(grid, y0, x0, rh, rw, b0, b1):
-        tile = torch.zeros(rh, rw, plan.chunk, dtype=v.dtype)
+    def tile(grid, y0, x0, rh, rw, b0, b1):
+        t = torch.zeros(rh, rw, plan.chunk, dtype=v.dtype)
         ys = [y for y in range(y0, y0 + rh) if 0 <= y < Ny]
         xs = [x for x in range(x0, x0 + rw) if 0 <= x < Nx]
         if ys and xs:  # the guarded reads: nodes in the grid, b < B
-            tile[ys[0] - y0:ys[-1] - y0 + 1, xs[0] - x0:xs[-1] - x0 + 1,
-                 :b1 - b0] = grid[ys[0]:ys[-1] + 1, xs[0]:xs[-1] + 1, b0:b1]
-        return tile
+            t[ys[0] - y0:ys[-1] - y0 + 1, xs[0] - x0:xs[-1] - x0 + 1,
+              :b1 - b0] = grid[ys[0]:ys[-1] + 1, xs[0]:xs[-1] + 1, b0:b1]
+        return t
 
     for y0, y1, x0, x1, b0, b1 in _items(plan, Ny, Nx, B):
         h, w = y1 - y0, x1 - x0
-        sv = staged(v, y0 - 1, x0 - 1, h + 2, w + 2, b0, b1)
+        sv = tile(v, y0 - 1, x0 - 1, h + 2, w + 2, b0, b1)
 
         def vt(oy, ox):
             return sv[1 + oy:1 + oy + h, 1 + ox:1 + ox + w]
@@ -152,8 +139,7 @@ def _mirror(plan, coefs, v, mask, sym):
             c0[..., :b1 - b0] = coefs[0, y0:y1, x0:x1, b0:b1]
             acc = c0 * vt(0, 0)
             for d, (oy, ox) in enumerate(((1, 0), (0, 1), (1, 1))):
-                sd = staged(coefs[1 + d], y0 - 1, x0 - 1, h + 1, w + 1, b0,
-                            b1)
+                sd = tile(coefs[1 + d], y0 - 1, x0 - 1, h + 1, w + 1, b0, b1)
                 acc = acc + sd[1:, 1:] * vt(oy, ox)
                 acc = acc + sd[1 - oy:1 - oy + h, 1 - ox:1 - ox + w] \
                     * vt(-oy, -ox)
