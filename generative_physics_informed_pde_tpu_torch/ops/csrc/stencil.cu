@@ -19,15 +19,16 @@
 // and its time is launch and memory latency, not bandwidth.
 //
 // Design (ops/stencil.py launch_plan gives the geometry per shape): a block
-// owns a tile of nodes for one chunk of the batch; the chunks of a tile go
-// to adjacent blocks, so the card streams each grid in address order.  A
-// thread owns `vec` consecutive batch entries of one node at a time (16-byte
-// loads where the batch row allows, else scalar) and issues all fourteen
-// loads of its output at once: the seven coefficients, read once, as
-// evict-first streaming loads; v at the node and its six neighbours through
-// L1, where the other threads of the tile read the same lines.  Measured on
-// the card (PERF.md), staging v with a halo into shared memory lost
-// to these direct loads at every main-path shape, so nothing is staged.
+// owns a tile of nodes (2 x 2, one on the coarsest grids) for one chunk of
+// the batch (512 bytes); the chunks of a tile go to adjacent blocks, so the
+// card streams each grid in address order.  A thread owns `vec` consecutive
+// batch entries of one node at a time and issues all fourteen loads of its
+// output at once: the seven coefficients, read once, as evict-first
+// streaming loads; v at the node and its six neighbours through L1, where
+// the other threads of the tile read the same lines.  Measured on the card
+// (PERF.md), staging v with a halo into shared memory lost to these direct
+// loads at every main-path shape, so nothing is staged, and 16-byte loads
+// (vec = 16 / sizeof(T)) lost to scalar ones, so the plan takes vec = 1.
 // The sum runs in _OFFSETS order from +0 with round-to-nearest multiplies
 // and adds that are never contracted into fused multiply-adds, and a
 // neighbour outside the grid contributes c * 0 as the plain version's zero

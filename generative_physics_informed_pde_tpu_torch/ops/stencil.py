@@ -28,8 +28,9 @@ They replace the TPU kernels ``apply_stencil`` (body ``_make_kernel``),
 ``apply_stencil_sym`` (body ``_make_sym_kernel``) and
 ``apply_stencil_sym_blocked`` (body ``_make_sym_blocked_kernel``) of
 ``generative_physics_informed_pde_tpu/ops/stencil.py``.  On a CUDA tensor
-each wrapper launches its hand-written kernel (built by ``ops/_build.py``)
-or raises; on a CPU tensor it runs its plain version.  Each counts its
+each wrapper launches its hand-written kernel (built by ``ops/_build.py``;
+K1 and K2 with the geometry of :func:`launch_plan`) or raises; on a CPU
+tensor it runs its plain version.  Each counts its
 kernel launches in ``<wrapper>.launches``.
 """
 
@@ -109,11 +110,10 @@ class LaunchPlan:
     batch entries ``c * chunk`` up to ``min((c + 1) * chunk, B)``.  The
     grid is ``(chunks, tiles_x, tiles_y)`` blocks, chunks fastest, so
     neighbouring blocks read neighbouring bytes.  ``vec`` is the batch
-    entries per load and thread:
-    ``16 // itemsize`` on the 16-byte path, 1 on the scalar path; the
-    ``chunk // vec`` lanes of a node are a power of two that divides
-    ``threads``, and each thread sums every ``threads // lanes``-th node of
-    its tile.  No shared memory is used."""
+    entries per load and thread: ``16 // itemsize`` on the 16-byte path,
+    1 on the scalar path.  The ``chunk // vec`` lanes of a node are a power
+    of two that divides ``threads``; each thread sums every
+    ``threads // lanes``-th node of its tile.  No shared memory is used."""
 
     tiles_y: int
     tiles_x: int
@@ -125,18 +125,8 @@ class LaunchPlan:
     blocks: int
 
     @property
-    def vec16(self) -> bool:
-        return self.vec > 1
-
-    @property
     def chunks(self) -> int:
         return self.blocks // (self.tiles_y * self.tiles_x)
-
-    @property
-    def per_thread(self) -> int:
-        """Outputs of ``vec`` entries one thread sums, at most."""
-        return -(-self.tile_rows * self.tile_cols
-                 // (self.threads // (self.chunk // self.vec)))
 
     def as_ints(self):
         """The C entry points' plan argument, in this order."""
@@ -144,28 +134,48 @@ class LaunchPlan:
                 self.chunk, self.vec, self.threads, self.blocks)
 
 
+# Per form: (tile side in nodes, chunk in 128-byte lines, 16-byte loads).
+# Chosen on an H100 by stencil_ab.py over every main-path shape (PERF.md):
+# K1 reads each coefficient once, so its loads gain nothing from 16 bytes
+# and lose threads; K2 reads its direction grids and v again from the
+# tile's lines, so it takes 8 x 8 tiles and 16-byte loads.
+_GEOMETRY = {False: (2, 4, False), True: (8, 1, True)}
+
+
 @lru_cache(maxsize=None)
 def launch_plan(Ny: int, Nx: int, B: int, dtype: torch.dtype, sm_count: int,
                 sym: bool = False, aligned: bool = True) -> LaunchPlan:
     """The geometry K1 (``sym=False``) or K2 (``sym=True``) is launched
-    with on a card of ``sm_count`` SMs.  ``aligned``: every data pointer is
-    16-byte aligned (torch allocations are); the 16-byte path also needs
-    the batch row ``B * itemsize`` to be a multiple of 16 bytes."""
+    with on a card of ``sm_count`` SMs: the form's tile, halved while the
+    grid would have fewer than two blocks an SM (the coarse V-cycle levels
+    are bound by latency).  ``aligned``: every data pointer is 16-byte
+    aligned (torch allocations are); the 16-byte path also needs the batch
+    row ``B * itemsize`` to be a multiple of 16 bytes."""
     item = torch.empty((), dtype=dtype).element_size()
-    return _plan(Ny, Nx, B, item, aligned, 8, 8, 1, _THREADS)
+    tile, lines, vec16 = _GEOMETRY[sym]
+    plan = _plan(Ny, Nx, B, item, aligned, tile, tile, lines, vec16=vec16)
+    while plan.blocks < 2 * sm_count and tile > 1:
+        tile //= 2
+        plan = _plan(Ny, Nx, B, item, aligned, tile, tile, lines,
+                     vec16=vec16)
+    return plan
 
 
-def _plan(Ny, Nx, B, item, aligned, tile_y, tile_x, lines, threads,
+def _plan(Ny, Nx, B, item, aligned, tile_y, tile_x, lines, threads=None,
           vec16=True):
     """The plan for tiles of ``tile_y`` x ``tile_x`` nodes (at most the
-    grid), chunks of ``lines`` 128-byte lines (fewer if B is smaller), at
-    least ``threads`` a block, 16-byte loads if ``vec16`` and the shape
-    allow them."""
+    grid), chunks of ``lines`` 128-byte lines (fewer if B is smaller),
+    16-byte loads if ``vec16`` and the shape allow them, and ``threads``
+    a block (at least one per lane; by default one per lane and node of
+    a tile, at most 256)."""
     vec = 16 // item if vec16 and aligned and (B * item) % 16 == 0 else 1
     chunk = min(lines * _LINE_BYTES // item,
                 max(vec, 1 << (B - 1).bit_length()))
-    threads = max(threads, chunk // vec)
+    lanes = chunk // vec
     rows, cols = min(tile_y, Ny), min(tile_x, Nx)
+    if threads is None:
+        threads = min(_THREADS, lanes << (rows * cols - 1).bit_length())
+    threads = max(threads, lanes)
     tiles_y, tiles_x = -(-Ny // rows), -(-Nx // cols)
     return LaunchPlan(tiles_y, tiles_x, rows, cols, chunk, vec, threads,
                       tiles_y * tiles_x * -(-B // chunk))
@@ -246,8 +256,7 @@ def apply_stencil(coefs: torch.Tensor, v: torch.Tensor,
     _check(coefs, v, mask, 7)
     if v.device.type == "cpu":
         return apply_stencil_reference(coefs, v, mask)
-    out = _launch("apply_stencil", "stencil", coefs, v, mask,
-                  sym=False)
+    out = _launch("apply_stencil", "stencil", coefs, v, mask, sym=False)
     apply_stencil.launches += 1
     return out
 

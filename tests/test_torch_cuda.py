@@ -13,6 +13,7 @@ import torch
 from generative_physics_informed_pde_tpu_torch import fem
 from generative_physics_informed_pde_tpu_torch.fem import batched_solver
 from generative_physics_informed_pde_tpu_torch.fem import multigrid
+from generative_physics_informed_pde_tpu_torch.ops import stencil
 from generative_physics_informed_pde_tpu_torch.ops import (
     apply_stencil, apply_stencil_reference, apply_stencil_sym,
     apply_stencil_sym_blocked, apply_stencil_sym_blocked_reference,
@@ -280,3 +281,26 @@ def test_tiled_kernels_take_the_scalar_path_off_16_byte_alignment(form):
     v_off.copy_(v)
     assert v_off.is_contiguous() and v_off.data_ptr() % 16 != 0
     _assert_bit_equal(kernel, plain, coefs, v_off, mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_every_loaded_geometry_is_bit_equal(dtype, form):
+    """The geometries launch_plan does not pick for this form (K1 with
+    16-byte loads, K2 with scalar loads, other tiles and chunks) compute
+    the same bits."""
+    _need_cuda()
+    kernel, plain, n = _FORMS[form]
+    name, library = (("apply_stencil", "stencil"),
+                     ("apply_stencil_sym", "stencil_sym"))[form]
+    coefs, v, mask = _hazard_inputs(17, 13, 64, dtype, n, 9, True)
+    ref = _bits(plain(coefs, v, mask))
+    item = v.element_size()
+    for tile, lines, threads, vec16 in ((1, 1, 32, True), (2, 4, 256, True),
+                                        (8, 1, 256, False), (4, 2, 64, True)):
+        plan = stencil._plan(17, 13, 64, item, True, tile, tile, lines,
+                             threads, vec16)
+        got = stencil._launch(name, library, coefs, v, mask, sym=bool(form),
+                              plan=plan)
+        assert torch.equal(_bits(got), ref), plan

@@ -69,15 +69,22 @@ def test_plan_covers_every_output_once(dtype, sym):
         for aligned in (True, False):
             p = launch_plan(Ny, Nx, B, dtype, sm, sym, aligned)
             where = f"{(Ny, Nx, B)} {dtype} sm={sm} aligned={aligned}: {p}"
-            # the 16-byte path only where every access is 16-byte aligned
+            # the 16-byte path only where every access is 16-byte aligned:
+            # K2 there, K1 never (it measured slower)
             assert p.vec in (1, 16 // item), where
-            assert (p.vec > 1) == (aligned and (B * item) % 16 == 0), where
+            assert (p.vec > 1) == (sym and aligned and (B * item) % 16 == 0
+                                   ), where
+            assert p.chunk * item <= (128 if sym else 512), where
             assert p.chunk % p.vec == 0 and B % p.vec == 0, where
             lanes = p.chunk // p.vec
             assert lanes & (lanes - 1) == 0, where  # a power of two
             assert p.threads <= 256 and p.threads % lanes == 0, where
-            # one block per (tile, chunk), as many as the C side requires
+            # one block per (tile, chunk), as many as the C side requires;
+            # tiles shrink (to one node) while there are fewer blocks than
+            # two an SM
             assert p.blocks == p.tiles_y * p.tiles_x * p.chunks, where
+            if p.tile_rows * p.tile_cols > 1 and p.tile_rows < Ny:
+                assert p.blocks >= 2 * sm, where
             # tiles and chunks partition the grid and the batch
             count = np.zeros((Ny, Nx), int)
             for y0, y1, x0, x1, b0, b1 in _items(p, Ny, Nx, B):
@@ -100,13 +107,21 @@ def test_threads_sum_every_node_of_an_item_once(sym):
 
 
 def test_plan_is_chosen_by_shape_and_the_16_byte_path_by_alignment():
-    p = launch_plan(33, 33, 1024, torch.float32, 132)
-    assert p is launch_plan(33, 33, 1024, torch.float32, 132)  # cached
-    assert p.vec16 and p.vec == 4 and p.chunk == 32
-    assert launch_plan(33, 33, 1024, torch.float64, 132).vec == 2
-    assert launch_plan(33, 33, 257, torch.float32, 132).vec == 1
-    assert launch_plan(33, 33, 1024, torch.float32, 132,
+    k1 = launch_plan(33, 33, 1024, torch.float32, 132)
+    assert k1 is launch_plan(33, 33, 1024, torch.float32, 132)  # cached
+    # K1: 2 x 2 tiles of 512-byte chunks, scalar loads
+    assert (k1.tile_rows, k1.tile_cols, k1.chunk, k1.vec) == (2, 2, 128, 1)
+    assert launch_plan(33, 33, 256, torch.float64, 132).chunk == 64
+    # K2: 8 x 8 tiles of one line, 16-byte loads where alignment allows
+    k2 = launch_plan(33, 33, 1024, torch.float32, 132, sym=True)
+    assert (k2.tile_rows, k2.tile_cols, k2.chunk, k2.vec) == (8, 8, 32, 4)
+    assert launch_plan(33, 33, 1024, torch.float64, 132, True).vec == 2
+    assert launch_plan(33, 33, 257, torch.float32, 132, True).vec == 1
+    assert launch_plan(33, 33, 1024, torch.float32, 132, True,
                        aligned=False).vec == 1
+    # the coarse V-cycle levels: tiles shrink until the grid fills the SMs
+    coarse = launch_plan(9, 9, 256, torch.float64, 132)
+    assert coarse.tile_rows == 1 and coarse.blocks == 324
 
 
 def _mirror(plan, coefs, v, mask, sym):
