@@ -23,9 +23,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = {"stencil": CSRC / "stencil.cu",
-           "stencil_sym": CSRC / "stencil_sym.cu",
-           "stencil_sym_blocked": CSRC / "stencil_sym_blocked.cu"}
+# library: (source, the csrc/ headers it includes)
+SOURCES = {"stencil": (CSRC / "stencil.cu", ("stencil_tile.cuh",)),
+           "stencil_sym": (CSRC / "stencil_sym.cu", ("stencil_tile.cuh",)),
+           "stencil_sym_blocked": (CSRC / "stencil_sym_blocked.cu", ())}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,10 +48,11 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """The library of ``name``, keyed by its source, the headers of
-    ``csrc/`` and the flags."""
-    src = SOURCES[name].read_bytes() + b"".join(
-        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    """The library of ``name``, keyed by its source, the headers it
+    includes and the flags."""
+    source, headers = SOURCES[name]
+    src = source.read_bytes() + b"".join(
+        (CSRC / h).read_bytes() for h in headers)
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{key}.so"
 
@@ -72,7 +74,7 @@ def build_all(names=None) -> dict:
             continue
         nvcc = nvcc or find_nvcc()
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name][0])]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         running[name] = (proc, tmp, out, time.perf_counter())

@@ -21,14 +21,15 @@
 // Design (ops/stencil.py launch_plan gives the geometry per shape): a block
 // owns a tile of nodes (2 x 2, one on the coarsest grids) for one chunk of
 // the batch (512 bytes); the chunks of a tile go to adjacent blocks, so the
-// card streams each grid in address order.  A thread owns `vec` consecutive
-// batch entries of one node at a time and issues all fourteen loads of its
-// output at once: the seven coefficients, read once, as evict-first
-// streaming loads; v at the node and its six neighbours through L1, where
-// the other threads of the tile read the same lines.  Measured on the card
-// (PERF.md), staging v with a halo into shared memory lost to these direct
-// loads at every main-path shape, so nothing is staged, and 16-byte loads
-// (vec = 16 / sizeof(T)) lost to scalar ones, so the plan takes vec = 1.
+// card streams each grid in address order.  A thread owns one batch entry
+// of one node at a time and issues all fourteen loads of its output at
+// once: the seven coefficients, read once, as evict-first streaming loads;
+// v at the node and its six neighbours through L1, where the other threads
+// of the tile read the same lines.  Measured on the card (PERF.md), staging
+// v with a halo into shared memory lost to these direct loads at every
+// main-path shape, and 16-byte loads lost to scalar ones (fewer threads for
+// the same fourteen loads), so K1 stages nothing and loads scalars only:
+// its plans have vec = 1 and check_plan refuses any other.
 // The sum runs in _OFFSETS order from +0 with round-to-nearest multiplies
 // and adds that are never contracted into fused multiply-adds, and a
 // neighbour outside the grid contributes c * 0 as the plain version's zero
@@ -45,14 +46,14 @@ namespace {
 
 using namespace gpipde;
 
-template <typename T, int V>
+template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
 apply_stencil_kernel(const T* __restrict__ coefs, const T* __restrict__ v,
                      const T* __restrict__ mask, T* __restrict__ out,
                      int Ny, int Nx, int B, Plan p) {
   const Item it = item_of(Ny, Nx, p);
-  const Lanes ln = lanes_of<V>(p.chunk);
-  const int b = it.b0 + ln.lane * V;
+  const Lanes ln = lanes_of<1>(p.chunk);
+  const int b = it.b0 + ln.lane;
   if (b >= B) return;
   const ptrdiff_t plane = static_cast<ptrdiff_t>(Ny) * Nx * B;
   const ptrdiff_t row = static_cast<ptrdiff_t>(Nx) * B;
@@ -61,26 +62,21 @@ apply_stencil_kernel(const T* __restrict__ coefs, const T* __restrict__ v,
     const int node = y * Nx + x;
     const ptrdiff_t i = static_cast<ptrdiff_t>(node) * B + b;
     const bool n_ = y + 1 < Ny, s_ = y > 0, e_ = x + 1 < Nx, w_ = x > 0;
-    Pack<T, V> c[7], u[7];
+    T c[7];
 #pragma unroll
-    for (int q = 0; q < 7; ++q) c[q] = ld_stream<T, V>(coefs + q * plane + i);
-    u[0] = ld_cached<T, V>(v + i, true);               // ( 0, 0)
-    u[1] = ld_cached<T, V>(v + i + row, n_);           // ( 1, 0)
-    u[2] = ld_cached<T, V>(v + i - row, s_);           // (-1, 0)
-    u[3] = ld_cached<T, V>(v + i + B, e_);             // ( 0, 1)
-    u[4] = ld_cached<T, V>(v + i - B, w_);             // ( 0,-1)
-    u[5] = ld_cached<T, V>(v + i + row + B, n_ && e_); // ( 1, 1)
-    u[6] = ld_cached<T, V>(v + i - row - B, s_ && w_); // (-1,-1)
+    for (int q = 0; q < 7; ++q) c[q] = __ldcs(coefs + q * plane + i);
+    const T u[7] = {ld_cached<T, 1>(v + i, true).e[0],               // ( 0, 0)
+                    ld_cached<T, 1>(v + i + row, n_).e[0],           // ( 1, 0)
+                    ld_cached<T, 1>(v + i - row, s_).e[0],           // (-1, 0)
+                    ld_cached<T, 1>(v + i + B, e_).e[0],             // ( 0, 1)
+                    ld_cached<T, 1>(v + i - B, w_).e[0],             // ( 0,-1)
+                    ld_cached<T, 1>(v + i + row + B, n_ && e_).e[0], // ( 1, 1)
+                    ld_cached<T, 1>(v + i - row - B, s_ && w_).e[0]};// (-1,-1)
     const T m = __ldg(mask + node);
-    Pack<T, V> r;
+    T acc = T(0);
 #pragma unroll
-    for (int e = 0; e < V; ++e) {
-      T acc = T(0);
-#pragma unroll
-      for (int q = 0; q < 7; ++q) acc = add_rn(acc, mul_rn(c[q].e[e], u[q].e[e]));
-      r.e[e] = mul_rn(m, acc);
-    }
-    st_stream<T, V>(out + i, r);
+    for (int q = 0; q < 7; ++q) acc = add_rn(acc, mul_rn(c[q], u[q]));
+    __stcs(out + i, mul_rn(m, acc));
   }
 }
 
@@ -88,21 +84,12 @@ template <typename T>
 int launch(const void* coefs, const void* v, const void* mask, void* out,
            int Ny, int Nx, int B, const int* plan, int device, void* stream) {
   Plan p;
-  int err = check_plan(plan, Ny, Nx, B, sizeof(T), &p);
+  int err = check_plan(plan, Ny, Nx, B, sizeof(T), false, &p);
   if (err == 0) err = use_device(device);
-  if (err == 0 && p.vec > 1 && !aligned16(coefs, v, out))
-    err = static_cast<int>(cudaErrorInvalidValue);
   if (err != 0) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const T* c = static_cast<const T*>(coefs);
-  const T* vv = static_cast<const T*>(v);
-  const T* m = static_cast<const T*>(mask);
-  T* o = static_cast<T*>(out);
-  if (p.vec == 1)
-    apply_stencil_kernel<T, 1><<<grid_of(p), p.threads, 0, s>>>(c, vv, m, o, Ny, Nx, B, p);
-  else
-    apply_stencil_kernel<T, 16 / sizeof(T)><<<grid_of(p), p.threads, 0, s>>>(c, vv, m, o, Ny,
-                                                                          Nx, B, p);
+  apply_stencil_kernel<T><<<grid_of(p), p.threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(coefs), static_cast<const T*>(v), static_cast<const T*>(mask),
+      static_cast<T*>(out), Ny, Nx, B, p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -88,7 +88,7 @@ template <typename T>
 int launch(const void* coefs4, const void* v, const void* mask, void* out,
            int Ny, int Nx, int B, const int* plan, int device, void* stream) {
   Plan p;
-  int err = check_plan(plan, Ny, Nx, B, sizeof(T), &p);
+  int err = check_plan(plan, Ny, Nx, B, sizeof(T), true, &p);
   if (err == 0) err = use_device(device);
   if (err == 0 && p.vec > 1 && !aligned16(coefs4, v, out))
     err = static_cast<int>(cudaErrorInvalidValue);

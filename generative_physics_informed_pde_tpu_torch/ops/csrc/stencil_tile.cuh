@@ -133,8 +133,9 @@ struct NodeWalk {
 
 // Host side ------------------------------------------------------------------
 
-// Read and check a plan against the shape.  0 or cudaErrorInvalidValue.
-inline int check_plan(const int* q, int Ny, int Nx, int B, int item, Plan* p) {
+// Read and check a plan against the shape: 16-byte loads (vec > 1) only
+// where `wide` (K2; K1 loads scalars).  0 or cudaErrorInvalidValue.
+inline int check_plan(const int* q, int Ny, int Nx, int B, int item, bool wide, Plan* p) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (q == nullptr || Ny <= 0 || Nx <= 0 || B <= 0) return bad;
   *p = Plan{q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7]};
@@ -147,7 +148,7 @@ inline int check_plan(const int* q, int Ny, int Nx, int B, int item, Plan* p) {
       static_cast<long long>(p->tile_cols) * p->tiles_x < Nx ||
       static_cast<long long>(p->tile_cols) * (p->tiles_x - 1) >= Nx)
     return bad;
-  if (!(p->vec == 1 || p->vec * item == 16) || p->chunk <= 0 || p->chunk % p->vec != 0 ||
+  if (!(p->vec == 1 || (wide && p->vec * item == 16)) || p->chunk <= 0 || p->chunk % p->vec != 0 ||
       B % p->vec != 0)
     return bad;
   const int lanes = p->chunk / p->vec;

@@ -92,8 +92,9 @@ def _check(coefs, v, mask, n_grids):
 #
 # A block of K1 or K2 owns a tile of nodes for one chunk of the batch; a
 # thread owns ``vec`` consecutive batch entries of one node at a time and
-# loads the coefficients and v it needs itself (16 bytes a load where the
-# batch row allows), the tile's threads sharing v's lines in L1.  The
+# loads the coefficients and v it needs itself (K2: 16 bytes a load where
+# the batch row allows; K1: scalars), the tile's threads sharing v's lines
+# in L1.  The
 # geometry is a function of the shape alone; the kernels read it from
 # ``LaunchPlan.as_ints()``.
 
@@ -135,10 +136,11 @@ class LaunchPlan:
 
 
 # Per form: (tile side in nodes, chunk in 128-byte lines, 16-byte loads).
-# Chosen on an H100 by stencil_ab.py over every main-path shape (PERF.md):
-# K1 reads each coefficient once, so its loads gain nothing from 16 bytes
-# and lose threads; K2 reads its direction grids and v again from the
-# tile's lines, so it takes 8 x 8 tiles and 16-byte loads.
+# Chosen on an H100 over every main-path shape (PERF.md): K1 reads each
+# coefficient once, so its loads gain nothing from 16 bytes and lose
+# threads, and its kernel loads scalars only; K2 reads its direction grids
+# and v again from the tile's lines, so it takes 8 x 8 tiles and 16-byte
+# loads where the batch row allows.
 _GEOMETRY = {False: (2, 4, False), True: (8, 1, True)}
 
 
@@ -153,29 +155,25 @@ def launch_plan(Ny: int, Nx: int, B: int, dtype: torch.dtype, sm_count: int,
     row ``B * itemsize`` to be a multiple of 16 bytes."""
     item = torch.empty((), dtype=dtype).element_size()
     tile, lines, vec16 = _GEOMETRY[sym]
-    plan = _plan(Ny, Nx, B, item, aligned, tile, tile, lines, vec16=vec16)
+    plan = _plan(Ny, Nx, B, item, aligned, tile, lines, vec16)
     while plan.blocks < 2 * sm_count and tile > 1:
         tile //= 2
-        plan = _plan(Ny, Nx, B, item, aligned, tile, tile, lines,
-                     vec16=vec16)
+        plan = _plan(Ny, Nx, B, item, aligned, tile, lines, vec16)
     return plan
 
 
-def _plan(Ny, Nx, B, item, aligned, tile_y, tile_x, lines, threads=None,
-          vec16=True):
-    """The plan for tiles of ``tile_y`` x ``tile_x`` nodes (at most the
+def _plan(Ny, Nx, B, item, aligned, tile, lines, vec16):
+    """The plan for tiles of ``tile`` x ``tile`` nodes (at most the
     grid), chunks of ``lines`` 128-byte lines (fewer if B is smaller),
-    16-byte loads if ``vec16`` and the shape allow them, and ``threads``
-    a block (at least one per lane; by default one per lane and node of
-    a tile, at most 256)."""
+    16-byte loads if ``vec16`` and the shape allow them, and one thread
+    per lane and node of a tile, at most 256 (at least one per lane)."""
     vec = 16 // item if vec16 and aligned and (B * item) % 16 == 0 else 1
     chunk = min(lines * _LINE_BYTES // item,
                 max(vec, 1 << (B - 1).bit_length()))
     lanes = chunk // vec
-    rows, cols = min(tile_y, Ny), min(tile_x, Nx)
-    if threads is None:
-        threads = min(_THREADS, lanes << (rows * cols - 1).bit_length())
-    threads = max(threads, lanes)
+    rows, cols = min(tile, Ny), min(tile, Nx)
+    threads = max(lanes, min(_THREADS,
+                             lanes << (rows * cols - 1).bit_length()))
     tiles_y, tiles_x = -(-Ny // rows), -(-Nx // cols)
     return LaunchPlan(tiles_y, tiles_x, rows, cols, chunk, vec, threads,
                       tiles_y * tiles_x * -(-B // chunk))
@@ -209,16 +207,12 @@ def _kernel(library, symbol, planned):
 _PLANS = {}
 
 
-def _plan_ints(plan: LaunchPlan):
-    return (ctypes.c_int * len(plan.as_ints()))(*plan.as_ints())
-
-
-def _launch(name, library, coefs, v, mask, sym=None, plan=None):
+def _launch(name, library, coefs, v, mask, sym=None):
     """Allocate the output and launch ``gpipde_<name>_<dtype>`` of
     ``library`` on the current stream; raises on a refused launch.  K1 and
-    K2 (``sym`` False, True) follow ``plan``, by default ``launch_plan``'s
-    for these tensors (looked up once per shape); K3 (``sym`` None) takes
-    none."""
+    K2 (``sym`` False, True) take ``launch_plan``'s geometry for these
+    tensors (looked up once per shape and alignment); K3 (``sym`` None)
+    takes none."""
     device = v.device
     if device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {device}")
@@ -232,15 +226,13 @@ def _launch(name, library, coefs, v, mask, sym=None, plan=None):
         rc = _kernel(library, symbol, False)(*ptrs, Ny, Nx, B, index,
                                              stream)
     else:
-        if plan is None:
-            key = (Ny, Nx, B, v.dtype, index, sym,
-                   (ptrs[0] | ptrs[1] | ptrs[3]) % 16 == 0)
-            ints = _PLANS.get(key)
-            if ints is None:
-                ints = _PLANS[key] = _plan_ints(launch_plan(
-                    Ny, Nx, B, v.dtype, _sm_count(index), sym, key[-1]))
-        else:
-            ints = _plan_ints(plan)
+        key = (Ny, Nx, B, v.dtype, index, sym,
+               (ptrs[0] | ptrs[1] | ptrs[3]) % 16 == 0)
+        ints = _PLANS.get(key)
+        if ints is None:
+            plan = launch_plan(Ny, Nx, B, v.dtype, _sm_count(index), sym,
+                               key[-1]).as_ints()
+            ints = _PLANS[key] = (ctypes.c_int * len(plan))(*plan)
         rc = _kernel(library, symbol, True)(*ptrs, Ny, Nx, B, ints, index,
                                             stream)
     if rc != 0:

@@ -2,7 +2,7 @@
 """Time the stencil kernels K1 and K2 of this checkout against another
 version of the port, in turns, on one NVIDIA card.
 
-    python3 stencil_ab.py OLD_ROOT [--candidates] [--json PATH]
+    python3 stencil_ab.py OLD_ROOT [--json PATH]
 
 OLD_ROOT is the root of another checkout of this repository (for example
 the parent commit unpacked with ``git archive``); its port is loaded under
@@ -13,11 +13,9 @@ shape of ``chip_smoke.STENCIL_SHAPES``:
 - device time per apply by CUDA events, in turns old, new, new, old: L2
   flushed (``chip_smoke.cuda_time_ms``: a 256 MB buffer zeroed before
   each call, so the L2 holds dirty lines), L2 flushed clean (the buffer
-  read instead) and L2 warm;
-- with ``--candidates``, the wrapper under each fixed geometry of
-  ``CANDIDATES`` (``ops/stencil.py`` ``_plan``) in place of
-  ``launch_plan``, each checked bit for bit, in turns (forward, then
-  backward) between two turns of the other version.
+  read instead) and L2 warm; and each version's share of the HBM byte
+  bound, taken from its clean time (a warm apply may be served from the
+  L2, which the bound does not describe).
 
 Then the host cost of each wrapper: host-clock microseconds per call over
 1,000 unsynchronised calls at the smallest shape, in turns.  Prints the
@@ -39,13 +37,6 @@ from pathlib import Path
 import chip_smoke as cs
 
 HOST_CALLS = 1000
-# fixed geometries for --candidates: (tile side, chunk lines, threads,
-# 16-byte loads); launch_plan takes t2-l4-256-s for K1, t8-l1-256-v for K2
-CANDIDATES = {
-    "t8-l1-256-v": (8, 1, 256, True), "t4-l2-256-v": (4, 2, 256, True),
-    "t2-l4-256-v": (2, 4, 256, True), "t1-l4-128-v": (1, 4, 128, True),
-    "t1-l4-128-s": (1, 4, 128, False), "t2-l2-256-s": (2, 2, 256, False),
-    "t2-l4-256-s": (2, 4, 256, False)}
 FLUSHED_REPS, WARM_REPS = 100, 200
 
 
@@ -61,45 +52,9 @@ def load_other_port(root: Path):
     return importlib.import_module("gpipde_other.ops")
 
 
-def time_candidates(stencil, fns, name, coefs, v, mask, ref, flush):
-    """Times of the wrapper ``fns['new']`` under each CANDIDATES geometry
-    and of ``fns['old']``: old, candidates forward, candidates backward,
-    old; each checked bit for bit.  All warm turns come first: flushing
-    256 MB a call slows the warm calls that follow it."""
-    import torch
-
-    item = v.element_size()
-    Ny, Nx, B = v.shape
-    saved = stencil.launch_plan
-    out = {k: {"flushed": [], "warm": []} for k in ["old", *CANDIDATES]}
-    order = ["old", *CANDIDATES, *reversed(CANDIDATES), "old"]
-    try:
-        for mode, reps, fl in (("warm", WARM_REPS, None),
-                               ("flushed", FLUSHED_REPS, flush)):
-            for k in order:
-                fn = fns["old" if k == "old" else "new"]
-                if k != "old":
-                    ty, lines, threads, vec16 = CANDIDATES[k]
-                    stencil.launch_plan = (
-                        lambda *a, _c=(ty, lines, threads, vec16), **kw:
-                        stencil._plan(Ny, Nx, B, item, True, _c[0], _c[0],
-                                      _c[1], _c[2], _c[3]))
-                    stencil._PLANS.clear()
-                    if not torch.equal(cs.bits(fn(coefs, v, mask)), ref):
-                        raise AssertionError(f"candidate {k} is not "
-                                             "bit-equal")
-                out[k][mode].append(1e3 * cs.cuda_time_ms(
-                    lambda: fn(coefs, v, mask), reps, fl))
-    finally:
-        stencil.launch_plan = saved
-        stencil._PLANS.clear()
-    return out
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("old_root", type=Path)
-    ap.add_argument("--candidates", action="store_true")
     ap.add_argument("--json", type=Path)
     args = ap.parse_args()
 
@@ -162,16 +117,13 @@ def main() -> int:
                         lambda: f(coefs, v, mask), reps, fl))
             row.update(times)
             best = {k: min(t) for k, t in times.items()}
+            row["share_of_bound"] = {
+                w: bound * 1e3 / best[f"{w}_clean"] for w in fns}
             cs.say(f"{name} {(n, n, B)} {dtype}: bound {bound * 1e3:.2f} us;"
-                   f" best of 2 (us) {best}; turns {times}; bit-equal "
+                   f" best of 2 (us) {best}; turns {times}; share of the "
+                   f"bound (clean) {row['share_of_bound']}; bit-equal "
                    f"{ {w: row[f'{w}_bit_equal'] for w in fns} }; plan "
                    f"{row['plan']}")
-            if args.candidates and "new" in versions:
-                row["candidates"] = time_candidates(
-                    stencil, fns, name, coefs, v, mask, ref, flush)
-                best = {k: (min(t["flushed"]), min(t["warm"]))
-                        for k, t in row["candidates"].items()}
-                cs.say(f"  candidates (flushed, warm us, best of 2): {best}")
             result["shapes"].append(row)
             del coefs, v, mask, ref
 

@@ -286,21 +286,26 @@ def test_tiled_kernels_take_the_scalar_path_off_16_byte_alignment(form):
 @pytest.mark.cuda
 @pytest.mark.parametrize("form", [0, 1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_every_loaded_geometry_is_bit_equal(dtype, form):
-    """The geometries launch_plan does not pick for this form (K1 with
-    16-byte loads, K2 with scalar loads, other tiles and chunks) compute
-    the same bits."""
+def test_every_loaded_geometry_is_bit_equal(dtype, form, monkeypatch):
+    """The geometries launch_plan gives on cards of other SM counts (other
+    tile sides) and, for K2, off 16-byte alignment (scalar loads) compute
+    the same bits as the plain version."""
     _need_cuda()
     kernel, plain, n = _FORMS[form]
-    name, library = (("apply_stencil", "stencil"),
-                     ("apply_stencil_sym", "stencil_sym"))[form]
-    coefs, v, mask = _hazard_inputs(17, 13, 64, dtype, n, 9, True)
-    ref = _bits(plain(coefs, v, mask))
-    item = v.element_size()
-    for tile, lines, threads, vec16 in ((1, 1, 32, True), (2, 4, 256, True),
-                                        (8, 1, 256, False), (4, 2, 64, True)):
-        plan = stencil._plan(17, 13, 64, item, True, tile, tile, lines,
-                             threads, vec16)
-        got = stencil._launch(name, library, coefs, v, mask, sym=bool(form),
-                              plan=plan)
-        assert torch.equal(_bits(got), ref), plan
+    seen = set()
+    for Ny, Nx, B in ((17, 13, 64), (33, 33, 200)):
+        coefs, v, mask = _hazard_inputs(Ny, Nx, B, dtype, n, 9, True)
+        store = torch.empty(v.numel() + 1, dtype=v.dtype, device="cuda")
+        v_off = store[1:].view(v.shape)
+        v_off.copy_(v)
+        for sm in (1, 16, 132, 1024):
+            monkeypatch.setattr(stencil, "_sm_count", lambda index, _s=sm: _s)
+            monkeypatch.setattr(stencil, "_PLANS", {})
+            for vv, aligned in ((v, True), (v_off, False)):
+                seen.add(stencil.launch_plan(Ny, Nx, B, dtype, sm, bool(form),
+                                             aligned))
+                _assert_bit_equal(kernel, plain, coefs, vv, mask)
+    # tiles of several sides (K1: 2 x 2 and 1 x 1), and for K2 both load
+    # widths
+    assert len({p.tile_rows for p in seen}) >= (3 if form else 2), seen
+    assert {p.vec > 1 for p in seen} == ({False, True} if form else {False})

@@ -254,3 +254,49 @@ def test_wrapper_resolves_each_kernel_once(monkeypatch):
     k3 = stencil._kernel("stencil_sym_blocked",
                          "gpipde_apply_stencil_sym_blocked_f64", False)
     assert len(k3.argtypes) == 9
+
+
+def test_each_library_lists_the_headers_it_includes():
+    """``_build.SOURCES`` names, per library, the ``csrc/`` headers its
+    source includes, and no others."""
+    import re
+
+    from generative_physics_informed_pde_tpu_torch.ops import _build
+
+    for name, (source, headers) in _build.SOURCES.items():
+        included = re.findall(r'^#include "([^"]+)"', source.read_text(),
+                              re.M)
+        assert sorted(headers) == sorted(included), name
+        assert all((_build.CSRC / h).is_file() for h in headers), name
+
+
+def test_library_key_follows_its_own_source_and_headers(tmp_path,
+                                                         monkeypatch):
+    """An edit to the K1/K2 header rebuilds K1 and K2 and not K3; an edit
+    to a source rebuilds that library alone."""
+    import shutil
+
+    from generative_physics_informed_pde_tpu_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "SOURCES", {
+        name: (csrc / src.name, headers)
+        for name, (src, headers) in _build.SOURCES.items()})
+
+    def keys():
+        return {name: _build.library_path(name) for name in _build.SOURCES}
+
+    before = keys()
+    with open(csrc / "stencil_tile.cuh", "a") as f:
+        f.write("// edited\n")
+    after = keys()
+    assert after["stencil"] != before["stencil"]
+    assert after["stencil_sym"] != before["stencil_sym"]
+    assert after["stencil_sym_blocked"] == before["stencil_sym_blocked"]
+    with open(csrc / "stencil_sym_blocked.cu", "a") as f:
+        f.write("// edited\n")
+    again = keys()
+    assert again["stencil_sym_blocked"] != after["stencil_sym_blocked"]
+    assert again["stencil"] == after["stencil"]
