@@ -14,8 +14,10 @@ for 200 SVI steps (128 labeled pairs labeled through K1, 1024 unlabeled
 fields from the port's random field, normals drawn on the host from a
 seeded generator and coloured on the card), then serve the
 trained surrogate.  Then the halo-padded symmetric apply
-``ops/csrc/stencil_sym_blocked.cu`` (K3) runs chained in its own layout, as
-the JAX package's roofline benchmark chains it.  Then the 'highres' 64^2
+``ops/csrc/stencil_sym_blocked.cu`` (K3) is held bit for bit against its
+plain version and K2 and timed beside K2 at the padded shapes the JAX
+package's roofline benchmark chains it at, and runs chained in its own
+layout.  Then the 'highres' 64^2
 recipe: label the preset's 2048 fields (Karhunen-Loeve draws, eigh on the
 card) with the multigrid-preconditioned solve, whose V-cycle sweeps and
 residuals all run on K1, in f32 and f64; differentiate that solve; and
@@ -36,7 +38,7 @@ Imports torch, numpy, the standard library and the port only.
 
 Output: progress lines, the card's name and power limit as nvidia-smi
 prints them, one ``{"kernels": [...]}`` line with each kernel's launches on
-the main paths, error against its plain version and times (K1 and K2 also
+the main paths, error against its plain version and times (each also
 per shape), and as the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -90,8 +92,16 @@ FD_STEP, FD_TOL = 1e-4, 1e-12
 SVI_CPU_RTOL = 1e-8
 SVI_STEPS = 200
 # K3 chained in its own layout: 8 applies checked bit for bit against the
-# plain chain (f32 values stay finite), then timed.
+# plain chain (f32 values stay finite).
 K3_CHAIN = 8
+# Every padded shape (R = C, B, dtype) K3 is checked and timed at: the
+# highres32 label shape (33^2 nodes, B=1024) in f32 and f64, and the shapes
+# the JAX roofline benchmark chains it at (benchmarks/stencil_roofline.py:
+# n = 64, 128, 256 with B = 1024, 256, 64 and 128).  No main path launches
+# K3; K2 runs beside it at each interior shape.
+K3_SHAPES = ((35, 1024, "float32"), (35, 1024, "float64"),
+             (67, 1024, "float32"), (131, 256, "float32"),
+             (259, 64, "float32"), (259, 128, "float32"))
 # The 'highres' MG VJP (f64, B=256): kernel path vs plain path (identical
 # applies), vs a Jacobi-preconditioned solve (two PCGs to 1e-10), vs a
 # central difference (as above).
@@ -434,20 +444,33 @@ def k3_read_nodes(R, C):
                 v=int(v.sum()))
 
 
-def blocked_inputs(grid, B, dtype, gen):
-    """K3's inputs in the halo-padded layout (c_halo, vb, mb) and the same
-    data in K2's layout (coefs4, v, mask), on the card."""
+def k3_cost(R, C, B, item):
+    """(bytes, bound ms, bound_by) of one K3 apply on a padded (R, C, B)
+    grid: every element it reads, once (``k3_read_nodes``; the mask as many
+    nodes as v), the whole output, halo included, written once, and 14 f32
+    flops per interior output as K2 plus one input-mask multiply per v
+    read."""
+    reads = k3_read_nodes(R, C)
+    moved = (sum(reads.values()) * B + R * C * B + reads["v"]) * item
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = (14 * (R - 2) * (C - 2) + reads["v"]) * B / F32_FLOPS_PER_S * 1e3
+    return moved, max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                        else "operations")
+
+
+def blocked_shape_inputs(R, B, dtype, gen):
+    """K3's inputs at the padded shape (R, R, B) in the halo-padded layout
+    (c_halo, vb, mb), made by ``pad_coefs_blocked``, ``pad_blocked`` and
+    ``mask_blocked`` from K2's inputs at the interior (``shape_inputs``),
+    and those K2 inputs (coefs4, v, mask); ``gen`` is a CUDA generator."""
     import torch
-    from generative_physics_informed_pde_tpu_torch import fem
     from generative_physics_informed_pde_tpu_torch.ops import (
         mask_blocked, pad_blocked, pad_coefs_blocked)
 
-    c4, v, mask = stencil_inputs(fem.StencilOperator(grid),
-                                 fem.DirichletProfile(grid), B, dtype, gen,
-                                 sym=True)
-    Ny, Nx = v.shape[0], v.shape[1]
-    c_halo = pad_coefs_blocked(c4.permute(3, 0, 1, 2), Ny, Nx)
-    vb = pad_blocked(v.permute(2, 0, 1), Ny, Nx)
+    n = R - 2
+    c4, v, mask = shape_inputs("apply_stencil_sym", n, B, dtype, gen)
+    c_halo = pad_coefs_blocked(c4.permute(3, 0, 1, 2), n, n)
+    vb = pad_blocked(v.permute(2, 0, 1), n, n)
     mb = torch.as_tensor(mask_blocked(mask[..., 0].cpu().numpy()),
                          device="cuda")
     return (c_halo, vb, mb), (c4, v, mask)
@@ -931,34 +954,79 @@ def main() -> int:
     say(f"  card: {card}")
 
 
-    # ------------------- 6. K3: the halo-padded symmetric apply, chained
+    # ----------- 6. K3: the halo-padded symmetric apply, chained and timed
     say("phase 6: apply_stencil_sym_blocked kernel vs its plain version and "
-        "K2")
+        "K2 at every K3 shape, chained, timed")
     name = apply_stencil_sym_blocked.__name__
+    kgen = torch.Generator(device="cuda").manual_seed(6)
     worst = 0.0
-    for grid, B, dtype in ((g33, 1024, torch.float32),
-                           (g33, 1024, torch.float64),
-                           (g9, 11, torch.float32),
-                           (g33, 140, torch.float32)):
-        (c_halo, vb, mb), (c4, v, mask) = blocked_inputs(grid, B, dtype, gen)
+    k3_rows = []
+    # a scalar-path batch and a partial chunk first, then the K3 shapes
+    for R, B, dname in ((11, 11, "float32"), (35, 140, "float32"),
+                        *K3_SHAPES):
+        (c_halo, vb, mb), (c4, v, mask) = blocked_shape_inputs(R, B, dname,
+                                                                kgen)
+        vm = (mask * v).contiguous()
         got = apply_stencil_sym_blocked(c_halo, vb, mb)
         ref = apply_stencil_sym_blocked_reference(c_halo, vb, mb)
-        k2 = apply_stencil_sym(c4, (mask * v).contiguous(), mask)
+        k2 = apply_stencil_sym(c4, vm, mask)
         torch.cuda.synchronize()
         abs_err = (got - ref).abs().max().item()
-        k2_err = (got[1:-1, 1:-1] - k2).abs().max().item()
-        halo = max(e.abs().max().item()
-                   for e in (got[0], got[-1], got[:, 0], got[:, -1]))
-        say(f"  {tuple(vb.shape)} {dtype}: max abs err vs plain {abs_err:.3e},"
-            f" interior vs K2 on the masked input {k2_err:.3e}, max |halo| "
-            f"{halo:.3e} (all must be 0)")
-        if abs_err != 0 or k2_err != 0 or halo != 0:
+        halo_zero = not any(bool(bits(e).any())
+                            for e in (got[0], got[-1], got[:, 0], got[:, -1]))
+        ok = (torch.equal(bits(got), bits(ref))
+              and torch.equal(bits(got[1:-1, 1:-1]), bits(k2)) and halo_zero)
+        say(f"  {(R, R, B)} {dname}: bit-equal to the plain version and to "
+            f"K2 on the masked input, output halo +0: {ok}")
+        if not ok:
             raise AssertionError(f"{name} is not bit-equal to its plain "
-                                 f"version and K2 at {tuple(vb.shape)} "
-                                 f"{dtype}")
+                                 f"version and K2 at {(R, R, B)} {dname}, or "
+                                 "its halo is not zero")
         worst = max(worst, abs_err)
+        if (R, B, dname) not in K3_SHAPES:
+            continue
+        moved, bound, by = k3_cost(R, R, B, vb.element_size())
+        _, k2_bound, _ = stencil_cost("apply_stencil_sym", R - 2, R - 2, B,
+                                      vb.element_size())
+        times = {}
+        for who, fn in (("k3", lambda: apply_stencil_sym_blocked(c_halo, vb,
+                                                                 mb)),
+                        ("k2", lambda: apply_stencil_sym(c4, vm, mask))):
+            # warm first: the 256 MB flushes slow the calls that follow
+            times[who] = (cuda_time_ms(fn, 200),
+                          cuda_time_ms(fn, 100, flush.sum),
+                          cuda_time_ms(fn, 100, flush))
+        (t_w, t_c, t_f), (k2_w, k2_c, k2_f) = times["k3"], times["k2"]
+        row = dict(shape=[R, R, B], dtype=dname, launches=0, bytes=moved,
+                   bound_ms=bound, bound_by=by, ms=t_f, ms_l2_clean=t_c,
+                   ms_l2_warm=t_w, share_of_bound=bound / t_c,
+                   k2=dict(shape=[R - 2, R - 2, B], bound_ms=k2_bound,
+                           ms=k2_f, ms_l2_clean=k2_c, ms_l2_warm=k2_w),
+                   clean_vs_k2=t_c / k2_c)
+        if (R, B, dname) == K3_SHAPES[0]:
+            def plain():
+                return apply_stencil_sym_blocked_reference(c_halo, vb, mb)
+
+            row.update(plain_ms_l2_warm=cuda_time_ms(plain, 200),
+                       plain_ms=cuda_time_ms(plain, 100, flush))
+            timing[name] = dict(
+                ms=t_f, ms_l2_clean=t_c, ms_l2_warm=t_w,
+                plain_ms=row["plain_ms"],
+                plain_ms_l2_warm=row["plain_ms_l2_warm"], bound_ms=bound,
+                bound_by=by, bytes=moved)
+        k3_rows.append(row)
+        say(f"    K3 {t_f * 1e3:.2f} / {t_c * 1e3:.2f} / {t_w * 1e3:.2f} us "
+            f"(flushed / clean / warm), bound {bound * 1e3:.2f} us by {by} "
+            f"({moved / 1e6:.2f} MB), {100 * bound / t_c:.1f}% of it "
+            f"(clean); K2 at {(R - 2, R - 2, B)}: {k2_f * 1e3:.2f} / "
+            f"{k2_c * 1e3:.2f} / {k2_w * 1e3:.2f} us, bound "
+            f"{k2_bound * 1e3:.2f} us; K3 / K2 clean {t_c / k2_c:.3f}"
+            + (f"; plain {row['plain_ms'] * 1e3:.2f} / "
+               f"{row['plain_ms_l2_warm'] * 1e3:.2f} us (flushed / warm)"
+               if "plain_ms" in row else ""))
+        del c_halo, vb, mb, c4, v, mask, vm, got, ref, k2
     errors[name] = (worst, 0.0)
-    (c_halo, vb, mb), _ = blocked_inputs(g33, 1024, torch.float32, gen)
+    (c_halo, vb, mb), _ = blocked_shape_inputs(*K3_SHAPES[0], kgen)
     start_path()
     chain = vb
     for _ in range(K3_CHAIN):
@@ -970,47 +1038,15 @@ def main() -> int:
                                                           mb)
     say(f"  chained apply v <- K3(c, v, m), {K3_CHAIN} applies at "
         f"{tuple(vb.shape)} f32: launches {k3_counts}")
-    if k3_counts[name] != K3_CHAIN or not torch.equal(chain, plain_chain) \
+    if k3_counts[name] != K3_CHAIN \
+            or not torch.equal(bits(chain), bits(plain_chain)) \
             or not bool(torch.isfinite(chain).all()):
         raise AssertionError("the K3 chain launched the kernel "
                              f"{k3_counts[name]} times or differs from the "
                              "plain chain")
-    state = [vb]
-
-    def k3_step(apply):
-        state[0] = apply(c_halo, state[0], mb)
-
-    R, C, B = vb.shape
-    item = vb.element_size()
-    # what one apply must move: every element it reads, once (the mask as
-    # many nodes as v), and the whole output, halo included, once
-    reads = k3_read_nodes(R, C)
-    moved = (sum(reads.values()) * B + R * C * B + reads["v"]) * item
-    whole = (4 + 1 + 1) * R * C * B * item + R * C * item  # 6 whole grids
-    # 14 per interior output as K2, plus one input-mask multiply per v read
-    flops = 14 * (R - 2) * (C - 2) * B + reads["v"] * B
-    t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
-    timing[name] = dict(
-        ms=cuda_time_ms(lambda: k3_step(apply_stencil_sym_blocked), 100,
-                        flush),
-        ms_l2_warm=cuda_time_ms(lambda: k3_step(apply_stencil_sym_blocked),
-                                200),
-        plain_ms=cuda_time_ms(
-            lambda: k3_step(apply_stencil_sym_blocked_reference), 100, flush),
-        plain_ms_l2_warm=cuda_time_ms(
-            lambda: k3_step(apply_stencil_sym_blocked_reference), 200),
-        bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=moved,
-        whole_grids_bound_ms=whole / HBM_BYTES_PER_S * 1e3)
-    tk = timing[name]
-    say(f"  {name} chained {tuple(vb.shape)} f32: {tk['ms'] * 1e3:.2f} us "
-        f"(L2 flushed), {tk['ms_l2_warm'] * 1e3:.2f} us (L2 warm); plain "
-        f"{tk['plain_ms'] * 1e3:.2f} / {tk['plain_ms_l2_warm'] * 1e3:.2f} us;"
-        f" bound {tk['bound_ms'] * 1e3:.2f} us by {tk['bound_by']} "
-        f"({moved / 1e6:.2f} MB read and written; nodes read per grid "
-        f"{reads}); six whole padded grids would be {whole / 1e6:.2f} MB, "
-        f"{tk['whole_grids_bound_ms'] * 1e3:.2f} us")
+    say(f"  nodes read per grid by one apply at {tuple(vb.shape)}: "
+        f"{k3_read_nodes(*vb.shape[:2])}")
+    del c_halo, vb, mb, chain, plain_chain
 
     # -------------- 7. 'highres': label the 64^2 pool under the V-cycle
     say("phase 7: label the 'highres' pool (2048 fields of 64^2) with the "
@@ -1429,8 +1465,8 @@ def main() -> int:
           "label_solve_busy_share": busy_sym}),
         ("apply_stencil_sym_blocked", "stencil_sym_blocked.cu", f"{tpu}:287",
          "_make_sym_blocked_kernel",
-         {"chained": True, "whole_grids_bound_ms":
-          timing["apply_stencil_sym_blocked"]["whole_grids_bound_ms"]}),
+         {"shapes": k3_rows,
+          "ms_l2_clean": timing["apply_stencil_sym_blocked"]["ms_l2_clean"]}),
     ]
     kernels = {"kernels": [{
         "name": name,

@@ -25,8 +25,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 # library: (source, the csrc/ headers it includes)
 SOURCES = {"stencil": (CSRC / "stencil.cu", ("stencil_tile.cuh",)),
-           "stencil_sym": (CSRC / "stencil_sym.cu", ("stencil_tile.cuh",)),
-           "stencil_sym_blocked": (CSRC / "stencil_sym_blocked.cu", ())}
+           "stencil_sym": (CSRC / "stencil_sym.cu",
+                           ("stencil_sym.cuh", "stencil_tile.cuh")),
+           "stencil_sym_blocked": (CSRC / "stencil_sym_blocked.cu",
+                                   ("stencil_sym.cuh", "stencil_tile.cuh"))}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,7 +1,7 @@
-// Shared pieces of the tiled stencil kernels K1 (stencil.cu) and K2
-// (stencil_sym.cu): the launch plan as the kernels read it, work-item
-// decoding, 16-byte (or scalar) loads and stores, exact round-to-nearest
-// arithmetic, and the launch checks.
+// Shared pieces of the tiled stencil kernels K1 (stencil.cu), K2
+// (stencil_sym.cu) and K3 (stencil_sym_blocked.cu): the launch plan as the
+// kernels read it, work-item decoding, 16-byte (or scalar) loads and
+// stores, exact round-to-nearest arithmetic, and the launch checks.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -134,7 +134,7 @@ struct NodeWalk {
 // Host side ------------------------------------------------------------------
 
 // Read and check a plan against the shape: 16-byte loads (vec > 1) only
-// where `wide` (K2; K1 loads scalars).  0 or cudaErrorInvalidValue.
+// where `wide` (K2, K3; K1 loads scalars).  0 or cudaErrorInvalidValue.
 inline int check_plan(const int* q, int Ny, int Nx, int B, int item, bool wide, Plan* p) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (q == nullptr || Ny <= 0 || Nx <= 0 || B <= 0) return bad;

@@ -28,9 +28,9 @@ They replace the TPU kernels ``apply_stencil`` (body ``_make_kernel``),
 ``apply_stencil_sym`` (body ``_make_sym_kernel``) and
 ``apply_stencil_sym_blocked`` (body ``_make_sym_blocked_kernel``) of
 ``generative_physics_informed_pde_tpu/ops/stencil.py``.  On a CUDA tensor
-each wrapper launches its hand-written kernel (built by ``ops/_build.py``;
-K1 and K2 with the geometry of :func:`launch_plan`) or raises; on a CPU
-tensor it runs its plain version.  Each counts its
+each wrapper launches its hand-written kernel (built by ``ops/_build.py``,
+with the geometry of :func:`launch_plan`) or raises; on a CPU tensor it
+runs its plain version.  Each counts its
 kernel launches in ``<wrapper>.launches``.
 """
 
@@ -87,16 +87,15 @@ def _check(coefs, v, mask, n_grids):
 
 
 # ---------------------------------------------------------------------------
-# Launch plan of K1 and K2
+# Launch plan of K1, K2 and K3
 # ---------------------------------------------------------------------------
 #
-# A block of K1 or K2 owns a tile of nodes for one chunk of the batch; a
-# thread owns ``vec`` consecutive batch entries of one node at a time and
-# loads the coefficients and v it needs itself (K2: 16 bytes a load where
-# the batch row allows; K1: scalars), the tile's threads sharing v's lines
-# in L1.  The
-# geometry is a function of the shape alone; the kernels read it from
-# ``LaunchPlan.as_ints()``.
+# A block of K1, K2 or K3 owns a tile of nodes (K3: of the padded grid) for
+# one chunk of the batch; a thread owns ``vec`` consecutive batch entries of
+# one node at a time and loads the coefficients and v it needs itself (K2,
+# K3: 16 bytes a load where the batch row allows; K1: scalars), the tile's
+# threads sharing v's lines in L1.  The geometry is a function of the shape
+# alone; the kernels read it from ``LaunchPlan.as_ints()``.
 
 _LINE_BYTES = 128          # one L2 line of the batch
 _THREADS = 256             # the kernels' __launch_bounds__
@@ -104,7 +103,7 @@ _THREADS = 256             # the kernels' __launch_bounds__
 
 @dataclass(frozen=True)
 class LaunchPlan:
-    """Geometry of one K1 or K2 launch.
+    """Geometry of one K1, K2 or K3 launch.
 
     Tile ``(ty, tx)`` covers node rows ``ty * tile_rows`` up to
     ``min((ty + 1) * tile_rows, Ny)``, columns likewise; chunk ``c`` covers
@@ -135,26 +134,29 @@ class LaunchPlan:
                 self.chunk, self.vec, self.threads, self.blocks)
 
 
-# Per form: (tile side in nodes, chunk in 128-byte lines, 16-byte loads).
-# Chosen on an H100 over every main-path shape (PERF.md): K1 reads each
-# coefficient once, so its loads gain nothing from 16 bytes and lose
-# threads, and its kernel loads scalars only; K2 reads its direction grids
-# and v again from the tile's lines, so it takes 8 x 8 tiles and 16-byte
-# loads where the batch row allows.
-_GEOMETRY = {False: (2, 4, False), True: (8, 1, True)}
+# Per form K1, K2, K3: (tile side in nodes, chunk in 128-byte lines,
+# 16-byte loads).  Chosen on an H100 (PERF.md): K1 reads each coefficient
+# once, so its loads gain nothing from 16 bytes and lose threads, and its
+# kernel loads scalars only; K2 reads its direction grids and v again from
+# the tile's lines, so it takes 8 x 8 tiles and 16-byte loads where the
+# batch row allows; K3 is K2's body on the padded grid, and K2's geometry
+# measured best or near it at every K3 shape.
+_GEOMETRY = {"K1": (2, 4, False), "K2": (8, 1, True), "K3": (8, 1, True)}
 
 
 @lru_cache(maxsize=None)
 def launch_plan(Ny: int, Nx: int, B: int, dtype: torch.dtype, sm_count: int,
-                sym: bool = False, aligned: bool = True) -> LaunchPlan:
-    """The geometry K1 (``sym=False``) or K2 (``sym=True``) is launched
+                sym: bool = False, aligned: bool = True,
+                padded: bool = False) -> LaunchPlan:
+    """The geometry K1 (``sym=False``), K2 (``sym=True``) or K3
+    (``padded=True``; ``Ny``, ``Nx`` are then the padded sizes) is launched
     with on a card of ``sm_count`` SMs: the form's tile, halved while the
     grid would have fewer than two blocks an SM (the coarse V-cycle levels
     are bound by latency).  ``aligned``: every data pointer is 16-byte
     aligned (torch allocations are); the 16-byte path also needs the batch
     row ``B * itemsize`` to be a multiple of 16 bytes."""
     item = torch.empty((), dtype=dtype).element_size()
-    tile, lines, vec16 = _GEOMETRY[sym]
+    tile, lines, vec16 = _GEOMETRY["K3" if padded else "K2" if sym else "K1"]
     plan = _plan(Ny, Nx, B, item, aligned, tile, lines, vec16)
     while plan.blocks < 2 * sm_count and tile > 1:
         tile //= 2
@@ -187,18 +189,17 @@ def _sm_count(index: int) -> int:
 _FNS = {}
 
 
-def _kernel(library, symbol, planned):
+def _kernel(library, symbol):
     """``symbol`` of ``library`` with its argument types set, resolved once
-    per process: four data pointers, Ny, Nx, B, the plan (K1, K2:
-    ``planned``), the device index and the stream."""
+    per process: four data pointers, Ny, Nx, B, the plan, the device index
+    and the stream."""
     fn = _FNS.get(symbol)
     if fn is None:
         from ._build import load_library
 
         fn = getattr(load_library(library), symbol)
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
-            + [ctypes.POINTER(ctypes.c_int)] * planned \
-            + [ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FNS[symbol] = fn
     return fn
@@ -207,12 +208,11 @@ def _kernel(library, symbol, planned):
 _PLANS = {}
 
 
-def _launch(name, library, coefs, v, mask, sym=None):
+def _launch(name, library, coefs, v, mask, sym, padded=False):
     """Allocate the output and launch ``gpipde_<name>_<dtype>`` of
-    ``library`` on the current stream; raises on a refused launch.  K1 and
-    K2 (``sym`` False, True) take ``launch_plan``'s geometry for these
-    tensors (looked up once per shape and alignment); K3 (``sym`` None)
-    takes none."""
+    ``library`` on the current stream with ``launch_plan``'s geometry for
+    these tensors (looked up once per shape and alignment); raises on a
+    refused launch."""
     device = v.device
     if device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {device}")
@@ -222,19 +222,14 @@ def _launch(name, library, coefs, v, mask, sym=None):
     stream = torch.cuda.current_stream(device).cuda_stream
     symbol = f"gpipde_{name}_{_DTYPE_SUFFIX[v.dtype]}"
     ptrs = (coefs.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr())
-    if sym is None:
-        rc = _kernel(library, symbol, False)(*ptrs, Ny, Nx, B, index,
-                                             stream)
-    else:
-        key = (Ny, Nx, B, v.dtype, index, sym,
-               (ptrs[0] | ptrs[1] | ptrs[3]) % 16 == 0)
-        ints = _PLANS.get(key)
-        if ints is None:
-            plan = launch_plan(Ny, Nx, B, v.dtype, _sm_count(index), sym,
-                               key[-1]).as_ints()
-            ints = _PLANS[key] = (ctypes.c_int * len(plan))(*plan)
-        rc = _kernel(library, symbol, True)(*ptrs, Ny, Nx, B, ints, index,
-                                            stream)
+    aligned = (ptrs[0] | ptrs[1] | ptrs[3]) % 16 == 0
+    key = (Ny, Nx, B, v.dtype, index, sym, padded, aligned)
+    ints = _PLANS.get(key)
+    if ints is None:
+        plan = launch_plan(Ny, Nx, B, v.dtype, _sm_count(index), sym,
+                           aligned, padded).as_ints()
+        ints = _PLANS[key] = (ctypes.c_int * len(plan))(*plan)
+    rc = _kernel(library, symbol)(*ptrs, Ny, Nx, B, ints, index, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error "
                            f"{rc} at shape {(Ny, Nx, B)}")
@@ -347,7 +342,7 @@ def apply_stencil_sym_blocked(c_halo: torch.Tensor, v: torch.Tensor,
     if v.device.type == "cpu":
         return apply_stencil_sym_blocked_reference(c_halo, v, mask)
     out = _launch("apply_stencil_sym_blocked", "stencil_sym_blocked", c_halo,
-                  v, mask)
+                  v, mask, sym=True, padded=True)
     apply_stencil_sym_blocked.launches += 1
     return out
 

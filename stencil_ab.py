@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the stencil kernels K1 and K2 of this checkout against another
+"""Time the stencil kernels K1, K2 and K3 of this checkout against another
 version of the port, in turns, on one NVIDIA card.
 
     python3 stencil_ab.py OLD_ROOT [--json PATH]
@@ -7,7 +7,8 @@ version of the port, in turns, on one NVIDIA card.
 OLD_ROOT is the root of another checkout of this repository (for example
 the parent commit unpacked with ``git archive``); its port is loaded under
 another module name and builds its kernels into OLD_ROOT/build/.  At every
-shape of ``chip_smoke.STENCIL_SHAPES``:
+shape of ``chip_smoke.STENCIL_SHAPES`` (K1 and K2 on the main paths) and
+of ``chip_smoke.K3_SHAPES`` (K3, halo-padded):
 
 - both versions' outputs against the plain version, bit for bit;
 - device time per apply by CUDA events, in turns old, new, new, old: L2
@@ -18,7 +19,8 @@ shape of ``chip_smoke.STENCIL_SHAPES``:
   L2, which the bound does not describe).
 
 Then the host cost of each wrapper: host-clock microseconds per call over
-1,000 unsynchronised calls at the smallest shape, in turns.  Prints the
+1,000 unsynchronised calls at the smallest shape (K3: padded (7, 7, 256)),
+in turns.  Prints the
 card's name and power limit, one line per measurement and a JSON object
 (also written to PATH with ``--json``).  Imports torch, numpy, the standard
 library and the two ports only.
@@ -73,7 +75,7 @@ def main() -> int:
     for name, mod in list(versions.items()):
         try:
             report = importlib.import_module(
-                mod.__name__ + "._build").build_all(["stencil", "stencil_sym"])
+                mod.__name__ + "._build").build_all()
         except RuntimeError as e:  # time the other version all the same
             cs.say(f"{name} kernels failed to build:\n{e}")
             del versions[name]
@@ -89,47 +91,58 @@ def main() -> int:
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     plain = {"apply_stencil": new.apply_stencil_reference,
-             "apply_stencil_sym": new.apply_stencil_sym_reference}
+             "apply_stencil_sym": new.apply_stencil_sym_reference,
+             "apply_stencil_sym_blocked":
+                 new.apply_stencil_sym_blocked_reference}
+    k3 = "apply_stencil_sym_blocked"
     result = {"card": card, "sm_count": sm, "shapes": [], "host_us": {}}
-    for name, shapes in cs.STENCIL_SHAPES.items():
-        sym = name == "apply_stencil_sym"
+    cases = [(name, *sh) for name, shapes in cs.STENCIL_SHAPES.items()
+             for sh in shapes] + [(k3, *sh) for sh in cs.K3_SHAPES]
+    for name, n, B, dtype in cases:
+        sym, padded = name != "apply_stencil", name == k3
         fns = {w: getattr(m, name) for w, m in versions.items()}
-        for n, B, dtype in shapes:
+        if padded:
+            (coefs, v, mask), _ = cs.blocked_shape_inputs(n, B, dtype, gen)
+            moved, bound, _ = cs.k3_cost(n, n, B, v.element_size())
+        else:
             coefs, v, mask = cs.shape_inputs(name, n, B, dtype, gen)
-            item = v.element_size()
-            moved, bound, _ = cs.stencil_cost(name, n, n, B, item)
-            ref = cs.bits(plain[name](coefs, v, mask))
-            row = {"kernel": name, "shape": [n, n, B], "dtype": dtype,
-                   "bytes": moved, "bound_us": bound * 1e3,
-                   "plan": stencil.launch_plan(n, n, B, v.dtype, sm,
-                                               sym).as_ints()}
-            for who, fn in fns.items():
-                row[f"{who}_bit_equal"] = bool(torch.equal(
-                    cs.bits(fn(coefs, v, mask)), ref))
-            times = {f"{w}_{m}": [] for w in fns
-                     for m in ("flushed", "clean", "warm")}
-            for mode, reps, fl in (("warm", WARM_REPS, None),
-                                   ("clean", FLUSHED_REPS, flush.sum),
-                                   ("flushed", FLUSHED_REPS, flush)):
-                for who in turns:
-                    f = fns[who]
-                    times[f"{who}_{mode}"].append(1e3 * cs.cuda_time_ms(
-                        lambda: f(coefs, v, mask), reps, fl))
-            row.update(times)
-            best = {k: min(t) for k, t in times.items()}
-            row["share_of_bound"] = {
-                w: bound * 1e3 / best[f"{w}_clean"] for w in fns}
-            cs.say(f"{name} {(n, n, B)} {dtype}: bound {bound * 1e3:.2f} us;"
-                   f" best of 2 (us) {best}; turns {times}; share of the "
-                   f"bound (clean) {row['share_of_bound']}; bit-equal "
-                   f"{ {w: row[f'{w}_bit_equal'] for w in fns} }; plan "
-                   f"{row['plan']}")
-            result["shapes"].append(row)
-            del coefs, v, mask, ref
+            moved, bound, _ = cs.stencil_cost(name, n, n, B, v.element_size())
+        ref = cs.bits(plain[name](coefs, v, mask))
+        row = {"kernel": name, "shape": [n, n, B], "dtype": dtype,
+               "bytes": moved, "bound_us": bound * 1e3,
+               "plan": stencil.launch_plan(n, n, B, v.dtype, sm, sym,
+                                           padded=padded).as_ints()}
+        for who, fn in fns.items():
+            row[f"{who}_bit_equal"] = bool(torch.equal(
+                cs.bits(fn(coefs, v, mask)), ref))
+        times = {f"{w}_{m}": [] for w in fns
+                 for m in ("flushed", "clean", "warm")}
+        for mode, reps, fl in (("warm", WARM_REPS, None),
+                               ("clean", FLUSHED_REPS, flush.sum),
+                               ("flushed", FLUSHED_REPS, flush)):
+            for who in turns:
+                f = fns[who]
+                times[f"{who}_{mode}"].append(1e3 * cs.cuda_time_ms(
+                    lambda: f(coefs, v, mask), reps, fl))
+        row.update(times)
+        best = {k: min(t) for k, t in times.items()}
+        row["share_of_bound"] = {
+            w: bound * 1e3 / best[f"{w}_clean"] for w in fns}
+        cs.say(f"{name} {(n, n, B)} {dtype}: bound {bound * 1e3:.2f} us;"
+               f" best of 2 (us) {best}; turns {times}; share of the "
+               f"bound (clean) {row['share_of_bound']}; bit-equal "
+               f"{ {w: row[f'{w}_bit_equal'] for w in fns} }; plan "
+               f"{row['plan']}")
+        result["shapes"].append(row)
+        del coefs, v, mask, ref
 
     # host cost of one call of each wrapper, device far from busy
-    for name in cs.STENCIL_SHAPES:
-        coefs, v, mask = cs.shape_inputs(name, 5, 256, "float64", gen)
+    for name in (*cs.STENCIL_SHAPES, k3):
+        if name == k3:
+            (coefs, v, mask), _ = cs.blocked_shape_inputs(7, 256, "float64",
+                                                          gen)
+        else:
+            coefs, v, mask = cs.shape_inputs(name, 5, 256, "float64", gen)
         per = {w: [] for w in versions}
         for who in turns:
             fn = getattr(versions[who], name)
@@ -142,7 +155,7 @@ def main() -> int:
             per[who].append(1e6 * (time.perf_counter() - t0) / HOST_CALLS)
             torch.cuda.synchronize()
         result["host_us"][name] = per
-        cs.say(f"{name} host us per call, (5, 5, 256) f64, {HOST_CALLS} "
+        cs.say(f"{name} host us per call, {tuple(v.shape)} f64, {HOST_CALLS} "
                f"unsynchronised calls: {per}")
     cs.say(f"card: {card}")
     text = json.dumps(result)

@@ -309,3 +309,129 @@ def test_every_loaded_geometry_is_bit_equal(dtype, form, monkeypatch):
     # widths
     assert len({p.tile_rows for p in seen}) >= (3 if form else 2), seen
     assert {p.vec > 1 for p in seen} == ({False, True} if form else {False})
+
+
+def _blocked_inputs(R, C, B, dtype, seed, hazards=False):
+    """K3's inputs on the card: padded coefficients (4, R, C, B) and v
+    (R, C, B) with a zero halo (as ``pad_coefs_blocked`` and
+    ``pad_blocked`` give them), +0 and -0 entries in v, and a 0/1 mask zero
+    on the halo.  With ``hazards`` the interior nodes next to the halo and
+    the halo itself carry +-inf, -0 and negative values in the coefficients
+    and v (the kernel assumes nothing of the halo's inputs)."""
+    rng = np.random.default_rng(seed)
+    c = np.zeros((4, R, C, B))
+    v = np.zeros((R, C, B))
+    c[:, 1:-1, 1:-1] = rng.standard_normal((4, R - 2, C - 2, B))
+    inner = rng.standard_normal((R - 2, C - 2, B))
+    inner[rng.random(inner.shape) < 0.2] = 0.0
+    inner[rng.random(inner.shape) < 0.1] = -0.0
+    v[1:-1, 1:-1] = inner
+    mask = np.zeros((R, C, 1))
+    mask[1:-1, 1:-1] = rng.random((R - 2, C - 2, 1)) < 0.8
+    if hazards:
+        ring = np.zeros((R, C), bool)
+        ring[[0, 1, -2, -1], :] = ring[:, [0, 1, -2, -1]] = True
+        for a in (*c, v):
+            pick = ring[..., None] & (rng.random((R, C, B)) < 0.3)
+            a[pick] = rng.choice([np.inf, -np.inf, -0.0, -2.5],
+                                 size=int(pick.sum()))
+    return tuple(torch.as_tensor(a, dtype=dtype, device="cuda")
+                 for a in (c, v, mask))
+
+
+def _assert_blocked_bit_equal(c, v, mask, k2=True):
+    """K3 launches once, equals its plain version bit for bit, writes +0 on
+    the whole output halo and (``k2``: zero-halo inputs) equals K2 on the
+    masked input in the interior."""
+    before = apply_stencil_sym_blocked.launches
+    got = apply_stencil_sym_blocked(c, v, mask)
+    torch.cuda.synchronize()
+    assert apply_stencil_sym_blocked.launches == before + 1
+    assert torch.equal(_bits(got),
+                       _bits(apply_stencil_sym_blocked_reference(c, v, mask)))
+    for edge in (got[0], got[-1], got[:, 0], got[:, -1]):
+        assert not bool(_bits(edge).any())
+    if k2:
+        m = mask[1:-1, 1:-1].contiguous()
+        want = apply_stencil_sym(c[:, 1:-1, 1:-1].contiguous(),
+                                 (m * v[1:-1, 1:-1]).contiguous(), m)
+        assert torch.equal(_bits(got[1:-1, 1:-1]), _bits(want))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("R,C,B", [(15, 9, 1), (12, 25, 3), (72, 43, 257),
+                                   (28, 28, 200), (3, 7, 33), (35, 35, 11),
+                                   (35, 35, 64)])
+def test_blocked_kernel_bit_equal_at_tile_edges(R, C, B, dtype):
+    """Padded grids that are no multiple of the 8 x 8 tile, batches of 1,
+    3, 11, 33 and 257 (the scalar path) and 64 and 200 (the 16-byte path,
+    200 with a partial chunk)."""
+    _need_cuda()
+    _assert_blocked_bit_equal(*_blocked_inputs(R, C, B, dtype, R * C + B))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,B", [(67, 1024), (131, 256), (259, 64),
+                                 (259, 128)])
+def test_blocked_kernel_bit_equal_at_roofline_shapes(R, B):
+    """The padded shapes of the JAX roofline benchmark's K3 chains, f32."""
+    _need_cuda()
+    _assert_blocked_bit_equal(*_blocked_inputs(R, R, B, torch.float32, B))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("R,C,B", [(11, 11, 16), (35, 35, 64), (19, 14, 3)])
+def test_blocked_kernel_keeps_inf_nan_and_signed_zeros_next_to_the_halo(
+        R, C, B, dtype):
+    """+-inf, -0 and negative values on the interior nodes next to the halo
+    and on the halo: every term is multiplied as in the plain version, so
+    inf * 0 = NaN and the signs of zero agree; compared as bit patterns."""
+    _need_cuda()
+    c, v, mask = _blocked_inputs(R, C, B, dtype, B, hazards=True)
+    ref = apply_stencil_sym_blocked_reference(c, v, mask)
+    assert bool(torch.isnan(ref).any()) and bool(torch.isinf(ref).any())
+    _assert_blocked_bit_equal(c, v, mask, k2=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_blocked_kernel_every_loaded_geometry_is_bit_equal(dtype,
+                                                           monkeypatch):
+    """The plans launch_plan gives on cards of other SM counts (other tile
+    sides) and off 16-byte alignment (scalar loads)."""
+    _need_cuda()
+    seen = set()
+    for R, C, B in ((19, 15, 64), (35, 35, 200)):
+        c, v, mask = _blocked_inputs(R, C, B, dtype, 9, hazards=True)
+        store = torch.empty(v.numel() + 1, dtype=v.dtype, device="cuda")
+        v_off = store[1:].view(v.shape)
+        v_off.copy_(v)
+        assert v_off.is_contiguous() and v_off.data_ptr() % 16 != 0
+        for sm in (1, 16, 132, 1024):
+            monkeypatch.setattr(stencil, "_sm_count", lambda index, _s=sm: _s)
+            monkeypatch.setattr(stencil, "_PLANS", {})
+            for vv, aligned in ((v, True), (v_off, False)):
+                seen.add(stencil.launch_plan(R, C, B, dtype, sm, True,
+                                             aligned, padded=True))
+                _assert_blocked_bit_equal(c, vv, mask, k2=False)
+    assert len({p.tile_rows for p in seen}) >= 3, seen
+    assert {p.vec > 1 for p in seen} == {False, True}
+
+
+@pytest.mark.cuda
+def test_blocked_kernel_refused_launch_raises(monkeypatch):
+    """A plan that does not fit the shape is refused by the C side, and
+    the wrapper raises instead of returning an unwritten output."""
+    _need_cuda()
+    c, v, mask = _blocked_inputs(11, 11, 16, torch.float32, 1)
+    wrong = stencil.launch_plan(13, 11, 16, torch.float32, 132, True,
+                                padded=True)
+    monkeypatch.setattr(stencil, "_PLANS", {})
+    monkeypatch.setattr(stencil, "launch_plan", lambda *a, **k: wrong)
+    before = apply_stencil_sym_blocked.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        apply_stencil_sym_blocked(c, v, mask)
+    assert apply_stencil_sym_blocked.launches == before

@@ -235,7 +235,8 @@ def test_skipping_the_out_of_grid_terms_would_not_be_bit_equal():
 
 
 def test_wrapper_resolves_each_kernel_once(monkeypatch):
-    """``_kernel`` looks a symbol up in its library once per process."""
+    """``_kernel`` looks a symbol up in its library once per process; every
+    entry point takes the plan (K3's too)."""
     calls = []
 
     class Lib:
@@ -247,13 +248,13 @@ def test_wrapper_resolves_each_kernel_once(monkeypatch):
 
     monkeypatch.setattr(_build, "load_library", lambda name: Lib())
     monkeypatch.setattr(stencil, "_FNS", {})
-    first = stencil._kernel("stencil", "gpipde_apply_stencil_f32", True)
-    again = stencil._kernel("stencil", "gpipde_apply_stencil_f32", True)
+    first = stencil._kernel("stencil", "gpipde_apply_stencil_f32")
+    again = stencil._kernel("stencil", "gpipde_apply_stencil_f32")
     assert first is again and calls == ["gpipde_apply_stencil_f32"]
     assert len(first.argtypes) == 10
     k3 = stencil._kernel("stencil_sym_blocked",
-                         "gpipde_apply_stencil_sym_blocked_f64", False)
-    assert len(k3.argtypes) == 9
+                         "gpipde_apply_stencil_sym_blocked_f64")
+    assert len(k3.argtypes) == 10
 
 
 def test_each_library_lists_the_headers_it_includes():
@@ -272,8 +273,9 @@ def test_each_library_lists_the_headers_it_includes():
 
 def test_library_key_follows_its_own_source_and_headers(tmp_path,
                                                          monkeypatch):
-    """An edit to the K1/K2 header rebuilds K1 and K2 and not K3; an edit
-    to a source rebuilds that library alone."""
+    """An edit to the shared header rebuilds all three libraries, an edit
+    to the symmetric body's header K2 and K3 and not K1; an edit to a
+    source rebuilds that library alone."""
     import shutil
 
     from generative_physics_informed_pde_tpu_torch.ops import _build
@@ -292,11 +294,16 @@ def test_library_key_follows_its_own_source_and_headers(tmp_path,
     with open(csrc / "stencil_tile.cuh", "a") as f:
         f.write("// edited\n")
     after = keys()
-    assert after["stencil"] != before["stencil"]
-    assert after["stencil_sym"] != before["stencil_sym"]
-    assert after["stencil_sym_blocked"] == before["stencil_sym_blocked"]
+    assert all(after[n] != before[n] for n in _build.SOURCES)
+    with open(csrc / "stencil_sym.cuh", "a") as f:
+        f.write("// edited\n")
+    sym = keys()
+    assert sym["stencil"] == after["stencil"]
+    assert sym["stencil_sym"] != after["stencil_sym"]
+    assert sym["stencil_sym_blocked"] != after["stencil_sym_blocked"]
     with open(csrc / "stencil_sym_blocked.cu", "a") as f:
         f.write("// edited\n")
     again = keys()
-    assert again["stencil_sym_blocked"] != after["stencil_sym_blocked"]
-    assert again["stencil"] == after["stencil"]
+    assert again["stencil_sym_blocked"] != sym["stencil_sym_blocked"]
+    assert again["stencil"] == sym["stencil"]
+    assert again["stencil_sym"] == sym["stencil_sym"]
