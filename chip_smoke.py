@@ -25,7 +25,8 @@ train the recipe of ``bench.py`` (FFT fields, channel dropout 0.2) for 200
 SVI steps.  Last, K1 and K2 run at every shape the main paths launched
 them at, each held bit for bit against its plain version and timed, with
 its launches derived from the paths' iteration counts (and checked against
-the counted launches).  All three kernels are built from the sources
+the counted launches), and K3's launches per shape outside its chain are
+read from the same counts.  All three kernels are built from the sources
 (``nvcc`` into ``build/torch_kernels/``) and held against their plain
 PyTorch versions on the card; the labels are checked against residuals
 recomputed with the plain apply, f64 solves and a dense direct solve, the
@@ -40,6 +41,8 @@ Output: progress lines, the card's name and power limit as nvidia-smi
 prints them, one ``{"kernels": [...]}`` line with each kernel's launches on
 the main paths, error against its plain version and times (each also
 per shape), and as the last line ``{"ok": true, "device": {...}}``.
+K3's ``ms`` is one unchained apply, timed after the warm and clean runs
+(as K1's and K2's), not a step of the chain.
 """
 
 from __future__ import annotations
@@ -94,6 +97,7 @@ SVI_STEPS = 200
 # K3 chained in its own layout: 8 applies checked bit for bit against the
 # plain chain (f32 values stay finite).
 K3_CHAIN = 8
+K3_CHAIN_PATH = "6 K3 chained apply"
 # Every padded shape (R = C, B, dtype) K3 is checked and timed at: the
 # highres32 label shape (33^2 nodes, B=1024) in f32 and f64, and the shapes
 # the JAX roofline benchmark chains it at (benchmarks/stencil_roofline.py:
@@ -997,7 +1001,8 @@ def main() -> int:
                           cuda_time_ms(fn, 100, flush.sum),
                           cuda_time_ms(fn, 100, flush))
         (t_w, t_c, t_f), (k2_w, k2_c, k2_f) = times["k3"], times["k2"]
-        row = dict(shape=[R, R, B], dtype=dname, launches=0, bytes=moved,
+        # ``launches`` is filled in phase 8, from every path's counts
+        row = dict(shape=[R, R, B], dtype=dname, bytes=moved,
                    bound_ms=bound, bound_by=by, ms=t_f, ms_l2_clean=t_c,
                    ms_l2_warm=t_w, share_of_bound=bound / t_c,
                    k2=dict(shape=[R - 2, R - 2, B], bound_ms=k2_bound,
@@ -1031,7 +1036,7 @@ def main() -> int:
     chain = vb
     for _ in range(K3_CHAIN):
         chain = apply_stencil_sym_blocked(c_halo, chain, mb)
-    k3_counts = end_path("6 K3 chained apply")
+    k3_counts = end_path(K3_CHAIN_PATH)
     plain_chain = vb
     for _ in range(K3_CHAIN):
         plain_chain = apply_stencil_sym_blocked_reference(c_halo, plain_chain,
@@ -1337,7 +1342,7 @@ def main() -> int:
 
     # ------------------------------ 8. K1 and K2 at every main-path shape
     say("phase 8: K1 and K2 at every shape of the main paths: launches, "
-        "bit-equality, times")
+        "bit-equality, times; K3's launches per shape")
     mg = solver_hr.mg
     if mg.num_levels != len(MG_NODES):
         raise AssertionError(f"the V-cycle has {mg.num_levels} levels")
@@ -1372,17 +1377,34 @@ def main() -> int:
     for path, B, dname, k in mg_solves:
         for nodes, count in zip(MG_NODES, mg_by_level(k)):
             derived.append((path, "apply_stencil", nodes, B, dname, count))
+    # K3: phase 6's chain at its first shape (padded nodes), no other path
+    k3 = apply_stencil_sym_blocked.__name__
+    derived.append((K3_CHAIN_PATH, k3, *K3_SHAPES[0], K3_CHAIN))
     shape_launches = {}
     for path, counts in path_launches.items():
-        for kname in STENCIL_SHAPES:
+        for kname in (*STENCIL_SHAPES, k3):
             got = sum(r[5] for r in derived if r[0] == path and r[1] == kname)
             if got != counts[kname]:
                 raise AssertionError(f"path {path!r}: {kname} launched "
                                      f"{counts[kname]} times, the iteration "
                                      f"counts give {got}")
     for _, kname, nodes, B, dname, count in derived:
+        if kname == k3:
+            continue
         key = (kname, nodes, B, dname)
         shape_launches[key] = shape_launches.get(key, 0) + count
+    # each K3 row: its launches on the paths other than the chain (whose
+    # launches are in ``launches_by_path``); every path's K3 count is the
+    # derived one, and every derived K3 shape is one of the rows
+    k3_derived = [d for d in derived if d[1] == k3]
+    if any(d[2:5] not in K3_SHAPES for d in k3_derived):
+        raise AssertionError(f"K3 launched outside K3_SHAPES: {k3_derived}")
+    for r in k3_rows:
+        r["launches"] = sum(
+            d[5] for d in k3_derived if d[0] != K3_CHAIN_PATH
+            and d[2:5] == (r["shape"][0], r["shape"][2], r["dtype"]))
+    say("  K3 launches per shape outside the chain: "
+        f"{[(tuple(r['shape']), r['dtype'], r['launches']) for r in k3_rows]}")
     listed = {(k, *sh) for k, shapes in STENCIL_SHAPES.items()
               for sh in shapes}
     if set(shape_launches) != listed:

@@ -27,8 +27,8 @@
 //
 // Design: K2's (stencil_sym.cu), on the padded grid.  The kernel body is
 // stencil_sym.cuh's, instantiated with Padded = true: a block owns a tile of
-// padded nodes for one chunk of the batch (ops/stencil.py launch_plan, the
-// third form of the plan), so the tile's threads share v's, the mask's and
+// padded nodes for one chunk of the batch (ops/stencil.py launch_plan, K2's
+// form of the plan on the padded sizes), so the tile's threads share v's, the mask's and
 // the direction grids' lines in L1; loads are 16 bytes where the batch row
 // allows; no load is guarded; tiles over the halo store zeros with the same
 // stores; the chunk follows B, so no thread idles at a small batch.  The

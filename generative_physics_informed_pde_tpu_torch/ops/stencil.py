@@ -134,29 +134,28 @@ class LaunchPlan:
                 self.chunk, self.vec, self.threads, self.blocks)
 
 
-# Per form K1, K2, K3: (tile side in nodes, chunk in 128-byte lines,
-# 16-byte loads).  Chosen on an H100 (PERF.md): K1 reads each coefficient
-# once, so its loads gain nothing from 16 bytes and lose threads, and its
-# kernel loads scalars only; K2 reads its direction grids and v again from
-# the tile's lines, so it takes 8 x 8 tiles and 16-byte loads where the
-# batch row allows; K3 is K2's body on the padded grid, and K2's geometry
-# measured best or near it at every K3 shape.
-_GEOMETRY = {"K1": (2, 4, False), "K2": (8, 1, True), "K3": (8, 1, True)}
+# Per form K1, K2: (tile side in nodes, chunk in 128-byte lines, 16-byte
+# loads).  Chosen on an H100 (PERF.md): K1 reads each coefficient once, so
+# its loads gain nothing from 16 bytes and lose threads, and its kernel
+# loads scalars only; K2 reads its direction grids and v again from the
+# tile's lines, so it takes 8 x 8 tiles and 16-byte loads where the batch
+# row allows.  K3 is K2's body on the padded grid and takes K2's form: K2's
+# geometry measured best or near it at every K3 shape.
+_GEOMETRY = {"K1": (2, 4, False), "K2": (8, 1, True)}
 
 
 @lru_cache(maxsize=None)
 def launch_plan(Ny: int, Nx: int, B: int, dtype: torch.dtype, sm_count: int,
-                sym: bool = False, aligned: bool = True,
-                padded: bool = False) -> LaunchPlan:
-    """The geometry K1 (``sym=False``), K2 (``sym=True``) or K3
-    (``padded=True``; ``Ny``, ``Nx`` are then the padded sizes) is launched
-    with on a card of ``sm_count`` SMs: the form's tile, halved while the
-    grid would have fewer than two blocks an SM (the coarse V-cycle levels
-    are bound by latency).  ``aligned``: every data pointer is 16-byte
+                sym: bool = False, aligned: bool = True) -> LaunchPlan:
+    """The geometry K1 (``sym=False``) or K2 and K3 (``sym=True``; for K3
+    ``Ny``, ``Nx`` are the padded sizes) is launched with on a card of
+    ``sm_count`` SMs: the form's tile, halved while the grid would have
+    fewer than two blocks an SM (the coarse V-cycle levels are bound by
+    latency).  ``aligned``: every data pointer is 16-byte
     aligned (torch allocations are); the 16-byte path also needs the batch
     row ``B * itemsize`` to be a multiple of 16 bytes."""
     item = torch.empty((), dtype=dtype).element_size()
-    tile, lines, vec16 = _GEOMETRY["K3" if padded else "K2" if sym else "K1"]
+    tile, lines, vec16 = _GEOMETRY["K2" if sym else "K1"]
     plan = _plan(Ny, Nx, B, item, aligned, tile, lines, vec16)
     while plan.blocks < 2 * sm_count and tile > 1:
         tile //= 2
@@ -208,7 +207,7 @@ def _kernel(library, symbol):
 _PLANS = {}
 
 
-def _launch(name, library, coefs, v, mask, sym, padded=False):
+def _launch(name, library, coefs, v, mask, sym):
     """Allocate the output and launch ``gpipde_<name>_<dtype>`` of
     ``library`` on the current stream with ``launch_plan``'s geometry for
     these tensors (looked up once per shape and alignment); raises on a
@@ -223,11 +222,11 @@ def _launch(name, library, coefs, v, mask, sym, padded=False):
     symbol = f"gpipde_{name}_{_DTYPE_SUFFIX[v.dtype]}"
     ptrs = (coefs.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr())
     aligned = (ptrs[0] | ptrs[1] | ptrs[3]) % 16 == 0
-    key = (Ny, Nx, B, v.dtype, index, sym, padded, aligned)
+    key = (Ny, Nx, B, v.dtype, index, sym, aligned)
     ints = _PLANS.get(key)
     if ints is None:
         plan = launch_plan(Ny, Nx, B, v.dtype, _sm_count(index), sym,
-                           aligned, padded).as_ints()
+                           aligned).as_ints()
         ints = _PLANS[key] = (ctypes.c_int * len(plan))(*plan)
     rc = _kernel(library, symbol)(*ptrs, Ny, Nx, B, ints, index, stream)
     if rc != 0:
@@ -342,7 +341,7 @@ def apply_stencil_sym_blocked(c_halo: torch.Tensor, v: torch.Tensor,
     if v.device.type == "cpu":
         return apply_stencil_sym_blocked_reference(c_halo, v, mask)
     out = _launch("apply_stencil_sym_blocked", "stencil_sym_blocked", c_halo,
-                  v, mask, sym=True, padded=True)
+                  v, mask, sym=True)
     apply_stencil_sym_blocked.launches += 1
     return out
 

@@ -99,9 +99,8 @@ def main() -> int:
     cases = [(name, *sh) for name, shapes in cs.STENCIL_SHAPES.items()
              for sh in shapes] + [(k3, *sh) for sh in cs.K3_SHAPES]
     for name, n, B, dtype in cases:
-        sym, padded = name != "apply_stencil", name == k3
         fns = {w: getattr(m, name) for w, m in versions.items()}
-        if padded:
+        if name == k3:
             (coefs, v, mask), _ = cs.blocked_shape_inputs(n, B, dtype, gen)
             moved, bound, _ = cs.k3_cost(n, n, B, v.element_size())
         else:
@@ -110,8 +109,8 @@ def main() -> int:
         ref = cs.bits(plain[name](coefs, v, mask))
         row = {"kernel": name, "shape": [n, n, B], "dtype": dtype,
                "bytes": moved, "bound_us": bound * 1e3,
-               "plan": stencil.launch_plan(n, n, B, v.dtype, sm, sym,
-                                           padded=padded).as_ints()}
+               "plan": stencil.launch_plan(n, n, B, v.dtype, sm,
+                                           name != "apply_stencil").as_ints()}
         for who, fn in fns.items():
             row[f"{who}_bit_equal"] = bool(torch.equal(
                 cs.bits(fn(coefs, v, mask)), ref))

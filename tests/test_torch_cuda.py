@@ -19,6 +19,12 @@ from generative_physics_informed_pde_tpu_torch.ops import (
     apply_stencil_sym_blocked, apply_stencil_sym_blocked_reference,
     apply_stencil_sym_reference, mask_blocked, pad_blocked,
     pad_coefs_blocked)
+from test_torch_stencil_blocked_plan import _chip_smoke
+from test_torch_stencil_blocked_plan import (
+    _blocked_inputs as _cpu_blocked_inputs)
+
+# Every padded (R, B, dtype) K3 is measured at.
+K3_SHAPES = _chip_smoke().K3_SHAPES
 
 
 def _need_cuda():
@@ -312,31 +318,10 @@ def test_every_loaded_geometry_is_bit_equal(dtype, form, monkeypatch):
 
 
 def _blocked_inputs(R, C, B, dtype, seed, hazards=False):
-    """K3's inputs on the card: padded coefficients (4, R, C, B) and v
-    (R, C, B) with a zero halo (as ``pad_coefs_blocked`` and
-    ``pad_blocked`` give them), +0 and -0 entries in v, and a 0/1 mask zero
-    on the halo.  With ``hazards`` the interior nodes next to the halo and
-    the halo itself carry +-inf, -0 and negative values in the coefficients
-    and v (the kernel assumes nothing of the halo's inputs)."""
-    rng = np.random.default_rng(seed)
-    c = np.zeros((4, R, C, B))
-    v = np.zeros((R, C, B))
-    c[:, 1:-1, 1:-1] = rng.standard_normal((4, R - 2, C - 2, B))
-    inner = rng.standard_normal((R - 2, C - 2, B))
-    inner[rng.random(inner.shape) < 0.2] = 0.0
-    inner[rng.random(inner.shape) < 0.1] = -0.0
-    v[1:-1, 1:-1] = inner
-    mask = np.zeros((R, C, 1))
-    mask[1:-1, 1:-1] = rng.random((R - 2, C - 2, 1)) < 0.8
-    if hazards:
-        ring = np.zeros((R, C), bool)
-        ring[[0, 1, -2, -1], :] = ring[:, [0, 1, -2, -1]] = True
-        for a in (*c, v):
-            pick = ring[..., None] & (rng.random((R, C, B)) < 0.3)
-            a[pick] = rng.choice([np.inf, -np.inf, -0.0, -2.5],
-                                 size=int(pick.sum()))
-    return tuple(torch.as_tensor(a, dtype=dtype, device="cuda")
-                 for a in (c, v, mask))
+    """K3's inputs on the card with a zero halo (see the CPU tests'
+    ``_blocked_inputs``)."""
+    return _cpu_blocked_inputs(R, C, B, dtype, seed, hazards, zero_halo=True,
+                               device="cuda")
 
 
 def _assert_blocked_bit_equal(c, v, mask, k2=True):
@@ -373,12 +358,14 @@ def test_blocked_kernel_bit_equal_at_tile_edges(R, C, B, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R,B", [(67, 1024), (131, 256), (259, 64),
-                                 (259, 128)])
-def test_blocked_kernel_bit_equal_at_roofline_shapes(R, B):
-    """The padded shapes of the JAX roofline benchmark's K3 chains, f32."""
+@pytest.mark.parametrize("R,B,dname", K3_SHAPES)
+def test_blocked_kernel_bit_equal_at_roofline_shapes(R, B, dname):
+    """Every shape K3 is measured at (``chip_smoke.K3_SHAPES``): the padded
+    shapes of the JAX roofline benchmark's K3 chains and the highres32
+    label shape in f32 and f64."""
     _need_cuda()
-    _assert_blocked_bit_equal(*_blocked_inputs(R, R, B, torch.float32, B))
+    _assert_blocked_bit_equal(*_blocked_inputs(R, R, B, getattr(torch, dname),
+                                               B))
 
 
 @pytest.mark.cuda
@@ -415,7 +402,7 @@ def test_blocked_kernel_every_loaded_geometry_is_bit_equal(dtype,
             monkeypatch.setattr(stencil, "_PLANS", {})
             for vv, aligned in ((v, True), (v_off, False)):
                 seen.add(stencil.launch_plan(R, C, B, dtype, sm, True,
-                                             aligned, padded=True))
+                                             aligned))
                 _assert_blocked_bit_equal(c, vv, mask, k2=False)
     assert len({p.tile_rows for p in seen}) >= 3, seen
     assert {p.vec > 1 for p in seen} == {False, True}
@@ -427,8 +414,7 @@ def test_blocked_kernel_refused_launch_raises(monkeypatch):
     the wrapper raises instead of returning an unwritten output."""
     _need_cuda()
     c, v, mask = _blocked_inputs(11, 11, 16, torch.float32, 1)
-    wrong = stencil.launch_plan(13, 11, 16, torch.float32, 132, True,
-                                padded=True)
+    wrong = stencil.launch_plan(13, 11, 16, torch.float32, 132, True)
     monkeypatch.setattr(stencil, "_PLANS", {})
     monkeypatch.setattr(stencil, "launch_plan", lambda *a, **k: wrong)
     before = apply_stencil_sym_blocked.launches

@@ -2,7 +2,7 @@
 on its launch plan, checked on the CPU.
 
 K3 runs K2's kernel body on the padded (R, C) = (Ny+2, Nx+2) grid with the
-geometry of ``launch_plan(R, C, B, dtype, sm, True, aligned, padded=True)``.
+geometry of K2's form, ``launch_plan(R, C, B, dtype, sm, True, aligned)``.
 The CUDA kernel runs only on a card (``tests/test_torch_cuda.py``); here
 the plan is checked to cover every padded output once, the halo included,
 and what the kernel does per work item is mirrored in PyTorch: halo nodes
@@ -14,8 +14,10 @@ and negative values on the interior nodes next to the halo and on the
 halo itself.
 """
 
+import importlib.util
 import itertools
 import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -26,17 +28,28 @@ from generative_physics_informed_pde_tpu_torch.ops.stencil import (
     apply_stencil_sym_blocked_reference, launch_plan)
 from test_torch_stencil_plan import _bits, _items, _thread_nodes
 
-# Padded (R, B) of every shape K3 is measured at: the highres32 label shape
-# and the JAX roofline benchmark's n = 64, 128, 256 chains
-# (benchmarks/stencil_roofline.py).
-K3_SHAPES = ((35, 1024), (67, 1024), (131, 256), (259, 64), (259, 128))
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (importing it runs nothing)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# Padded (R, B) of every shape K3 is measured at (``chip_smoke.K3_SHAPES``:
+# the highres32 label shape and the JAX roofline benchmark's chains), each
+# checked here in both dtypes.
+K3_SHAPES = tuple(dict.fromkeys((R, B) for R, B, _ in
+                                _chip_smoke().K3_SHAPES))
 DTYPES = (torch.float32, torch.float64)
 _DIRS = ((1, 0), (0, 1), (1, 1))
 
 
 def _check_plan(R, C, B, dtype, sm, aligned):
     item = torch.empty((), dtype=dtype).element_size()
-    p = launch_plan(R, C, B, dtype, sm, True, aligned, padded=True)
+    p = launch_plan(R, C, B, dtype, sm, True, aligned)
     where = f"{(R, C, B)} {dtype} sm={sm} aligned={aligned}: {p}"
     assert p.vec == (16 // item if aligned and (B * item) % 16 == 0 else 1), \
         where
@@ -85,16 +98,14 @@ def test_blocked_plan_at_odd_batches_takes_the_scalar_path(R, C, B, dtype):
         assert p.vec == 1
 
 
-def test_blocked_plan_is_its_own_form():
-    """K3's plan comes from its own entry of the geometry table (today
-    equal to K2's) and is cached per shape; a grid too small for two blocks
-    an SM gets smaller tiles."""
-    k3 = launch_plan(35, 35, 1024, torch.float32, 132, True, padded=True)
-    assert k3 is launch_plan(35, 35, 1024, torch.float32, 132, True,
-                             padded=True)
-    assert k3 == launch_plan(35, 35, 1024, torch.float32, 132, True)
+def test_blocked_plan_is_k2s_form():
+    """K3 takes K2's form of the plan on the padded sizes, cached per
+    shape: 8 x 8 tiles of one line with 16-byte loads at (35, 35, 1024)
+    f32; a grid too small for two blocks an SM gets smaller tiles."""
+    k3 = launch_plan(35, 35, 1024, torch.float32, 132, True)
+    assert k3 is launch_plan(35, 35, 1024, torch.float32, 132, True)
     assert (k3.tile_rows, k3.tile_cols, k3.chunk, k3.vec) == (8, 8, 32, 4)
-    small = launch_plan(6, 6, 64, torch.float64, 132, True, padded=True)
+    small = launch_plan(6, 6, 64, torch.float64, 132, True)
     assert small.tile_rows < 8 and small.vec == 2
 
 
@@ -128,16 +139,22 @@ def _mirror(plan, c, v, mask):
     return out
 
 
-def _blocked_inputs(R, C, B, dtype, seed, hazards):
-    """Padded c (4, R, C, B), v (R, C, B) with +0 and -0 entries and a 0/1
-    mask zero on the halo; with ``hazards`` the interior nodes next to the
-    halo and the halo itself carry +-inf, -0 and negative values in the
-    coefficients and v."""
+def _blocked_inputs(R, C, B, dtype, seed, hazards=False, zero_halo=False,
+                    device="cpu"):
+    """K3's inputs: padded c (4, R, C, B), v (R, C, B) with +0 and -0
+    entries and a 0/1 mask zero on the halo.  ``zero_halo``: c and v are
+    zero on the halo, as ``pad_coefs_blocked`` and ``pad_blocked`` give
+    them (else random there: the kernel assumes nothing of the halo's
+    inputs).  With ``hazards`` the interior nodes next to the halo and the
+    halo itself carry +-inf, -0 and negative values in c and v."""
     rng = np.random.default_rng(seed)
     c = rng.standard_normal((4, R, C, B))
     v = rng.standard_normal((R, C, B))
     v[rng.random(v.shape) < 0.2] = 0.0
     v[rng.random(v.shape) < 0.1] = -0.0
+    if zero_halo:
+        for a in (*c, v):
+            a[[0, -1]] = a[:, [0, -1]] = 0.0
     mask = np.zeros((R, C, 1))
     mask[1:-1, 1:-1] = rng.random((R - 2, C - 2, 1)) < 0.8
     if hazards:
@@ -147,7 +164,8 @@ def _blocked_inputs(R, C, B, dtype, seed, hazards):
             pick = ring[..., None] & (rng.random((R, C, B)) < 0.3)
             a[pick] = rng.choice([np.inf, -np.inf, -0.0, -2.5],
                                  size=int(pick.sum()))
-    return tuple(torch.as_tensor(a, dtype=dtype) for a in (c, v, mask))
+    return tuple(torch.as_tensor(a, dtype=dtype, device=device)
+                 for a in (c, v, mask))
 
 
 @pytest.mark.parametrize("hazards", [False, True])
@@ -159,7 +177,7 @@ def test_blocked_tiled_algorithm_equals_the_plain_version_bit_for_bit(
         c, v, mask = _blocked_inputs(R, C, B, dtype, R * 100 + B, hazards)
         ref = apply_stencil_sym_blocked_reference(c, v, mask)
         for sm in (1, 132):
-            p = launch_plan(R, C, B, dtype, sm, True, padded=True)
+            p = launch_plan(R, C, B, dtype, sm, True)
             got = _mirror(p, c, v, mask)
             assert torch.equal(_bits(got), _bits(ref)), (R, C, B, p)
         # the output halo is +0 exactly, whatever the halo's inputs
