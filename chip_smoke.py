@@ -13,7 +13,12 @@ its implicit-function VJP in both forms, and train the highres32 recipe
 for 200 SVI steps (128 labeled pairs labeled through K1, 1024 unlabeled
 fields from the port's random field, normals drawn on the host from a
 seeded generator and coloured on the card), then serve the
-trained surrogate.  Then the halo-padded symmetric apply
+trained surrogate.  Then the same recipe with virtual observables
+(``examples/train_highres32.py --vo``: 128 VO fields from the labeled pool,
+the constrain spec CGR + flux + 8 Gaussian + 8 RBF test functions), whose
+constraint assembly runs K1 once per test column over the 128 fields, for
+200 SVI steps with three refreshes, and one update of the energy arm,
+whose subspace iteration runs on K1 too.  Then the halo-padded symmetric apply
 ``ops/csrc/stencil_sym_blocked.cu`` (K3) is held bit for bit against its
 plain version and K2 and timed beside K2 at the padded shapes the JAX
 package's roofline benchmark chains it at, and runs chained in its own
@@ -31,9 +36,11 @@ read from the same counts.  All three kernels are built from the sources
 PyTorch versions on the card; the labels are checked against residuals
 recomputed with the plain apply, f64 solves and a dense direct solve, the
 gradients against the plain path, a Jacobi-preconditioned solve and
-finite differences, and the training against the recipe's expectations
+finite differences, the training against the recipe's expectations
 and CPU runs of three f64 steps with the same draws (dropout masks
-included).  Every phase raises
+included), the virtual observables' stencil applies against the plain
+path, their constraints against the labels, and a refresh and three f64
+steps across one against the CPU.  Every phase raises
 on failure, so the script exits non-zero and never prints its last line.
 Imports torch, numpy, the standard library and the port only.
 
@@ -114,16 +121,32 @@ MG_JACOBI_RTOL = 1e-8
 # The ELBO's terms reported over the 'highres' training run.
 HR_TERMS = ("elbo", "ARM_unsupervised_DKL_z", "ARM_unsupervised_logL_x",
             "supervised_logL_x", "supervised_elbo")
+# Virtual observables (phase 4c).  The example refreshes every 250 steps
+# from step 250; cut to 50 here so that three refreshes fall inside the
+# 200 steps.  At the labels the CGR, Gaussian and RBF constraints hold to
+# the solve's precision, ||Gamma y - alpha|| / (||Gamma|| ||y||) per sample
+# and family; the flux constraints are one-sided and approximate, held to
+# the JAX test's bound (tests/test_constraints.py:96-107).  A refresh on
+# the card vs the CPU with the same draws, f64.  The energy arm at a small
+# temperature from a weak prior approaches the labels (rel-L2, the bound of
+# tests/test_constraints.py:420-435).
+VO_CADENCE = 50
+VO_LABEL_RTOL = {"float64": 1e-10, "float32": F32_FLOOR}
+VO_FLUX_BOUND = 0.5
+VO_CPU_RTOL = 1e-10
+ENERGY_T, ENERGY_PREC, ENERGY_BOUND = 1e-4, 1e-6, 0.2
 # Every shape (nodes a side, B, dtype) the main paths launch K1 and K2 at:
 # the highres32 label solve (f32), its VJP (f64) and training labels (f64,
-# B=256); the five V-cycle levels of the 'highres' MG solve (f32, f64 at
+# B=256); the VO constraint assembly (f32, B=128) and the energy arm (f64,
+# B=128); the five V-cycle levels of the 'highres' MG solve (f32, f64 at
 # B=2048), of its VJP and of its training labels (f64, B=256).  Phase 8
 # derives each shape's launches from the paths' iteration counts and holds
 # this list to them.
 MG_NODES = (65, 33, 17, 9, 5)
 STENCIL_SHAPES = {
     "apply_stencil": sorted({(33, 1024, "float32"), (33, 1024, "float64"),
-                             (33, 256, "float64")}
+                             (33, 256, "float64"), (33, 128, "float32"),
+                             (33, 128, "float64")}
                             | {(n, B, d) for n in MG_NODES
                                for B, d in ((2048, "float32"),
                                             (2048, "float64"),
@@ -291,13 +314,13 @@ def true_residual(fom, Y, alphas, vals, apply_plain):
 
 
 class plain_applies:
-    """Route the batched solver's stencil applies (both forms) and the
-    V-cycle's through their plain PyTorch versions for the duration of a
-    ``with`` block."""
+    """Route the batched solver's stencil applies (both forms), the
+    V-cycle's and ``fem.assembly``'s (the virtual observables') through
+    their plain PyTorch versions for the duration of a ``with`` block."""
 
     def __enter__(self):
         from generative_physics_informed_pde_tpu_torch.fem import (
-            batched_solver, multigrid)
+            assembly, batched_solver, multigrid)
         from generative_physics_informed_pde_tpu_torch.ops import (
             apply_stencil_reference, apply_stencil_sym_reference)
 
@@ -305,7 +328,8 @@ class plain_applies:
                          apply_stencil_reference),
                         (batched_solver, "apply_stencil_sym",
                          apply_stencil_sym_reference),
-                        (multigrid, "apply_stencil", apply_stencil_reference))
+                        (multigrid, "apply_stencil", apply_stencil_reference),
+                        (assembly, "apply_stencil", apply_stencil_reference))
         self.saved = [getattr(m, n) for m, n, _ in self.targets]
         for m, n, f in self.targets:
             setattr(m, n, f)
@@ -318,10 +342,11 @@ class plain_applies:
 
 class injected_draws:
     """Replace the port's samplers (posterior draws, reparametrised draws,
-    minibatch indices, channel-dropout masks) with numpy draws from
-    ``seed`` in call order, on the device of the tensors they feed, for a
-    ``with`` block: two blocks with one seed give a CPU and a card run the
-    same randomness."""
+    minibatch indices, channel-dropout masks, the virtual observables'
+    propagation draws and test functions) with numpy draws from ``seed`` in
+    call order, on the device of the tensors they feed, for a ``with``
+    block: two blocks with one seed give a CPU and a card run the same
+    randomness."""
 
     def __init__(self, seed: int):
         self.seed = seed
@@ -329,10 +354,12 @@ class injected_draws:
     def __enter__(self):
         import numpy as np
         import torch
+        from generative_physics_informed_pde_tpu_torch.constraints import \
+            virtual_observables
         from generative_physics_informed_pde_tpu_torch.inference import \
             variational
         from generative_physics_informed_pde_tpu_torch.models import (
-            codec, generative)
+            codec, components, generative)
         from generative_physics_informed_pde_tpu_torch.training import \
             trainer
 
@@ -345,6 +372,18 @@ class injected_draws:
         def sample(params, generator=None):
             return params["mean"] + torch.exp(params["logsigma"]) \
                 * normal(params["logsigma"])
+
+        def sample_all_components(params, generator, n):
+            mean = params["mean"][:, None, :]
+            logsigma = params["logsigma"][:, None, :]
+            return mean + torch.exp(logsigma) * normal(
+                logsigma.expand(-1, n, -1))
+
+        def draws(fn):
+            def draw(shape, generator, dtype, device):
+                return torch.as_tensor(fn(tuple(shape)), dtype=dtype,
+                                       device=device)
+            return draw
 
         def reparametrize(generator, mean, logsigma):
             return mean + torch.exp(logsigma) * normal(logsigma)
@@ -360,9 +399,16 @@ class injected_draws:
                                    device=device).reshape(n, c, 1, 1)
 
         self.targets = ((variational, "sample", sample),
+                        (variational, "sample_all_components",
+                         sample_all_components),
                         (generative, "reparametrize", reparametrize),
+                        (components, "reparametrize", reparametrize),
                         (trainer, "minibatch_indices", minibatch_indices),
-                        (codec, "dropout_mask", dropout_mask))
+                        (codec, "dropout_mask", dropout_mask),
+                        (virtual_observables, "sketch_normals",
+                         draws(rng.standard_normal)),
+                        (virtual_observables, "rbf_uniforms",
+                         draws(rng.random)))
         self.saved = [getattr(m, n) for m, n, _ in self.targets]
         for m, n, f in self.targets:
             setattr(m, n, f)
@@ -373,10 +419,13 @@ class injected_draws:
             setattr(m, n, f)
 
 
-def recipe_params(dtype: str = "float32"):
-    """The highres32 recipe of examples/train_highres32.py (no virtual
-    observables), with the pool cut to 128 labeled + 128 validation pairs
-    and 1024 unlabeled fields."""
+def recipe_params(dtype: str = "float32", vo: bool = False):
+    """The highres32 recipe of examples/train_highres32.py, ``vo`` its
+    ``--vo`` arm: the labeled pool of 384 partitioned into 128 supervised,
+    128 VO and 128 validation fields as the example does, 1024 unlabeled
+    fields (the example draws 2048 and uses 1024)."""
+    from generative_physics_informed_pde_tpu_torch.constraints import (
+        vo_spec_preset)
     from generative_physics_informed_pde_tpu_torch.training import (
         TrainerParameters)
 
@@ -386,11 +435,30 @@ def recipe_params(dtype: str = "float32"):
     p.trainer.update(lr_init=1e-2, N_PE_updates=3, N_PE_interval=8,
                      N_monte_carlo_analysis=64,
                      N_monte_carlo_analysis_final=1024,
-                     N_monitor_interval=100, N_PE_updates_final=250)
+                     N_monitor_interval=100, N_PE_updates_final=250,
+                     N_vo_update_interval=250, N_vo_holdoff=250,
+                     N_monte_carlo_vo=128)
     p.scheduler = {"milestones": [250, 1500], "factor": 0.1 ** 0.5}
-    p.data.update(N_u=1024, N_s=128, N_u_max=1024, N_s_max=128, N_val=128,
-                  armortized_bs=64)
+    p.data.update(N_u=1024, N_s=128, N_u_max=1024, N_s_max=128,
+                  N_vo_max=128, N_vo=128 if vo else 0, N_val=128,
+                  armortized_bs=64,
+                  vo_spec=vo_spec_preset("constrain") if vo else {})
     return p
+
+
+def event_ms(fn, runs=3):
+    """Median CUDA-event time of ``fn`` over ``runs`` calls."""
+    import torch
+
+    out = []
+    for _ in range(runs):
+        t_s, t_e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t_s.record()
+        fn()
+        t_e.record()
+        torch.cuda.synchronize()
+        out.append(t_s.elapsed_time(t_e))
+    return sorted(out)[len(out) // 2]
 
 
 def highres_recipe_params(dtype: str = "float32"):
@@ -494,6 +562,9 @@ def main() -> int:
     import numpy as np
 
     from generative_physics_informed_pde_tpu_torch import fem
+    from generative_physics_informed_pde_tpu_torch.constraints import (
+        FluxConstrainSampler, QuerryPointEnsemble,
+        build_virtual_observables_ensemble, vo_spec_preset)
     from generative_physics_informed_pde_tpu_torch.factories import highres32
     from generative_physics_informed_pde_tpu_torch.data import DataLoader
     from generative_physics_informed_pde_tpu_torch.factories.data import (
@@ -788,18 +859,17 @@ def main() -> int:
     say(f"phase 4b: highres32 SVI training, {SVI_STEPS} steps f32")
     start_path()
     t0 = time.perf_counter()
-    dl = DataLoader(X[:256])
+    dl = DataLoader(X[:384])
     dlu = DataFactory.FromIdentifier("highres32").unlabeled(
         1024, torch.Generator().manual_seed(1), device="cuda")
     trainer = CreateTrainer(recipe_params(), dl, dlu, device="cuda")
-    train_label_iters = trainer.physics["fom"].last_iterations
     setup_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     trainer.run(SVI_STEPS, verbose=False)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     bundle_t = trainer.export_surrogate()
-    served_t = bundle_t.predict(X[256:320], F_rom[256:320])
+    served_t = bundle_t.predict(X[384:448], F_rom[384:448])
     train_counts = end_path("4b train + serve")
     elbos = trainer.elbos()
     res = trainer.results()
@@ -855,6 +925,254 @@ def main() -> int:
         raise AssertionError("f64 SVI steps on the card differ from the "
                              "CPU")
 
+    # ------------------- 4c. virtual observables: the recipe's --vo arm
+    say("phase 4c: virtual observables (examples/train_highres32.py --vo)")
+    if torch.backends.cuda.matmul.allow_tf32 \
+            or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("TF32 matmuls are on: the VO einsums run in "
+                             "full f32 (the JAX package's HIGHEST)")
+
+    def labeled_pool():
+        """A loader over 4b's labeled pool: the labels are solved once."""
+        return DataLoader(dl.X, X_DG=dl.X_DG, Y=dl.Y, BCE=dl.BCE,
+                          F_ROM_BC=dl.F_ROM_BC)
+
+    p_vo = recipe_params(vo=True)
+    # cut from the example's 250: three refreshes (steps 50, 100, 150)
+    # fall inside the 200 steps
+    p_vo.trainer.update(N_vo_holdoff=VO_CADENCE,
+                        N_vo_update_interval=VO_CADENCE)
+    dlu_vo = DataLoader(dlu.X)
+    dlu_vo.lock_physics_assembly()
+    start_path()
+    t0 = time.perf_counter()
+    tr_vo = CreateTrainer(p_vo, labeled_pool(), dlu_vo, device="cuda")
+    setup_vo_s = time.perf_counter() - t0
+    refreshes, vo_elbos = [], []
+    step_vo, refresh_vo = tr_vo.step, tr_vo.update_virtual_observables
+
+    def logged_vo_step():
+        logs = step_vo()
+        vo_elbos.append(logs["vo_elbo"])
+        return logs
+
+    def counted_refresh(step):
+        refreshes.append(step)
+        return refresh_vo(step)
+
+    tr_vo.step, tr_vo.update_virtual_observables = (logged_vo_step,
+                                                    counted_refresh)
+    t_s, t_e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t_s.record()
+    tr_vo.run(SVI_STEPS, verbose=False)
+    t_e.record()
+    vo_train_counts = end_path("4c VO train")
+    tr_vo.step, tr_vo.update_virtual_observables = step_vo, refresh_vo
+    run_vo_s = t_s.elapsed_time(t_e) / 1e3
+    vo_samplers = tr_vo.VO.sampler.samplers
+    # per assembly: one K1 launch per test column of CGR, Gaussian and
+    # RBF and one effective force each; flux is assembled without K1
+    k1_per_assembly = sum(s.m + 1 for s in vo_samplers
+                          if not isinstance(s, FluxConstrainSampler))
+    elbos_vo = tr_vo.elbos()
+    vo_elbos = torch.stack(vo_elbos).double().cpu()
+    res_vo = tr_vo.results()
+    mean_vars = [v for _, v in tr_vo.writer.scalars.get(
+        "Monitor/Mean_VO_variances", [])]
+    failures = tr_vo.writer.scalars.get("Monitor/VO_conditioning_failures",
+                                        [])
+    say(f"  set-up {setup_vo_s:.2f} s (m = {tr_vo.VO.m} constraints: "
+        f"{[(type(s).__name__, s.m) for s in vo_samplers]}); "
+        f"{SVI_STEPS} steps + final refinement {run_vo_s:.2f} s; refreshes "
+        f"at {refreshes}; launches {vo_train_counts} ({k1_per_assembly} K1 "
+        "per assembly)")
+    first, last = elbos_vo[:20].mean().item(), elbos_vo[-20:].mean().item()
+    say(f"  ELBO mean steps 0-19 {first:.6g}, steps {SVI_STEPS - 20}-"
+        f"{SVI_STEPS - 1} {last:.6g}; vo_elbo step 0 "
+        f"{vo_elbos[0].item():.6g}, last {vo_elbos[-1].item():.6g}; "
+        f"Mean_VO_variances {mean_vars}; conditioning failures "
+        f"{failures}; results {res_vo}")
+    if refreshes != [VO_CADENCE * k for k in (1, 2, 3)]:
+        raise AssertionError(f"VO refreshed at {refreshes}")
+    if vo_train_counts["apply_stencil"] != k1_per_assembly \
+            * (1 + len(refreshes)):
+        raise AssertionError(f"the VO path launched K1 "
+                             f"{vo_train_counts['apply_stencil']} times")
+    if elbos_vo.shape != (SVI_STEPS,) \
+            or not bool(torch.isfinite(elbos_vo).all()) \
+            or not bool(torch.isfinite(vo_elbos).all()) or not last > first:
+        raise AssertionError("the VO run's ELBO or vo_elbo is not finite "
+                             "and rising")
+    if failures or not mean_vars or not np.isfinite(mean_vars).all():
+        raise AssertionError(f"VO conditioning failures {failures}, "
+                             f"Mean_VO_variances {mean_vars}")
+    if not all(np.isfinite(res_vo[k]) for k in ("relerr_y", "r2_y",
+                                                "logscore_y")):
+        raise AssertionError(f"VO results() not finite: {res_vo}")
+
+    say("  K1 vs plain path at the VO shapes (apply_coeff, apply_Kff, "
+        "effective_force)")
+    fom_vo = tr_vo.physics["fom"]
+    ds_vo = tr_vo.datasets["vo"]
+    vgen = torch.Generator(device="cuda").manual_seed(9)
+    worst = 0.0
+    for dt in (torch.float32, torch.float64):
+        qpe = QuerryPointEnsemble(
+            fom_vo, ds_vo.get("X_DG").to(dt),
+            torch.as_tensor(ds_vo.get("BCE").constrained_values("fom"),
+                            dtype=dt, device="cuda"))
+        V = torch.randn(qpe.N, qpe.dim_out, tr_vo.VO.m, generator=vgen,
+                        device="cuda", dtype=dt)
+        grids = fom_vo.op.to_nodegrid(torch.randn(
+            qpe.N, fom_vo.grid.n_nodes, generator=vgen, device="cuda",
+            dtype=dt))
+        coefs = fom_vo.op.coefficients(qpe.alpha)
+
+        def vo_applies():
+            return (fom_vo.op.apply_coeff(coefs, grids), qpe.apply_Kff(V),
+                    fom_vo.effective_force(qpe.alpha, qpe.bc_values))
+
+        before = apply_stencil.launches
+        got = vo_applies()
+        n_k1 = apply_stencil.launches - before
+        with plain_applies():
+            ref = vo_applies()
+        if apply_stencil.launches != before + n_k1 or n_k1 != 2 + V.shape[2]:
+            raise AssertionError(f"VO applies launched K1 {n_k1} times")
+        for what, a, b in zip(("apply_coeff", "apply_Kff",
+                               "effective_force"), got, ref):
+            err = rel_diff(a, b)
+            worst = max(worst, (a - b).abs().max().item())
+            say(f"    {what} {tuple(a.shape)} {dt}: bit-equal "
+                f"{torch.equal(bits(a), bits(b))}, max rel {err:.3e} "
+                f"(tolerance {KERNEL_RTOL[str(dt).split('.')[-1]]:g})")
+            if not torch.equal(bits(a), bits(b)):
+                raise AssertionError(f"{what} on K1 differs from the plain "
+                                     f"path at {dt}")
+    errors["apply_stencil"] = (max(errors["apply_stencil"][0], worst),
+                               errors["apply_stencil"][1])
+
+    say("  constraints at the FOM labels of the VO chunk")
+    Y_vo64 = torch.as_tensor(dl.Y[ds_vo.indices], device="cuda")
+    X_DG_vo = ds_vo.get("X_DG")
+    bc_vo = torch.as_tensor(ds_vo.get("BCE").constrained_values("fom"),
+                            device="cuda")
+    Y_vo32 = fom_vo.solve_batched(torch.exp(X_DG_vo).float(), bc_vo.float())
+    spec = recipe_params(vo=True).data["vo_spec"]
+    for dname, Y_lab in (("float64", Y_vo64), ("float32", Y_vo32)):
+        vo_chk = build_virtual_observables_ensemble(
+            spec, ds_vo, tr_vo.physics, dtype=getattr(torch, dname))
+        G, a = vo_chk.Gamma, vo_chk.alpha
+        r = (G @ Y_lab[..., None])[..., 0] - a
+        lo = 0
+        for s in vo_chk.sampler.samplers:
+            rs, Gs = r[:, lo:lo + s.m], G[:, lo:lo + s.m]
+            lo += s.m
+            if isinstance(s, FluxConstrainSampler):
+                val = (rs.abs().max() / Gs.abs().sum(-1).mean()).item()
+                bound = VO_FLUX_BOUND
+            else:
+                val = (rs.norm(dim=1) / (Gs.norm(dim=(1, 2))
+                                         * Y_lab.norm(dim=1))).max().item()
+                bound = VO_LABEL_RTOL[dname]
+            say(f"    {dname} {type(s).__name__} ({s.m}): {val:.3e} "
+                f"(bound {bound:g})")
+            if not val <= bound:
+                raise AssertionError(f"{type(s).__name__} constraints do "
+                                     f"not hold at the {dname} labels")
+
+    say("  one constrain refresh, card vs CPU, f64, same draws (twice: the "
+        "second learns the precision)")
+    phys_cpu = fem.make_fom_rom_pair("NDP", 4, 4, 3, device="cpu")
+
+    class VOChunk:
+        def __init__(self, device):
+            self.device = device
+
+        def get(self, key):
+            return (X_DG_vo.to(self.device) if key == "X_DG"
+                    else ds_vo.get(key))
+
+    with torch.no_grad():
+        Y_mean, Y_std = tr_vo.model.propagate_vo_moments(
+            tr_vo._data_vo, tr_vo.vo_generator, p_vo.trainer[
+                "N_monte_carlo_vo"])
+    moments = {}
+    for run, device, phys in (("card", "cuda", tr_vo.physics),
+                              ("cpu", "cpu", phys_cpu)):
+        with injected_draws(13):
+            ens = build_virtual_observables_ensemble(
+                spec, VOChunk(device), phys, dtype=torch.float64)
+            for it in range(2):
+                ens.resample(torch.Generator(device))
+                ens.update(Y_mean.double().to(device),
+                           (1.0 / Y_std ** 2).double().to(device), it)
+        moments[run] = (ens.mean.cpu(), ens.vars.cpu(),
+                        ens.vo_variances.cpu())
+    err = max(rel_diff(a, b) for a, b in zip(moments["card"],
+                                               moments["cpu"]))
+    say(f"    mean, vars, vo_variances: max rel {err:.3e} (tolerance "
+        f"{VO_CPU_RTOL:g})")
+    if not err <= VO_CPU_RTOL:
+        raise AssertionError("a VO refresh on the card differs from the CPU")
+
+    say("  3 f64 SVI steps across a VO refresh (holdoff 1, interval 2), "
+        "card vs CPU, same draws")
+    elbo3, vo3, state = {}, {}, None
+    for run, device in (("card", "cuda"), ("cpu", "cpu")):
+        p64 = recipe_params("float64", vo=True)
+        p64.trainer.update(N_monitor_interval=0, N_PE_updates_final=0,
+                           N_vo_holdoff=1, N_vo_update_interval=2)
+        dlu3 = DataLoader(dlu.X)
+        dlu3.lock_physics_assembly()
+        tr = CreateTrainer(p64, labeled_pool(), dlu3, device=device)
+        if state is None:
+            state = {k: v.detach().cpu().clone()
+                     for k, v in tr.model.state_dict().items()}
+        else:
+            tr.model.load_state_dict(state)
+        with injected_draws(14):
+            for _ in range(3):
+                tr.step()
+        elbo3[run], vo3[run] = tr.elbos().double(), tr.VO.mean.cpu()
+    err = ((elbo3["card"] - elbo3["cpu"]).abs()
+           / elbo3["cpu"].abs()).max().item()
+    err_vo = rel_diff(vo3["card"], vo3["cpu"])
+    say(f"    ELBOs card {elbo3['card'].tolist()} vs CPU "
+        f"{elbo3['cpu'].tolist()}: max rel {err:.3e}; VO mean max rel "
+        f"{err_vo:.3e} (tolerance {SVI_CPU_RTOL:g})")
+    if not max(err, err_vo) <= SVI_CPU_RTOL:
+        raise AssertionError("f64 VO SVI steps on the card differ from the "
+                             "CPU")
+
+    say("  energy arm (vo_spec_preset('energy')): one update, f64, "
+        f"T = {ENERGY_T:g}, weak prior")
+    spec_e = vo_spec_preset("energy", T_iterations=SVI_STEPS)
+    vo_e = build_virtual_observables_ensemble(spec_e, ds_vo, tr_vo.physics,
+                                              dtype=torch.float64)
+    vo_e.force_temperature(ENERGY_T)
+    G0 = torch.zeros_like(Y_vo64)
+    start_path()
+    t_s, t_e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t_s.record()
+    vo_e.update(G0, torch.full_like(G0, ENERGY_PREC), 0)
+    t_e.record()
+    energy_counts = end_path("4c energy update")
+    energy_ms = t_s.elapsed_time(t_e)
+    n_it, n_rbf = (spec_e["energy_num_iterations_per_update"],
+                   spec_e["N_rbf"])
+    energy_dist = ((vo_e.mean - Y_vo64).norm() / Y_vo64.norm()).item()
+    say(f"    {energy_ms:.2f} ms, launches {energy_counts} ({n_it} "
+        f"iterations x ({n_rbf} + 1) + 1 effective force); mean vs labels "
+        f"rel-L2 {energy_dist:.4f} (the prior's 1.0; bound "
+        f"{ENERGY_BOUND:g})")
+    if energy_counts["apply_stencil"] != n_it * (n_rbf + 1) + 1:
+        raise AssertionError("the energy update launched K1 "
+                             f"{energy_counts['apply_stencil']} times")
+    if not (bool(torch.isfinite(vo_e.mean).all())
+            and energy_dist < ENERGY_BOUND):
+        raise AssertionError("the energy arm's mean is not near the labels")
+
     # ----------------------------------------------------------- 5. times
     say("phase 5: timings (CUDA events, after warm-up)")
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
@@ -883,19 +1201,6 @@ def main() -> int:
     say(f"  launches per label solve: {iters + 1} (K1) / {iters_sym + 1} "
         f"(K2): 1 rhs + one per PCG iteration; per VJP: "
         f"{vjp_iters[False] + 1} (K1) / {vjp_iters[True] + 1} (K2)")
-
-    def event_ms(fn, runs=3):
-        """Median CUDA-event time of ``fn`` over ``runs`` calls."""
-        out = []
-        for _ in range(runs):
-            t_s, t_e = (torch.cuda.Event(enable_timing=True)
-                        for _ in range(2))
-            t_s.record()
-            fn()
-            t_e.record()
-            torch.cuda.synchronize()
-            out.append(t_s.elapsed_time(t_e))
-        return sorted(out)[len(out) // 2]
 
     label_ms = event_ms(lambda: fom.solve_batched(alphas, vals))
     sym_ms = event_ms(lambda: sym_solve(alphas, vals))
@@ -948,6 +1253,45 @@ def main() -> int:
         f"{steps_per_s:.2f} steps/s over 100 steps")
     busy_svi = report_profile("100 SVI steps", lambda: svi_steps(100),
                               svi_wall_ms)
+    say("  VO (phase 4c's trainer): SVI steps, one refresh and its parts")
+
+    def vo_steps(n):
+        for _ in range(n):
+            tr_vo.step()
+
+    vo_steps(5)
+    t_s, t_e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    gn0 = tr_vo.gn
+    t_s.record()
+    vo_steps(100)
+    t_e.record()
+    torch.cuda.synchronize()
+    vo_step_ms = t_s.elapsed_time(t_e) / 100
+    n_ref = sum(1 for g in range(gn0, gn0 + 100) if g % VO_CADENCE == 0)
+    say(f"    {1e3 / vo_step_ms:.2f} SVI steps/s with VO over 100 steps "
+        f"({n_ref} refreshes among them; CUDA events)")
+    n_mc = p_vo.trainer["N_monte_carlo_vo"]
+    with torch.no_grad():
+        prop_ms = event_ms(lambda: tr_vo.model.propagate_vo_moments(
+            tr_vo._data_vo, tr_vo.vo_generator, n_mc))
+        Y_mean, Y_std = tr_vo.model.propagate_vo_moments(
+            tr_vo._data_vo, tr_vo.vo_generator, n_mc)
+        before = apply_stencil.launches
+        resample_ms = event_ms(lambda: tr_vo.VO.resample(tr_vo.vo_generator))
+        k1_per_refresh = (apply_stencil.launches - before) // 3
+        cond_ms = event_ms(lambda: tr_vo.VO.update(
+            Y_mean, 1.0 / Y_std ** 2, tr_vo.gn))
+    refresh_ms = event_ms(lambda: tr_vo.update_virtual_observables(
+        tr_vo.gn))
+    say(f"    refresh {refresh_ms:.2f} ms: propagation ({tr_vo.VO.N} x "
+        f"{n_mc} ROM solves) {prop_ms:.2f} ms, resampling ({k1_per_refresh} "
+        f"K1 launches) {resample_ms:.2f} ms, conditioning {cond_ms:.2f} ms "
+        "(median of 3)")
+    if k1_per_refresh != k1_per_assembly:
+        raise AssertionError(f"a resample launched K1 {k1_per_refresh} times")
+    busy_vo_svi = report_profile(f"100 VO SVI steps ({n_ref} refreshes)",
+                                 lambda: vo_steps(100), 100 * vo_step_ms)
+
 
     predict_ms = {}
     for b in bundle.buckets:
@@ -1364,9 +1708,18 @@ def main() -> int:
     for sym, (kf, ka) in vjp_solves.items():
         derived.append((f"3c VJP sym={sym}", "apply_stencil_sym" if sym
                         else "apply_stencil", 33, N, "float64", kf + ka + 2))
-    # the recipes' labeled pairs are one label dispatch of the pool
-    derived.append(("4b train + serve", "apply_stencil", 33, len(dl.X),
-                    "float64", train_label_iters + 1))
+    # the recipe's labeled pool is labeled in the loader's dispatches of
+    # 256 fields (the last one padded)
+    for k in dl.label_iterations:
+        derived.append(("4b train + serve", "apply_stencil", 33, 256,
+                        "float64", k + 1))
+    # the VO path: one constraint assembly at set-up and one per refresh;
+    # the energy arm: per iteration its RBF columns and the iterate, and
+    # one effective force
+    derived.append(("4c VO train", "apply_stencil", 33, tr_vo.VO.N,
+                    "float32", k1_per_assembly * (1 + len(refreshes))))
+    derived.append(("4c energy update", "apply_stencil", 33, tr_vo.VO.N,
+                    "float64", n_it * (n_rbf + 1) + 1))
     mg_solves = [(f"7 highres labels {d}", X_hr.shape[0],
                   str(d).split(".")[-1], hr[d]["iterations"]) for d in hr]
     mg_solves += [("7b MG VJP", HR_VJP_B, "float64", mg_solver.iterations),
@@ -1478,7 +1831,13 @@ def main() -> int:
               "launches_per_vjp": mg_vjp_launches,
               "label_solve_ms": hr_ms, "jacobi_label_solve_ms": jac_ms,
               "jacobi_iterations": jac_hr.iterations,
-              "vjp_ms": mg_vjp_ms, "label_solve_busy_share": busy_hr}}),
+              "vjp_ms": mg_vjp_ms, "label_solve_busy_share": busy_hr},
+          "vo": {
+              "launches_per_refresh": k1_per_assembly,
+              "refresh_ms": refresh_ms, "propagation_ms": prop_ms,
+              "resample_ms": resample_ms, "conditioning_ms": cond_ms,
+              "energy_update_launches": energy_counts["apply_stencil"],
+              "energy_update_ms": energy_ms}}),
         ("apply_stencil_sym", "stencil_sym.cu", f"{tpu}:129",
          "_make_sym_kernel",
          {"launches_per_label_solve": iters_sym + 1,
@@ -1515,6 +1874,9 @@ def main() -> int:
             "svi": {"steps_per_s": steps_per_s, "busy_share": busy_svi},
             "svi_highres": {"steps_per_s": 1e3 / hr_step_ms,
                             "busy_share": busy_hr_svi},
+            "svi_vo": {"steps_per_s": 1e3 / vo_step_ms,
+                       "busy_share": busy_vo_svi,
+                       "refreshes_per_100_steps": n_ref},
             "predict_ms": {str(b): t for b, t in predict_ms.items()}}}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,8 +14,10 @@ and symmetric 4-grid forms) with its implicit-function VJP, Jacobi or the
 multigrid V-cycle, the halo-padded symmetric apply, the Cholesky,
 Karhunen-Loeve and FFT random fields, the data loader and presets, the
 dense ROM solve, the DenseNet codec in train and eval mode with seeded
-channel dropout, the ELBO, the prediction ensemble, the analysis metrics,
-the SVI trainer and pad-to-bucket serving.
+channel dropout, the ELBO, virtual observables (constraint and energy
+arms, their stiffness applies on the stencil kernel), the prediction
+ensemble, the analysis metrics, the SVI trainer and pad-to-bucket
+serving.
 """
 
 __version__ = "0.1.0"

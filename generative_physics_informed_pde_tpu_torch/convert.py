@@ -15,9 +15,11 @@ a tensor:
 
 A whole ``GenerativeModel`` whose posteriors were created for the same
 datasets (``init_params``) loads from the JAX model's ``params`` (``f``,
-``encoder``, ``gp``, ``g``, ``q_z``, ``q_X``) and ``batch_stats`` (``f``,
-``encoder``) with :func:`load_flax_variables`, so both packages start
-training from one state; so does the prediction ensemble's ``q``.
+``encoder``, ``gp``, ``g``, and ``q_z`` / ``q_X`` with their
+'supervised', 'unsupervised' and virtual-observable 'vo' entries) and
+``batch_stats`` (``f``, ``encoder``) with :func:`load_flax_variables`, so
+both packages start training from one state; so does the prediction
+ensemble's ``q``.
 
 Every parameter and BatchNorm statistic of the target module must be
 covered, and every shape must match; anything else raises.

@@ -51,6 +51,7 @@ class DataLoader:
         self._dependent_datasets = []
         self._hash = hash
         self._lock_physics_assembly = False
+        self.label_iterations = []  # of the last assemble, per dispatch
 
     # ------------------------------------------------------------ basic
     def lock_physics_assembly(self):
@@ -138,6 +139,7 @@ class DataLoader:
                     else r.astype(np.int64)
             Y = np.full((self.N, fom.dim_out), np.nan, dtype=np.float64)
         label_batch = max(8, min(label_batch, 2 ** 22 // fom.grid.n_cells))
+        self.label_iterations = []
         for k in range(-(-row_idx.size // label_batch)):
             sl = row_idx[k * label_batch: (k + 1) * label_batch]
             a = np.exp(self._X_DG[sl])
@@ -150,6 +152,7 @@ class DataLoader:
             out = fom.solve_batched(torch.as_tensor(a, device=fom.device),
                                     torch.as_tensor(v, device=fom.device))
             Y[sl] = out[: sl.size].cpu().numpy()
+            self.label_iterations.append(fom.last_iterations)
         self._Y = Y
         self._F_ROM_BC = self._BCE.full_f_with_applied_bc("rom")
         # new labels: dependent views must drop their cached tensors

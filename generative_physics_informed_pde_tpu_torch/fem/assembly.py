@@ -12,7 +12,9 @@ piecewise constant (DG0).  Three equivalent forms of the stiffness action:
    (``dense_stiffness``, used by ``solve_direct``).
 3. ``StencilOperator`` -- a 7-point nodal stencil whose per-node
    coefficients are static linear images of ``alpha``; the fine-grid
-   matvec is the stencil apply of ``ops/stencil.py``.
+   matvec is the stencil apply of ``ops/stencil.py`` (``apply_coeff``,
+   ``matvec`` and :func:`apply_batch_last` launch the kernel K1 on a CUDA
+   tensor and run its plain version on a CPU tensor).
 
 ``coefficients_sym`` gives the symmetric 4-grid form of the stencil (the
 ``sym=True`` solve) and ``cell_bilinear`` the per-cell energy that the
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from .grid import StructuredTriGrid
+from ..ops.stencil import apply_stencil
 
 
 def element_stiffness(grid: StructuredTriGrid) -> np.ndarray:
@@ -130,6 +133,13 @@ class StencilOperator:
         g = self.grid
         return alpha.reshape(alpha.shape[:-1] + (g.ny, g.nx, 2))
 
+    def to_nodegrid(self, v: torch.Tensor) -> torch.Tensor:
+        g = self.grid
+        return v.reshape(v.shape[:-1] + (g.ny + 1, g.nx + 1))
+
+    def to_flat(self, v: torch.Tensor) -> torch.Tensor:
+        return v.reshape(v.shape[:-2] + (self.grid.n_nodes,))
+
     def coefficients(self, alpha: torch.Tensor) -> torch.Tensor:
         """(..., n_cells) conductivities -> (..., 7, ny+1, nx+1) stencil
         coefficient grids, summed in the reference's order."""
@@ -158,6 +168,29 @@ class StencilOperator:
             coefs.append(c)
         return torch.stack(coefs, dim=-3)
 
+    def apply_coeff(self, coefs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """Stencil apply, batch first: coefs (..., 7, Ny, Nx), v (..., Ny,
+        Nx) -> (..., Ny, Nx), the leading dims broadcast.  One K1 launch
+        over the flattened batch, in K1's batch-last layout with an
+        all-ones mask (its plain version on the CPU)."""
+        batch = torch.broadcast_shapes(coefs.shape[:-3], v.shape[:-2])
+        Ny, Nx = v.shape[-2:]
+        c = coefs.expand(batch + coefs.shape[-3:]).reshape(-1, 7, Ny, Nx)
+        vb = v.expand(batch + (Ny, Nx)).reshape(-1, Ny, Nx)
+        out = apply_batch_last(c.permute(1, 2, 3, 0).contiguous(),
+                               vb.permute(1, 2, 0).contiguous())
+        return out.permute(2, 0, 1).reshape(batch + (Ny, Nx))
+
+    def matvec(self, alpha: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """Stiffness matvec on flat dof vectors: alpha (..., n_cells),
+        v (..., n_nodes) -> (..., n_nodes)."""
+        return self.to_flat(self.apply_coeff(self.coefficients(alpha),
+                                             self.to_nodegrid(v)))
+
+    def diagonal(self, alpha: torch.Tensor) -> torch.Tensor:
+        """diag(K(alpha)) as flat (..., n_nodes) vectors."""
+        return self.to_flat(self.coefficients(alpha)[..., 0, :, :])
+
     def cell_bilinear(self, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         """Per-cell ``e_c = u_loc^T Ke_c v_loc`` for (..., n_nodes) vectors:
         the gradient of ``u^T K(alpha) v`` with respect to ``alpha`` (the
@@ -170,3 +203,12 @@ class StencilOperator:
                             device=u.device)
         return torch.einsum("...ca,cab,...cb->...c", u[..., cells], Ke[t],
                             v[..., cells])
+
+
+def apply_batch_last(coefs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Unmasked stencil apply in K1's layout: coefs (7, Ny, Nx, B) and v
+    (Ny, Nx, B), both contiguous, -> (Ny, Nx, B).  K1 with an all-ones
+    mask on a CUDA tensor (multiplying by 1 is exact), its plain version on
+    a CPU tensor; the sum runs in the ``_OFFSETS`` order either way."""
+    ones = torch.ones(v.shape[:2] + (1,), dtype=v.dtype, device=v.device)
+    return apply_stencil(coefs, v, ones)

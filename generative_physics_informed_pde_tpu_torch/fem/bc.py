@@ -10,8 +10,9 @@ zero Neumann on top/bottom, zero source.
   ``u0..u3 ~ U(-1/2, 1/2)``; ``theta = (u0, u1, u2, u3)`` is the encoding.
 
 The thetas come from a numpy ``Generator`` exactly as in the JAX package,
-so the same seed gives the same boundary conditions bit for bit.  All
-bookkeeping here is host numpy; tensors enter only in the solvers.
+so the same seed gives the same boundary conditions bit for bit.  The
+bookkeeping is host numpy; ``DirichletProfile.scatter_full`` and
+``restrict_free`` also take and give tensors.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from functools import cached_property
 from typing import Dict
 
 import numpy as np
+import torch
 
 from .grid import StructuredTriGrid
 
@@ -88,6 +90,30 @@ class DirichletProfile:
         """theta (..., 4) -> values at constrained dofs (..., n_constrained),
         float64."""
         return np.asarray(theta, dtype=np.float64) @ self._profile_basis.T
+
+    def scatter_full(self, values, free_values=None) -> torch.Tensor:
+        """Full dof vectors (..., n_nodes): ``values`` at the constrained
+        dofs, ``free_values`` (or zero) at the free ones; the leading batch
+        dims of the two broadcast, the dtype is their common one and the
+        device that of ``values``."""
+        values = torch.as_tensor(values)
+        dt = values.dtype
+        batch = values.shape[:-1]
+        if free_values is not None:
+            free_values = torch.as_tensor(free_values, device=values.device)
+            dt = torch.promote_types(dt, free_values.dtype)
+            batch = torch.broadcast_shapes(batch, free_values.shape[:-1])
+        full = torch.zeros(batch + (self.grid.n_nodes,), dtype=dt,
+                           device=values.device)
+        full[..., torch.as_tensor(self.constrained_dofs,
+                                  device=values.device)] = values.to(dt)
+        if free_values is not None:
+            full[..., torch.as_tensor(self.free_dofs, device=values.device)] \
+                = free_values.to(dt)
+        return full
+
+    def restrict_free(self, full: torch.Tensor) -> torch.Tensor:
+        return full[..., torch.as_tensor(self.free_dofs, device=full.device)]
 
 
 class BoundaryConditionEnsemble:

@@ -3,9 +3,10 @@
 Port of ``LinearEllipticPhysics`` and ``make_fom_rom_pair`` from
 ``generative_physics_informed_pde_tpu/fem/physics.py``: the batched
 full-order solve (differentiable through its implicit-function VJP), the
-free/constrained dof sets, the coarse assembly tensor and the dense direct
-solve used as an oracle.  The single-sample solve and the reduced-system
-helpers are not ported yet.
+free/constrained dof sets, the coarse assembly tensor, the dense direct
+solve used as an oracle, and the reduced-system helpers (matrix-free
+``K_ff``, the effective force, the scatter of a restricted solution) whose
+stiffness applies run on K1.  The single-sample solve is not ported yet.
 """
 
 from __future__ import annotations
@@ -98,6 +99,37 @@ class LinearEllipticPhysics:
         out[con] = vals
         out[free] = y_f
         return out
+
+    # -------------------------------------------- reduced system interface
+    def reduced_system_matvec(self, alpha: torch.Tensor):
+        """Matrix-free ``K_ff`` on full dof vectors: ``v_full (...,
+        n_nodes) -> m * K(alpha) (m * v_full)`` with ``m`` the free mask;
+        the coefficients are built once here."""
+        coefs = self.op.coefficients(alpha)
+        m = torch.as_tensor(self.profile.free_mask, dtype=coefs.dtype,
+                            device=coefs.device)
+
+        def matvec_full(v_full):
+            return m * self.op.to_flat(
+                self.op.apply_coeff(coefs, self.op.to_nodegrid(m * v_full)))
+
+        return matvec_full
+
+    def effective_force(self, alpha: torch.Tensor, bc_values: torch.Tensor,
+                        f_full=None) -> torch.Tensor:
+        """``f_eff = f_f - K_fc y_c`` on the full grid, zero at the
+        constrained dofs: alpha (..., n_cells), bc_values (...,
+        n_constrained) -> (..., n_nodes)."""
+        bc_full = self.profile.scatter_full(bc_values)
+        if f_full is None:
+            f_full = torch.zeros_like(bc_full)
+        m = torch.as_tensor(self.profile.free_mask, dtype=bc_full.dtype,
+                            device=bc_full.device)
+        return m * (f_full - self.op.matvec(alpha, bc_full))
+
+    def scatter_restricted_solution(self, y_free, bc_values) -> torch.Tensor:
+        """Free-dof solution + Dirichlet values -> full vector."""
+        return self.profile.scatter_full(bc_values, free_values=y_free)
 
     def __repr__(self):  # pragma: no cover
         return (f"LinearEllipticPhysics('{self.identifier}', "

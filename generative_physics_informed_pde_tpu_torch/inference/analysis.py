@@ -15,6 +15,7 @@ from typing import Dict, Optional
 
 import torch
 
+from ..models import components
 from . import variational as va
 from .likelihoods import (coefficient_of_determination, predictive_logscore,
                           relative_error, standard_normal)
@@ -43,15 +44,6 @@ class DataPair:
 
     def final(self):
         return self.value[-1]
-
-
-def propagate_gp_samples(gp_out, generator=None):
-    """Reparameterised sample through the effective-property map."""
-    if isinstance(gp_out, tuple):
-        mean, logsigmas = gp_out
-        eps = standard_normal(logsigmas.shape, mean, generator)
-        return mean + torch.exp(logsigmas) * eps
-    return gp_out
 
 
 def y_metrics(y_mean, y_std, Y) -> dict:
@@ -92,7 +84,7 @@ class Analysis:
         Zs = va.sample_all_components(q, generator, n_monte_carlo)
         N = Zs.shape[0]
         gp_out = self.model.apply_gp(Zs.reshape(-1, Zs.shape[-1]))
-        Xs = propagate_gp_samples(gp_out, generator)
+        Xs = components.propagate_gp_samples(gp_out, generator)
         F_rep = F_[:, None, :].expand(N, n_monte_carlo, F_.shape[-1])
         mean, logsigmas = self.model.apply_g(
             Xs, F_rep.reshape(N * n_monte_carlo, -1))

@@ -1,8 +1,9 @@
 """Effective-property map and the ROM operator with the embedded coarse
 FEM solve.
 
-Port of ``EffectivePropertyMap``, ``ROM`` and ``ReducedOrderModelOperator``
-(``forward_mean`` / ``__call__``) from
+Port of ``EffectivePropertyMap``, ``propagate_gp_samples``, ``ROM`` and
+``ReducedOrderModelOperator`` (``forward_mean``, ``__call__`` and
+``propagate_samples``) from
 ``generative_physics_informed_pde_tpu/models/components.py``.  The learnable
 vectors (``logsigmas_X``, ``logsigmas_y``) are module parameters here
 instead of entries of a separate parameter tree.
@@ -16,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..fem.solvers import rom_solve
+from ..inference.likelihoods import reparametrize, standard_normal
 
 
 class EffectivePropertyMap(nn.Module):
@@ -50,6 +52,15 @@ class EffectivePropertyMap(nn.Module):
         if not self.independent_X:
             return x
         return x, self.logsigmas_X.to(x.dtype).expand_as(x)
+
+
+def propagate_gp_samples(gp_out, generator=None):
+    """Reparameterised sample through the effective-property map."""
+    if isinstance(gp_out, tuple):
+        mean, logsigmas = gp_out
+        eps = standard_normal(logsigmas.shape, mean, generator)
+        return mean + torch.exp(logsigmas) * eps
+    return gp_out
 
 
 class ROM(nn.Module):
@@ -117,3 +128,8 @@ class ReducedOrderModelOperator(nn.Module):
     def forward(self, effprop, F_):
         mean = self.forward_mean(effprop, F_)
         return mean, self.logsigmas_y.to(mean.dtype).expand_as(mean)
+
+    def propagate_samples(self, effprops, F_, generator=None):
+        """Reparameterised push-through: one draw of y per row."""
+        mean, logsigmas = self(effprops, F_)
+        return reparametrize(generator, mean, logsigmas)

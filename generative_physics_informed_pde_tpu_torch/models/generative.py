@@ -9,10 +9,11 @@ holding ``mean`` and ``logsigma``), all optimised by one Adam; the
 BatchNorm statistics are the modules' buffers, updated in place by every
 train-mode decode in the order the reference chains them.
 
-Ported: ``elbo_supervised``, ``elbo_unsupervised_amortized`` and ``elbo``
-with one Monte-Carlo sample, unfused decodes and the L2 penalty.  Not
-ported yet: the non-amortized unsupervised term, the virtual-observable
-term and its moment propagation, fused decodes and ``n_mc > 1``.
+Ported: ``elbo_supervised``, ``elbo_unsupervised_amortized``,
+``elbo_virtual_observables`` (with the holdoff) and ``elbo`` with one
+Monte-Carlo sample, unfused decodes and the L2 penalty, and
+``propagate_vo_moments``.  Not ported yet: the non-amortized unsupervised
+term, fused decodes and ``n_mc > 1``.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ from ..inference import variational as va
 from ..inference.likelihoods import (bernoulli_log_likelihood,
                                      diagonal_gaussian_log_likelihood,
                                      reparametrize, unit_gaussian_kld)
-from .components import EffectivePropertyMap, ReducedOrderModelOperator
+from .components import (EffectivePropertyMap, ReducedOrderModelOperator,
+                         propagate_gp_samples)
 
 
 class GenerativeModel(nn.Module):
@@ -52,6 +54,7 @@ class GenerativeModel(nn.Module):
         self.reconstruct_log_eff_property = reconstruct_log_eff_property
         self.disable_elbo_supervised = False
         self.disable_elbo_unsupervised = False
+        self.disable_elbo_vo = False
 
     # ------------------------------------------------------------- shapes
     @property
@@ -69,9 +72,10 @@ class GenerativeModel(nn.Module):
     # ------------------------------------------------------- param init
     def init_params(self, datasets: Dict[str, dict]) -> "GenerativeModel":
         """Create the per-datapoint posteriors (zero mean and logsigma) in
-        the model's dtype on its device: ``q_z`` for the labeled (and, when
-        not amortized, unlabeled) data, ``q_X`` for the labeled data when
-        ``independent_X``.  ``datasets`` maps modality -> dict with 'X'."""
+        the model's dtype on its device: ``q_z`` for the labeled, the
+        virtual-observable (and, when not amortized, unlabeled) data, ``q_X``
+        for the labeled and virtual-observable data when ``independent_X``.
+        ``datasets`` maps modality -> dict with 'X'."""
         ref = next(self.gp.parameters())
         for name, data in datasets.items():
             if data is None:
@@ -79,10 +83,10 @@ class GenerativeModel(nn.Module):
             N = data["X"].shape[0]
             if name == "unsupervised" and self.encoder is not None:
                 continue  # amortized: no per-datapoint q_z
-            if name in ("supervised", "unsupervised"):
+            if name in ("supervised", "unsupervised", "vo"):
                 self.q_z[name] = va.init_variational(
                     N, self.dim_latent, dtype=ref.dtype, device=ref.device)
-            if self.independent_X and name == "supervised":
+            if self.independent_X and name in ("supervised", "vo"):
                 self.q_X[name] = va.init_variational(
                     N, self.dim_effective_property, dtype=ref.dtype,
                     device=ref.device)
@@ -175,13 +179,60 @@ class GenerativeModel(nn.Module):
                       "ARM_unsupervised_DKL_z": DKL,
                       "ARM_unsupervised_elbo": elbo}
 
+    def elbo_virtual_observables(self, data, generator=None, *, vo_mean,
+                                 vo_logsigma, holdoff: bool = False,
+                                 train: bool = True,
+                                 normalize: bool = False):
+        """Virtual-observable term -> (elbo, logs): the VO posterior
+        (vo_mean, vo_logsigma) over y stands in for labels through a
+        reparameterised draw.  With ``holdoff`` only ``logL_x - DKL``
+        remains (the VO posterior is not used)."""
+        if self.disable_elbo_vo:
+            return 0.0, {}
+        X, F_ = data["X"], data["F_ROM_BC"]
+        qz = self.q_z["vo"]
+        Z = va.sample(qz, generator)
+        DKL = va.kld(qz)
+        predict_x = self.apply_decoder(Z, train=train, generator=generator)
+        logL_x = self.random_field_likelihood(predict_x, X)
+        if holdoff:
+            logL_y = logL_X = ent = 0.0
+        else:
+            if self.independent_X:
+                qX = self.q_X["vo"]
+                X_sample = va.sample(qX, generator)
+                mu_X, logsigmas_X = self.apply_gp(Z)
+                logL_X = diagonal_gaussian_log_likelihood(
+                    X_sample, mu_X, 2 * logsigmas_X)
+                ent = va.entropy(qX)
+            else:
+                X_sample = self.apply_gp(Z)
+                logL_X = ent = 0.0
+            mu_y, logsigmas_y = self.apply_g(X_sample, F_)
+            y_sample = reparametrize(generator, vo_mean.to(mu_y.dtype),
+                                     vo_logsigma.to(mu_y.dtype))
+            logL_y = diagonal_gaussian_log_likelihood(y_sample, mu_y,
+                                                      2 * logsigmas_y)
+        if normalize:
+            bs = X.shape[0]
+            logL_x, logL_y, logL_X, ent, DKL = (
+                v / bs for v in (logL_x, logL_y, logL_X, ent, DKL))
+        elbo = logL_x + logL_y + logL_X + ent - DKL
+        logs = {"vo_logL_x": logL_x, "vo_logL_y": logL_y, "vo_DKL": DKL,
+                "vo_elbo": elbo}
+        if self.independent_X:
+            logs.update({"vo_logL_X": logL_X, "vo_entropy_X": ent})
+        return elbo, logs
+
     # --------------------------------------------------------- full ELBO
-    def elbo(self, data, generator=None, *, train: bool = True,
+    def elbo(self, data, generator=None, *, vo_state=None,
+             vo_holdoff: bool = False, train: bool = True,
              normalize: bool = False, l2_penalty: Optional[float] = None):
         """Composite ELBO -> (elbo, logs).  ``data`` maps modality ->
-        tensors; 'unsupervised' is already the minibatch.  The unlabeled
-        term runs first, so its decode updates the BatchNorm statistics
-        before the labeled one's, as in the reference."""
+        tensors; 'unsupervised' is already the minibatch.  The terms run
+        unlabeled, labeled, virtual observables (when ``data`` has 'vo' and
+        ``vo_state`` = (vo_mean, vo_logsigma) is given), so the decodes
+        update the BatchNorm statistics in the reference's order."""
         total = 0.0
         logs = {}
         if data.get("unsupervised") is not None:
@@ -198,6 +249,14 @@ class GenerativeModel(nn.Module):
                                          train=train, normalize=normalize)
             total += e
             logs.update(lg)
+        if data.get("vo") is not None and vo_state is not None:
+            vo_mean, vo_logsigma = vo_state
+            e, lg = self.elbo_virtual_observables(
+                data["vo"], generator, vo_mean=vo_mean,
+                vo_logsigma=vo_logsigma, holdoff=vo_holdoff, train=train,
+                normalize=normalize)
+            total += e
+            logs.update(lg)
         if l2_penalty is not None:
             pen = _l2_norm_sum(self.f)
             if self.encoder is not None:
@@ -206,6 +265,34 @@ class GenerativeModel(nn.Module):
             logs["elbo_l2_penalty"] = pen
         logs["elbo"] = total
         return total, logs
+
+
+    # ------------------------------------------------ VO moment propagation
+    def propagate_vo_moments(self, data_vo, generator, n_monte_carlo: int):
+        """Monte-Carlo push of q through gp o g for every VO sample at once
+        -> (Y_mean, Y_std), each (N_vo, dim_y)."""
+        if n_monte_carlo < 2:
+            # std with one degree of freedom over one sample is NaN, which
+            # would poison the VO precision downstream
+            raise ValueError("N_monte_carlo_vo must be >= 2 "
+                             f"(got {n_monte_carlo})")
+        F_ = data_vo["F_ROM_BC"]
+        N = F_.shape[0]
+        if self.independent_X:
+            Xs = va.sample_all_components(self.q_X["vo"], generator,
+                                          n_monte_carlo)  # (N, S, c)
+        else:
+            Zs = va.sample_all_components(self.q_z["vo"], generator,
+                                          n_monte_carlo)  # (N, S, dz)
+            gp_out = self.apply_gp(Zs.reshape(-1, Zs.shape[-1]))
+            Xs = propagate_gp_samples(gp_out, generator).reshape(
+                N, n_monte_carlo, -1)
+        F_rep = F_[:, None, :].expand(N, n_monte_carlo, F_.shape[-1])
+        Ys = self.g.propagate_samples(
+            Xs.reshape(N * n_monte_carlo, -1),
+            F_rep.reshape(N * n_monte_carlo, -1), generator)
+        Ys = Ys.reshape(N, n_monte_carlo, -1)
+        return Ys.mean(dim=1), Ys.std(dim=1, correction=1)
 
 
 def _l2_norm_sum(module: nn.Module) -> torch.Tensor:

@@ -2,19 +2,21 @@
 
 Port of ``Trainer`` / ``TrainerParameters`` and the ``CreateTrainer*`` glue
 from ``generative_physics_informed_pde_tpu/training/trainer.py``.  One SVI
-iteration (:meth:`Trainer.step`) draws the unlabeled minibatch, takes the
+iteration (:meth:`Trainer.step`) first refreshes the virtual observables
+when their cadence says so, then draws the unlabeled minibatch, takes the
 gradient of the composite ELBO, steps ``torch.optim.Adam`` with the
 schedule's learning rate, and every ``N_PE_interval``-th iteration runs the
 prediction ensemble's inner Adam; the run loop monitors every
 ``N_monitor_interval`` iterations (a prediction-ensemble burst, then the
-analyses) and ends with the final refinement and evaluation.  All draws
-come from one ``torch.Generator`` on the trainer's device, seeded by
-``seed``.
+analyses) and ends with the final refinement and evaluation.  The training
+draws come from one ``torch.Generator`` on the trainer's device, seeded by
+``seed``; the virtual observables draw from their own, seeded by
+``seed + 7919``, so turning them on does not shift the training draws.
 
 Left out: the ``lax.scan`` chunking and its ``_SCAN_BUCKETS`` (a dispatch
 device of the reference's jitted step; PyTorch runs eagerly), buffer
-donation, mesh sharding, checkpointing, virtual observables, the plateau
-schedule and the reduced-precision prediction-ensemble decode.
+donation, mesh sharding, checkpointing, the plateau schedule and the
+reduced-precision prediction-ensemble decode.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..constraints import build_virtual_observables_ensemble
 from ..data.sampling import minibatch_indices
 from ..factories.data import DataFactory
 from ..factories.model import ModelFactory
@@ -54,8 +57,8 @@ DEFAULT_CONFIG = dict(
     N_monte_carlo_analysis_final=128,
     N_monitor_interval=500,
     N_tensorboard_logging_interval=1,
-    # virtual-observable cadence: accepted so that the reference's recipes
-    # configure this trainer unchanged; VO itself is not ported yet
+    # virtual-observable refresh cadence: the JAX package's measured
+    # default 50 (the reference uses 250)
     N_vo_update_interval=50,
     N_vo_holdoff=100,
     N_monte_carlo_vo=128,
@@ -119,13 +122,20 @@ class Trainer:
         self.comment = comment
         self.writer = MetricsWriter()
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        # the virtual observables' own draws (the reference folds its
+        # PRNGKey(seed + 7919) with the step)
+        self.vo_generator = torch.Generator(
+            device=self.device).manual_seed(seed + 7919)
+        self.VO = None
+        self._data_vo = None
+        self._vo_state = None
+        self._vo_is_initialized = False
         self._config = None
         self.datasets = None
         self._armortized_bs = None
         self._finalized = False
         self._global_runtime = 0.0
         self._global_iteration_counter = 0
-        self._step_count = 0
         self._seed = seed
         # per-iteration ELBO as device scalars: no host sync per step
         self.elbo_history = []
@@ -169,23 +179,32 @@ class Trainer:
         return self._global_iteration_counter
 
     # --------------------------------------------------------------- data
-    def set_data_from_datasets(self, datasets, Nu, Ns, Nvo,
-                               armortized_bs=None):
-        """Restrict the chunks to the requested sizes."""
+    def set_data_from_datasets(self, datasets, Nu, Ns, Nvo, VO=None,
+                               vo_spec=None, armortized_bs=None):
+        """Restrict the chunks to the requested sizes and, with ``Nvo >
+        0``, build the virtual observables of ``vo_spec`` on the 'vo'
+        chunk (or take the ensemble ``VO``)."""
         if "validation" not in datasets or datasets["validation"].N == 0:
             raise ValueError("a non-empty validation chunk is required")
         if not all(v is not None and v >= 0 for v in (Nu, Ns, Nvo)):
             raise ValueError(f"N_u, N_s, N_vo must be >= 0, got "
                              f"{(Nu, Ns, Nvo)}")
-        if Nvo > 0:
-            raise NotImplementedError(
-                "virtual observables are not ported yet")
         datasets["supervised"].restrict(Ns)
         if Ns == 0:
             # zero-label regime: the supervised term is disabled, the
             # empty chunk keeps its 0-row posterior
             self.model.disable_elbo_supervised = True
-        datasets.pop("vo", None)
+        if Nvo > 0:
+            if "vo" not in datasets or datasets["vo"].N == 0:
+                raise ValueError("N_vo > 0 needs a non-empty vo chunk "
+                                 "(N_vo_max > 0)")
+            datasets["vo"].restrict(Nvo)
+            if VO is None:
+                VO = build_virtual_observables_ensemble(
+                    vo_spec, datasets["vo"], self.physics, dtype=self._dtype)
+        else:
+            datasets.pop("vo", None)
+        self.VO = VO
         if Nu > 0:
             if "unsupervised" not in datasets \
                     or datasets["unsupervised"].N == 0:
@@ -233,10 +252,15 @@ class Trainer:
         if "unsupervised" in ds and ds["unsupervised"].N > 0:
             X_unsup = ds["unsupervised"].get("X")
         self._data_sup, self._X_unsup = data_sup, X_unsup
+        self._data_vo = None
+        if self.VO is not None:
+            self._data_vo = {k: ds["vo"].get(k) for k in ("X", "F_ROM_BC")}
 
         init_sets = {"supervised": {"X": data_sup["X"]}}
         if X_unsup is not None:
             init_sets["unsupervised"] = {"X": X_unsup}
+        if self._data_vo is not None:
+            init_sets["vo"] = {"X": self._data_vo["X"]}
         self.model.init_params(init_sets)
         self._params = list(self.model.parameters())
         self.optimizer = torch.optim.Adam(self._params, lr=self._schedule(0))
@@ -271,16 +295,28 @@ class Trainer:
 
     # --------------------------------------------------------------- step
     def step(self) -> Dict[str, torch.Tensor]:
-        """One SVI iteration -> its logs (device tensors)."""
+        """One SVI iteration -> its logs (device tensors): the VO refresh
+        when due, then the gradient step on the ELBO, whose VO term is held
+        off (``logL_x - DKL`` only) before ``N_vo_holdoff`` iterations and
+        until the first refresh."""
         model = self.model
+        if self.update_vo():
+            self.update_virtual_observables(self.gn)
         data = {"supervised": self._data_sup}
         if self._X_unsup is not None:
             idx = minibatch_indices(self.generator, self._X_unsup.shape[0],
                                     self._armortized_bs,
                                     device=self.device)
             data["unsupervised"] = {"X": self._X_unsup[idx]}
+        vo_state, holdoff = None, False
+        if self.use_vo():
+            data["vo"] = self._data_vo
+            holdoff = (self.gn < self.get("N_vo_holdoff")
+                       or not self._vo_is_initialized)
+            vo_state = self._vo_state or (None, None)
         self.optimizer.zero_grad(set_to_none=True)
-        elbo, logs = model.elbo(data, self.generator,
+        elbo, logs = model.elbo(data, self.generator, vo_state=vo_state,
+                                vo_holdoff=holdoff,
                                 normalize=self.get("normalize"),
                                 l2_penalty=self.get("l2_penalty"))
         (-elbo).backward()
@@ -288,11 +324,11 @@ class Trainer:
             if p.grad is None:  # optax updates moments on zero gradients
                 p.grad = torch.zeros_like(p)
         for group in self.optimizer.param_groups:
-            group["lr"] = self._schedule(self._step_count)
+            group["lr"] = self._schedule(self.gn)
         self.optimizer.step()
 
         interval = int(self.get("N_PE_interval") or 1)
-        if interval <= 1 or self._step_count % interval == 0:
+        if interval <= 1 or self.gn % interval == 0:
             pe_elbo, pe_logL = self._PE.update(self.get("N_PE_updates"),
                                                self.generator)
         else:
@@ -302,7 +338,7 @@ class Trainer:
         logs = {k: (v.detach() if isinstance(v, torch.Tensor) else v)
                 for k, v in logs.items()}
         logs.update(self._pe_logs(pe_elbo, pe_logL))
-        self._step_count += 1
+        self._global_iteration_counter += 1
         self.elbo_history.append(logs["elbo"])
         return logs
 
@@ -312,6 +348,32 @@ class Trainer:
                 "PredictionEnsemble/KLD": pe_logL - pe_elbo,
                 "PredictionEnsemble/AvgLatentStddev": torch.mean(
                     torch.exp(self._PE.q["logsigma"].detach()))}
+
+    # ---------------------------------------------------------------- VO
+    def use_vo(self) -> bool:
+        return self.VO is not None and self._data_vo is not None
+
+    def update_vo(self) -> bool:
+        """The refresh cadence: from ``N_vo_holdoff`` on, every
+        ``N_vo_update_interval`` iterations and at the first chance."""
+        if not self.use_vo():
+            return False
+        return (self.gn >= self.get("N_vo_holdoff")
+                and (self.gn % self.get("N_vo_update_interval") == 0
+                     or not self._vo_is_initialized))
+
+    @torch.no_grad()
+    def update_virtual_observables(self, step: int, resample: bool = True):
+        """Monte-Carlo propagate q through gp o g, redraw the test
+        functions, then condition the VO posterior; the propagation and the
+        test functions draw from ``vo_generator``."""
+        Y_mean, Y_std = self.model.propagate_vo_moments(
+            self._data_vo, self.vo_generator, self.get("N_monte_carlo_vo"))
+        if resample:
+            self.VO.resample(self.vo_generator)
+        self.VO.update(Y_mean, 1.0 / (Y_std ** 2), step, writer=self.writer)
+        self._vo_state = (self.VO.mean, self.VO.logsigma)
+        self._vo_is_initialized = True
 
     # ---------------------------------------------------------------- run
     def run(self, N: int, verbose: bool = True, callback=None):
@@ -330,7 +392,6 @@ class Trainer:
         mi = self.get("N_monitor_interval")
         for n in range(N):
             logs = self.step()
-            self._global_iteration_counter += 1
             if mi > 0 and n % mi == 0 and n > 0:
                 elbo = float(logs["elbo"])
                 if not np.isfinite(elbo) and self.get("halt_on_divergence"):
@@ -449,7 +510,7 @@ class Trainer:
     def info(self):  # pragma: no cover
         ds = self.datasets or {}
         print("============ MODEL INFO ==============")
-        for name in ("unsupervised", "supervised", "validation"):
+        for name in ("unsupervised", "supervised", "vo", "validation"):
             n = ds[name].N if name in ds and ds[name] else 0
             print(f"N_{name}: {n}")
         print(f"Armortization: {self.model.encoder is not None}")
@@ -483,7 +544,8 @@ def CreateTrainerFromPermutation(params: TrainerParameters, permutation=None,
             device=trainer.device)
     trainer.set_data_from_datasets(
         datasets, params.data["N_u"], params.data["N_s"],
-        params.data["N_vo"], armortized_bs=params.data["armortized_bs"])
+        params.data["N_vo"], vo_spec=params.data["vo_spec"],
+        armortized_bs=params.data["armortized_bs"])
     trainer.setup_config(**params.trainer)
     trainer.setup(scheduler_spec=params.scheduler or None)
     return trainer
@@ -493,11 +555,10 @@ def CreateDataSetsFromPermutation(identifier, permutation, permutation_u,
                                   N_val, N_u_max, N_s_max, N_vo_max, physics,
                                   BCE, dtype, dl=None, dlu=None,
                                   device="cuda"):
-    """Label the labeled pool, partition it into supervised / validation
-    chunks and the unlabeled pool into one chunk -> (dl, dlu, datasets)."""
+    """Label the labeled pool, partition it into supervised / vo /
+    validation chunks (the JAX order; 'vo' only with ``N_vo_max > 0``) and
+    the unlabeled pool into one chunk -> (dl, dlu, datasets)."""
     device = resolve_device(device)
-    if N_vo_max > 0:
-        raise NotImplementedError("virtual observables are not ported yet")
     if dl is None or dlu is None:
         dl, dlu = DataFactory.FromIdentifier(identifier).setup(
             N_u_max=N_u_max or None,
@@ -510,8 +571,12 @@ def CreateDataSetsFromPermutation(identifier, permutation, permutation_u,
     if permutation_u is not None and len(dlu) != len(permutation_u):
         raise ValueError(f"permutation_u has {len(permutation_u)} entries "
                          f"for {len(dlu)} unsupervised fields")
-    dl.randomized_partition({"supervised": N_s_max, "validation": N_val},
-                            identifier="default", permutation=permutation)
+    partition = {"supervised": N_s_max}
+    if N_vo_max > 0:
+        partition["vo"] = N_vo_max
+    partition["validation"] = N_val
+    dl.randomized_partition(partition, identifier="default",
+                            permutation=permutation)
     datasets = dl.construct_dataset_dictionary(identifier="default",
                                                dtype=dtype, device=device)
     if N_u_max > 0:

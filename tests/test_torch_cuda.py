@@ -421,3 +421,82 @@ def test_blocked_kernel_refused_launch_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="launch failed"):
         apply_stencil_sym_blocked(c, v, mask)
     assert apply_stencil_sym_blocked.launches == before
+
+
+def _vo_setup(device):
+    from generative_physics_informed_pde_tpu_torch.constraints import (
+        QuerryPointEnsemble)
+
+    phys = fem.make_fom_rom_pair("NDP", 2, 2, 2, device=device)
+    rng = np.random.default_rng(0)
+    logx = rng.normal(0.2, 0.4, (5, phys["fom"].grid.n_cells))
+    bce = fem.BoundaryConditionEnsemble.from_factory("NDP", 5, rng)
+    bce.register_function_space("fom", phys["fom"].grid)
+    qpe = QuerryPointEnsemble(
+        phys["fom"], torch.as_tensor(logx, device=device),
+        torch.as_tensor(bce.constrained_values("fom"), device=device))
+    return phys, qpe
+
+
+@pytest.mark.cuda
+def test_vo_assembly_on_the_kernel_matches_the_cpu(monkeypatch):
+    """Gamma (one K1 launch a test column), alpha and the effective force
+    on the card equal the card's plain applies bit for bit, and the CPU's
+    to rounding (exp and the coefficient sums round differently there)."""
+    from generative_physics_informed_pde_tpu_torch.fem import assembly
+
+    _need_cuda()
+    (_, q_cpu), (phys, q_gpu) = _vo_setup("cpu"), _vo_setup("cuda")
+    V = torch.randn(q_cpu.N, q_cpu.dim_out, 6, dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(1))
+    fom = phys["fom"]
+    before = apply_stencil.launches
+    got = (*q_gpu.construct_querry_weak_galerkin(V.cuda()),
+           fom.effective_force(q_gpu.alpha, q_gpu.bc_values))
+    torch.cuda.synchronize()
+    assert apply_stencil.launches == before + 6 + 1 + 1
+    monkeypatch.setattr(assembly, "apply_stencil", apply_stencil_reference)
+    plain = (*q_gpu.construct_querry_weak_galerkin(V.cuda()),
+             fom.effective_force(q_gpu.alpha, q_gpu.bc_values))
+    assert apply_stencil.launches == before + 8
+    cpu = (*q_cpu.construct_querry_weak_galerkin(V),
+           q_cpu.physics.effective_force(q_cpu.alpha, q_cpu.bc_values))
+    for a, b, c in zip(got, plain, cpu):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a.cpu(), c, rtol=1e-13, atol=1e-14)
+
+
+@pytest.mark.cuda
+def test_vo_failure_containment_on_the_card():
+    """A failed Cholesky (negative prior precision of one sample) and a
+    singular energy subspace system are contained on the card, as on the
+    CPU: no exception, finite moments, the other samples untouched."""
+    from generative_physics_informed_pde_tpu_torch import constraints as tc
+
+    _need_cuda()
+    results = {}
+    for device in ("cpu", "cuda"):
+        phys, qpe = _vo_setup(device)
+        vo = tc.VirtualObservablesEnsemble(
+            qpe, tc.CoarseGrainedResidualSampler(W=phys["W"]),
+            dtype=torch.float64)
+        G = torch.zeros(qpe.N, qpe.dim_out, dtype=torch.float64,
+                        device=device)
+        PREC = torch.ones_like(G)
+        PREC[3] = -1.0
+        with pytest.warns(UserWarning, match="1/5 samples"):
+            vo.update(G, PREC, 0)
+        assert bool(vo._fallback_mask[3]) and int(vo._fallback_mask.sum()) == 1
+        results[device] = (vo.mean.cpu(), vo.vars.cpu())
+
+        class ZeroSampler:
+            def sample_V(self, generator, n, dtype, dev):
+                return torch.zeros((n, qpe.dim_out, 3), dtype=dtype,
+                                   device=dev)
+
+        ve = tc.EnergyVirtualObservablesEnsemble(qpe, 2, ZeroSampler(),
+                                                 dtype=torch.float64)
+        ve.update(G, torch.ones_like(G), 0)
+        assert bool((ve.mean == 0).all())
+    for a, b in zip(results["cuda"], results["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-14)

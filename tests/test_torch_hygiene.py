@@ -45,6 +45,32 @@ def test_port_and_chip_smoke_import_no_jax():
     assert not bad, bad
 
 
+def test_constraints_are_covered_and_keep_their_own_flux_copy():
+    """The port's constraints/ (virtual observables, flux) is among the
+    files checked above and imports no JAX, not even the JAX package's
+    pure-numpy flux module: it keeps its own copy."""
+    files = sorted((PKG / "constraints").glob("*.py"))
+    assert [f.name for f in files] == ["__init__.py", "flux.py",
+                                       "virtual_observables.py"]
+    for f in files:
+        assert not [m for m in _imported_modules(f) if _forbidden(m)], f
+    src = (PKG / "constraints" / "flux.py").read_text()
+    assert "def _entries" in src and "def assemble_reduced" in src
+
+
+def test_vo_ensemble_refuses_fields_on_another_device():
+    from generative_physics_informed_pde_tpu_torch.constraints import (
+        QuerryPointEnsemble)
+
+    phys = fem.make_fom_rom_pair("NDP", 2, 2, 2, device="cpu")
+    n_cells = phys["fom"].grid.n_cells
+    n_con = phys["fom"].constrained_dofs.size
+    with pytest.raises(ValueError, match="X_DG is on meta"):
+        QuerryPointEnsemble(phys["fom"], torch.zeros(3, n_cells,
+                                                     device="meta"),
+                            torch.zeros(3, n_con, device="meta"))
+
+
 def test_every_module_imports_with_jax_blocked():
     names = [m.name for m in pkgutil.walk_packages(port.__path__,
                                                    port.__name__ + ".")]
