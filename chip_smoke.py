@@ -27,7 +27,14 @@ recipe: label the preset's 2048 fields (Karhunen-Loeve draws, eigh on the
 card) with the multigrid-preconditioned solve, whose V-cycle sweeps and
 residuals all run on K1, in f32 and f64; differentiate that solve; and
 train the recipe of ``bench.py`` (FFT fields, channel dropout 0.2) for 200
-SVI steps.  Last, K1 and K2 run at every shape the main paths launched
+SVI steps.  Then BASELINE config 3 (phase 9,
+``examples/baseline_configs.py`` ``config3``): 192 labeled and 256
+unlabeled 128^2 Matern-3/2 fields drawn with ``DataLoader.from_sampler``,
+labeled by the f64 6-level V-cycle on K1, and 200 SVI steps of the
+highres128 recipe with 16 Monte-Carlo ELBO samples, its unlabeled term
+and prediction-ensemble decodes in bf16 (the 'auto' gates), checked
+against full precision and, in f64 with the gates off, card against CPU.
+Last, K1 and K2 run at every shape the main paths launched
 them at, each held bit for bit against its plain version and timed, with
 its launches derived from the paths' iteration counts (and checked against
 the counted launches), and K3's launches per shape outside its chain are
@@ -101,6 +108,8 @@ FD_STEP, FD_TOL = 1e-4, 1e-12
 # cuDNN and the CPU convolutions sum in another order.
 SVI_CPU_RTOL = 1e-8
 SVI_STEPS = 200
+# Steps under torch.profiler for a device busy share (phases 5 and 7c).
+PROFILED_STEPS = 25
 # K3 chained in its own layout: 8 applies checked bit for bit against the
 # plain chain (f32 values stay finite).
 K3_CHAIN = 8
@@ -118,6 +127,16 @@ K3_SHAPES = ((35, 1024, "float32"), (35, 1024, "float64"),
 # central difference (as above).
 HR_VJP_B = 256
 MG_JACOBI_RTOL = 1e-8
+# BASELINE config 3 (phase 9, examples/baseline_configs.py config3): the
+# pools (192 labeled, 256 unlabeled 128^2 Matern-3/2 fields), 200 steps
+# with a monitor point at 100 (the recipe's is at 200); the f64 labels'
+# true relative residual; three f64 steps card vs CPU on 8 + 8 fields with
+# the bf16 gates off; the bf16 unlabeled term against full precision
+# (the JAX test's bound, tests/test_models.py:393-463).
+C3_LABELED, C3_UNLABELED, C3_STEPS, C3_MONITOR = 192, 256, 200, 100
+C3_RESIDUAL = 1e-10
+C3_BF16_RTOL = 0.2
+C3_PARAM_RTOL = 1e-7
 # The ELBO's terms reported over the 'highres' training run.
 HR_TERMS = ("elbo", "ARM_unsupervised_DKL_z", "ARM_unsupervised_logL_x",
             "supervised_logL_x", "supervised_elbo")
@@ -139,10 +158,15 @@ ENERGY_T, ENERGY_PREC, ENERGY_BOUND = 1e-4, 1e-6, 0.2
 # the highres32 label solve (f32), its VJP (f64) and training labels (f64,
 # B=256); the VO constraint assembly (f32, B=128) and the energy arm (f64,
 # B=128); the five V-cycle levels of the 'highres' MG solve (f32, f64 at
-# B=2048), of its VJP and of its training labels (f64, B=256).  Phase 8
+# B=2048), of its VJP and of its training labels (f64, B=256); the six
+# levels of BASELINE config 3's 128^2 label solve (f64, B=128).  Phase 8
 # derives each shape's launches from the paths' iteration counts and holds
 # this list to them.
 MG_NODES = (65, 33, 17, 9, 5)
+# BASELINE config 3 (phase 9): the six V-cycle levels of the 128^2 f64
+# label solve, in the loader's dispatches of 128 fields.
+MG128_NODES = (129, 65, 33, 17, 9, 5)
+C3_LABEL_BATCH = 128
 STENCIL_SHAPES = {
     "apply_stencil": sorted({(33, 1024, "float32"), (33, 1024, "float64"),
                              (33, 256, "float64"), (33, 128, "float32"),
@@ -150,14 +174,21 @@ STENCIL_SHAPES = {
                             | {(n, B, d) for n in MG_NODES
                                for B, d in ((2048, "float32"),
                                             (2048, "float64"),
-                                            (256, "float64"))},
+                                            (256, "float64"))}
+                            | {(n, C3_LABEL_BATCH, "float64")
+                               for n in MG128_NODES},
                             key=lambda s: (-s[0], -s[1], s[2])),
     "apply_stencil_sym": [(33, 1024, "float32"), (33, 1024, "float64")]}
 STENCIL_GRIDS = {"apply_stencil": 7, "apply_stencil_sym": 4}
 
 
+_T0 = time.perf_counter()
+
+
 def say(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    """A progress line, prefixed with the seconds since the import."""
+    print(f"[chip_smoke {time.perf_counter() - _T0:6.1f}s] {msg}",
+          flush=True)
 
 
 def card_line() -> str:
@@ -479,6 +510,41 @@ def highres_recipe_params(dtype: str = "float32"):
     return p
 
 
+def mg_by_level(mg, k):
+    """K1 launches per V-cycle level (fine first) of one MG-PCG of k
+    iterations: the rhs apply and one matvec per iteration on the fine
+    level, then per V-cycle the sweeps and residual of each level."""
+    per = [(mg.nu_pre + 1 + mg.nu_post) * (k + 1)] * (mg.num_levels - 1)
+    per = per + [mg.nu_coarse * (k + 1)]
+    per[0] += 1 + k
+    return per
+
+
+def config3_params(dtype: str = "float32", n_labeled: int = 128,
+                   n_unlabeled: int = 256, n_val: int = 64,
+                   batch: int = 32):
+    """BASELINE config 3 as ``examples/baseline_configs.py`` ``config3``
+    builds it (600 iterations or fewer): the highres128 presets, 16 MC
+    ELBO and analysis samples, Adam 1e-3 halved at 400, 128 labeled, 256
+    unlabeled and 64 validation fields, batch 32, no virtual observables;
+    the monitor interval cut from 200 to 100 so that one monitor point
+    falls inside 200 steps.  The smaller sizes are the card-vs-CPU
+    check's."""
+    from generative_physics_informed_pde_tpu_torch.training import (
+        TrainerParameters)
+
+    p = TrainerParameters()
+    p.identifier = "highres128"
+    p.margs.update(dtype=dtype)
+    p.trainer.update(lr_init=1e-3, N_monitor_interval=C3_MONITOR,
+                     N_monte_carlo_elbo=16, N_monte_carlo_analysis=16)
+    p.scheduler = {"milestones": [400], "factor": 0.5}
+    p.data.update(N_u=n_unlabeled, N_s=n_labeled, N_u_max=n_unlabeled,
+                  N_s_max=n_labeled, N_vo_max=0, N_vo=0, N_val=n_val,
+                  armortized_bs=batch, vo_spec={})
+    return p
+
+
 def solve_grads(fom, alphas, vals, w, sym, tol=None, precond="auto"):
     """(loss, d loss / d alphas, d loss / d bc, solver) of
     ``loss = sum(w * solve(alphas, vals))``."""
@@ -550,6 +616,240 @@ def blocked_shape_inputs(R, B, dtype, gen):
 
 def rel_diff(a, b) -> float:
     return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def phase9_config3(card, gen, start_path, end_path, report_profile):
+    """Phase 9: BASELINE config 3 (``examples/baseline_configs.py``
+    ``config3``) on the card: the pools, the f64 MG label solve on K1 (its
+    launches per V-cycle level, K1 bit-equal to the plain version on each
+    level, the true residual), 200 SVI steps with the bf16 gates resolved
+    on, steps/s, the device's busy share and peak memory, the bf16 gate
+    against full precision, and three f64 steps card vs CPU.  Returns
+    what phase 8 and the records read."""
+    import numpy as np
+    import torch
+    from generative_physics_informed_pde_tpu_torch import fem
+    from generative_physics_informed_pde_tpu_torch.data import DataLoader
+    from generative_physics_informed_pde_tpu_torch.factories import (
+        highres128)
+    from generative_physics_informed_pde_tpu_torch.ops import (
+        apply_stencil, apply_stencil_reference)
+    from generative_physics_informed_pde_tpu_torch.training import (
+        CreateTrainer)
+
+    say(f"phase 9: BASELINE config 3 (highres128, N_monte_carlo_elbo=16, "
+        f"bf16 unlabeled and PE decodes), {C3_STEPS} steps; card: {card}")
+    rf3 = fem.GaussianRandomField.from_image(128, 128, 0.4, 1.0, 0.08,
+                                             method="fft", kernel="matern32")
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start_path()
+    t0 = time.perf_counter()
+    dl_c3 = DataLoader.from_sampler(rf3, C3_LABELED, key=0, device="cuda")
+    dlu_c3 = DataLoader.from_sampler(rf3, C3_UNLABELED, key=1,
+                                     device="cuda")
+    dlu_c3.lock_physics_assembly()
+    pool_c3_s = time.perf_counter() - t0
+    if dl_c3.X.shape != (C3_LABELED, 128, 128) \
+            or dlu_c3.X.shape != (C3_UNLABELED, 128, 128) \
+            or not (np.isfinite(dl_c3.X).all()
+                    and np.isfinite(dlu_c3.X).all()):
+        raise AssertionError("config 3 pools are not finite 128^2 fields")
+    phys_c3 = highres128().setup(device="cuda")[0]
+    fom_c3 = phys_c3["fom"]
+    mg_c3 = fom_c3._batched_solver.mg
+    if mg_c3 is None or mg_c3.num_levels != len(MG128_NODES):
+        raise AssertionError("'auto' did not pick a 6-level V-cycle at "
+                             "128^2")
+    t_s, t_e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t_s.record()
+    dl_c3.assemble(phys_c3, label_batch=C3_LABEL_BATCH)
+    t_e.record()
+    torch.cuda.synchronize()
+    c3_label_ms = t_s.elapsed_time(t_e)
+    c3_label_iters = list(dl_c3.label_iterations)
+    c3_label_launches = apply_stencil.launches
+    per_level = [sum(c) for c in zip(*(mg_by_level(mg_c3, k)
+                                       for k in c3_label_iters))]
+    a_c3 = torch.exp(torch.as_tensor(dl_c3.X_DG, device="cuda"))
+    v_c3 = torch.as_tensor(dl_c3.BCE.constrained_values("fom"),
+                           device="cuda")
+    Y_c3 = torch.as_tensor(dl_c3.Y, device="cuda")
+    c3_res = true_residual(fom_c3, Y_c3, a_c3, v_c3,
+                           apply_stencil_reference).max().item()
+    say(f"  pools drawn in {pool_c3_s:.2f} s (FFT, Matern-3/2, keys 0/1); "
+        f"labels: {C3_LABELED} fields f64 in {c3_label_ms:.1f} ms "
+        f"(dispatches of {C3_LABEL_BATCH}), PCG iterations "
+        f"{c3_label_iters}, {c3_label_launches} K1 launches, per level "
+        f"{dict(zip(MG128_NODES, per_level))}; true relative residual max "
+        f"{c3_res:.3e} (bound {C3_RESIDUAL:g})")
+    if c3_label_launches != sum(per_level):
+        raise AssertionError("config 3 label launches differ from the "
+                             "count of the V-cycle's applies")
+    if not c3_res <= C3_RESIDUAL:
+        raise AssertionError("config 3 labels exceed their residual bound")
+    del v_c3, Y_c3
+    t0 = time.perf_counter()
+    trainer_c3 = CreateTrainer(config3_params(), dl_c3, dlu_c3,
+                               device="cuda")
+    setup_c3_s = time.perf_counter() - t0
+    ucd, pcd = trainer_c3.model.unsup_compute_dtype, \
+        trainer_c3._PE.compute_dtype
+    say(f"  resolved gates: unsup_compute_dtype {ucd}, PE_compute_dtype "
+        f"{pcd}; n_mc {trainer_c3.model.n_mc}")
+    if ucd != torch.bfloat16 or pcd != torch.bfloat16 \
+            or trainer_c3.model.n_mc != 16:
+        raise AssertionError("config 3 did not resolve its bf16 gates or "
+                             "its 16 MC samples")
+    t_s, t_e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t_s.record()
+    trainer_c3.run(C3_STEPS, verbose=False)
+    t_e.record()
+    c3_counts = end_path("9 config3 train")
+    # K1 on every level of the first label dispatch, bit for bit (after
+    # the path: these launches are not the path's)
+    for coefs, _, mask in dataclasses.replace(
+            mg_c3, dtype="float64").setup(a_c3[:C3_LABEL_BATCH]):
+        v = torch.randn(coefs.shape[1:], generator=gen,
+                        dtype=torch.float64).cuda()
+        if not torch.equal(bits(apply_stencil(coefs, v, mask)),
+                           bits(apply_stencil_reference(coefs, v, mask))):
+            raise AssertionError(f"apply_stencil differs from its plain "
+                                 f"version at {tuple(v.shape)} f64")
+    say("  K1 bit-equal to its plain version on the six V-cycle levels of "
+        "the first label dispatch")
+    run_c3_s = t_s.elapsed_time(t_e) / 1e3
+    elbos_c3 = trainer_c3.elbos()
+    res_c3 = trainer_c3.results()
+    first, last = elbos_c3[:20].mean().item(), elbos_c3[-20:].mean().item()
+    say(f"  trainer set-up {setup_c3_s:.2f} s; {C3_STEPS} steps + monitor "
+        f"at {C3_MONITOR} + final refinement {run_c3_s:.2f} s; launches "
+        f"{c3_counts}")
+    say(f"  ELBO step 0 {elbos_c3[0].item():.6g}, mean steps 0-19 "
+        f"{first:.6g}, steps {C3_STEPS - 20}-{C3_STEPS - 1} {last:.6g}; "
+        f"results {res_c3}")
+    if c3_counts["apply_stencil"] != c3_label_launches \
+            or sum(c3_counts.values()) != c3_label_launches:
+        raise AssertionError("the config 3 path launched other kernels "
+                             "than the label solve's K1")
+    if elbos_c3.shape != (C3_STEPS,) \
+            or not bool(torch.isfinite(elbos_c3).all()) or not last > first:
+        raise AssertionError("the config 3 ELBO is not finite and rising")
+    if not all(np.isfinite(res_c3[k]) for k in ("relerr_y", "r2_y",
+                                                "logscore_y")):
+        raise AssertionError(f"config 3 results() not finite: {res_c3}")
+    torch.cuda.synchronize()
+    c3_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    c3_peak_phase_gb = (torch.cuda.max_memory_allocated() - mem0) / 1e9
+    c3_label_warm_ms = event_ms(lambda: dl_c3.assemble(
+        phys_c3, label_batch=C3_LABEL_BATCH))
+    a_c3 = a_c3[:C3_LABEL_BATCH]
+    v_c3 = torch.as_tensor(dl_c3.BCE.constrained_values("fom"),
+                           device="cuda")[:C3_LABEL_BATCH]
+    c3_solve_ms = event_ms(lambda: fom_c3.solve_batched(a_c3, v_c3))
+    say(f"  label the pool again, warm: {c3_label_warm_ms:.2f} ms through "
+        f"the loader (first call {c3_label_ms:.1f} ms); one dispatch's "
+        f"solve alone ({C3_LABEL_BATCH} fields on the card): "
+        f"{c3_solve_ms:.2f} ms (medians of 3)")
+    del a_c3, v_c3
+
+    def c3_steps(n):
+        for _ in range(n):
+            trainer_c3.step()
+
+    c3_steps(3)
+    t_s, t_e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t_s.record()
+    c3_steps(20)
+    t_e.record()
+    torch.cuda.synchronize()
+    c3_step_ms = t_s.elapsed_time(t_e) / 20
+    say(f"  SVI steps (f32; 128 labeled x 16 samples, batch 32 in bf16, PE "
+        f"every 8th in bf16): {1e3 / c3_step_ms:.3f} steps/s over 20 steps "
+        f"(CUDA events); peak memory {c3_peak_gb:.2f} GB allocated "
+        f"({c3_peak_phase_gb:.2f} GB above the phase's start); card: "
+        f"{card}")
+    busy_c3 = report_profile("5 config 3 SVI steps", lambda: c3_steps(5),
+                             5 * c3_step_ms)
+
+    say("  bf16 gates on vs off: one train-mode ELBO, same draws")
+    m_c3 = trainer_c3.model
+    state_c3 = {k: v.clone() for k, v in m_c3.state_dict().items()}
+    d_c3 = {"supervised": trainer_c3._data_sup,
+            "unsupervised": {"X": trainer_c3._X_unsup[:32]}}
+    gate_logs = {}
+    for gate in (torch.bfloat16, None):
+        m_c3.unsup_compute_dtype = gate
+        m_c3.load_state_dict(state_c3)
+        with injected_draws(21), torch.no_grad():
+            _, gate_logs[gate] = m_c3.elbo(d_c3, trainer_c3.generator)
+    m_c3.unsup_compute_dtype = torch.bfloat16
+    m_c3.load_state_dict(state_c3)
+    on, off = gate_logs[torch.bfloat16], gate_logs[None]
+    u_rel = abs((on["ARM_unsupervised_elbo"] - off["ARM_unsupervised_elbo"]
+                 ).item()) / abs(off["ARM_unsupervised_elbo"].item())
+    sup_equal = torch.equal(on["supervised_elbo"], off["supervised_elbo"])
+    say(f"  supervised term bit-equal: {sup_equal}; unlabeled term bf16 "
+        f"{on['ARM_unsupervised_elbo'].item():.8g} vs f32 "
+        f"{off['ARM_unsupervised_elbo'].item():.8g}: rel {u_rel:.3e} "
+        f"(tolerance {C3_BF16_RTOL:g})")
+    if not sup_equal or not u_rel <= C3_BF16_RTOL:
+        raise AssertionError("the bf16 gate leaks into the supervised term "
+                             "or moves the unlabeled term too far")
+    del gate_logs, on, off
+
+    say("  3 f64 SVI steps at the highres128 widths, card vs CPU (plain "
+        "path), 8 + 8 fields, 16 MC samples, bf16 gates off, same draws")
+    elbo_c3 = {}
+    state = None
+    for run, device in (("card", "cuda"), ("cpu", "cpu")):
+        dl_cpu = DataLoader(dl_c3.X[:16], Y=dl_c3.Y[:16],
+                            F_ROM_BC=dl_c3.F_ROM_BC[:16])
+        dlu_cpu = DataLoader(dlu_c3.X[:8])
+        p64 = config3_params("float64", 8, 8, 8, 8)
+        p64.margs["unsup_compute_dtype"] = None
+        p64.trainer.update(N_monitor_interval=0, N_PE_updates_final=0,
+                           PE_compute_dtype=None)
+        tr = CreateTrainer(p64, dl_cpu, dlu_cpu, device=device)
+        if tr.model.unsup_compute_dtype is not None \
+                or tr._PE.compute_dtype is not None:
+            raise AssertionError("the f64 check runs with a bf16 gate on")
+        if state is None:
+            state = {k: v.detach().cpu().clone()
+                     for k, v in tr.model.state_dict().items()}
+        else:
+            tr.model.load_state_dict(state)
+        with injected_draws(13):
+            for _ in range(3):
+                tr.step()
+        elbo_c3[run] = (tr.elbos().double(),
+                        {k: v.detach().cpu() for k, v in
+                         tr.model.state_dict().items()})
+        del tr
+    err = ((elbo_c3["card"][0] - elbo_c3["cpu"][0]).abs()
+           / elbo_c3["cpu"][0].abs()).max().item()
+    perr = max(rel_diff(elbo_c3["card"][1][k], v)
+               for k, v in elbo_c3["cpu"][1].items()
+               if v.is_floating_point() and v.numel())
+    say(f"  ELBOs card {elbo_c3['card'][0].tolist()} vs CPU "
+        f"{elbo_c3['cpu'][0].tolist()}: max rel {err:.3e} (tolerance "
+        f"{SVI_CPU_RTOL:g}); parameters and statistics max rel {perr:.3e} "
+        f"(tolerance {C3_PARAM_RTOL:g})")
+    if not err <= SVI_CPU_RTOL or not perr <= C3_PARAM_RTOL:
+        raise AssertionError("f64 config 3 SVI steps on the card differ "
+                             "from the CPU")
+    del elbo_c3, state
+
+    return {"label_iterations": c3_label_iters, "mg": mg_c3,
+            "label_ms": c3_label_ms, "label_warm_ms": c3_label_warm_ms,
+            "solve_ms": c3_solve_ms,
+            "label_launches": c3_label_launches,
+            "label_residual": c3_res, "steps_per_s": 1e3 / c3_step_ms,
+            "busy_share": busy_c3, "peak_gb": c3_peak_gb,
+            "peak_gb_above_start": c3_peak_phase_gb,
+            "unsup_bf16_rel": u_rel, "card_vs_cpu_elbo_rel": err,
+            "card_vs_cpu_param_rel": perr, "results": res_c3}
 
 
 def main() -> int:
@@ -1251,8 +1551,11 @@ def main() -> int:
     steps_per_s = 100 / (svi_wall_ms / 1e3)
     say(f"  SVI steps (f32, batch 64 + 128 labeled, PE every 8th): "
         f"{steps_per_s:.2f} steps/s over 100 steps")
-    busy_svi = report_profile("100 SVI steps", lambda: svi_steps(100),
-                              svi_wall_ms)
+    # the profiler's own post-processing takes ~1 s a profiled step on a
+    # slow host, so its windows are shorter than the timed runs
+    busy_svi = report_profile(f"{PROFILED_STEPS} SVI steps",
+                              lambda: svi_steps(PROFILED_STEPS),
+                              svi_wall_ms * PROFILED_STEPS / 100)
     say("  VO (phase 4c's trainer): SVI steps, one refresh and its parts")
 
     def vo_steps(n):
@@ -1289,8 +1592,11 @@ def main() -> int:
         "(median of 3)")
     if k1_per_refresh != k1_per_assembly:
         raise AssertionError(f"a resample launched K1 {k1_per_refresh} times")
-    busy_vo_svi = report_profile(f"100 VO SVI steps ({n_ref} refreshes)",
-                                 lambda: vo_steps(100), 100 * vo_step_ms)
+    n_ref_prof = sum(1 for g in range(tr_vo.gn, tr_vo.gn + VO_CADENCE)
+                     if g % VO_CADENCE == 0)
+    busy_vo_svi = report_profile(
+        f"{VO_CADENCE} VO SVI steps ({n_ref_prof} refresh)",
+        lambda: vo_steps(VO_CADENCE), VO_CADENCE * vo_step_ms)
 
 
     predict_ms = {}
@@ -1652,8 +1958,9 @@ def main() -> int:
     hr_step_ms = t_s.elapsed_time(t_e) / 100
     say(f"  SVI steps (f32, batch 64 + 128 labeled, dropout 0.2, PE every "
         f"8th): {1e3 / hr_step_ms:.2f} steps/s over 100 steps (CUDA events)")
-    busy_hr_svi = report_profile("50 'highres' SVI steps",
-                                 lambda: hr_steps(50), 50 * hr_step_ms)
+    busy_hr_svi = report_profile(f"{PROFILED_STEPS} 'highres' SVI steps",
+                                 lambda: hr_steps(PROFILED_STEPS),
+                                 PROFILED_STEPS * hr_step_ms)
 
     say("  3 f64 'highres' SVI steps, card vs CPU (plain path), same draws "
         "and dropout masks")
@@ -1684,21 +1991,17 @@ def main() -> int:
         raise AssertionError("f64 highres SVI steps on the card differ from "
                              "the CPU")
 
+
+    # (run before phase 8, which checks K1 at every shape the paths used)
+    c3 = phase9_config3(card, gen, start_path, end_path, report_profile)
+    c3_label_iters, mg_c3 = c3["label_iterations"], c3["mg"]
+
     # ------------------------------ 8. K1 and K2 at every main-path shape
     say("phase 8: K1 and K2 at every shape of the main paths: launches, "
         "bit-equality, times; K3's launches per shape")
     mg = solver_hr.mg
     if mg.num_levels != len(MG_NODES):
         raise AssertionError(f"the V-cycle has {mg.num_levels} levels")
-
-    def mg_by_level(k):
-        """K1 launches per V-cycle level (fine first) of one MG-PCG of k
-        iterations: the rhs apply and one matvec per iteration on the fine
-        level, then per V-cycle the sweeps and residual of each level."""
-        per = [(mg.nu_pre + 1 + mg.nu_post) * (k + 1)] * (mg.num_levels - 1)
-        per = per + [mg.nu_coarse * (k + 1)]
-        per[0] += 1 + k
-        return per
 
     derived = []  # (path, kernel, nodes, B, dtype, launches)
     derived.append(("3+4 label + serve", "apply_stencil", 33, N, "float32",
@@ -1728,8 +2031,12 @@ def main() -> int:
                   ("7c highres train", len(dl_t.X), "float64",
                    hr_train_label_iters)]
     for path, B, dname, k in mg_solves:
-        for nodes, count in zip(MG_NODES, mg_by_level(k)):
+        for nodes, count in zip(MG_NODES, mg_by_level(mg, k)):
             derived.append((path, "apply_stencil", nodes, B, dname, count))
+    for k in c3_label_iters:
+        for nodes, count in zip(MG128_NODES, mg_by_level(mg_c3, k)):
+            derived.append(("9 config3 train", "apply_stencil", nodes,
+                            C3_LABEL_BATCH, "float64", count))
     # K3: phase 6's chain at its first shape (padded nodes), no other path
     k3 = apply_stencil_sym_blocked.__name__
     derived.append((K3_CHAIN_PATH, k3, *K3_SHAPES[0], K3_CHAIN))
@@ -1832,6 +2139,13 @@ def main() -> int:
               "label_solve_ms": hr_ms, "jacobi_label_solve_ms": jac_ms,
               "jacobi_iterations": jac_hr.iterations,
               "vjp_ms": mg_vjp_ms, "label_solve_busy_share": busy_hr},
+          "config3_mg": {
+              "label_solve_ms": c3["label_ms"],
+              "label_solve_warm_ms": c3["label_warm_ms"],
+              "dispatch_solve_ms": c3["solve_ms"],
+              "pcg_iterations": c3_label_iters,
+              "launches": c3["label_launches"],
+              "true_residual": c3["label_residual"]},
           "vo": {
               "launches_per_refresh": k1_per_assembly,
               "refresh_ms": refresh_ms, "propagation_ms": prop_ms,
@@ -1877,6 +2191,11 @@ def main() -> int:
             "svi_vo": {"steps_per_s": 1e3 / vo_step_ms,
                        "busy_share": busy_vo_svi,
                        "refreshes_per_100_steps": n_ref},
+            "svi_config3": {k: c3[k] for k in (
+                "steps_per_s", "busy_share", "peak_gb",
+                "peak_gb_above_start", "unsup_bf16_rel",
+                "card_vs_cpu_elbo_rel", "card_vs_cpu_param_rel",
+                "results")},
             "predict_ms": {str(b): t for b, t in predict_ms.items()}}}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

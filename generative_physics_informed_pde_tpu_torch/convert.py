@@ -11,7 +11,14 @@ a tensor:
 * ``bias`` -> ``bias``; BatchNorm ``scale`` -> ``weight``
 * batch_stats ``mean`` / ``var`` -> ``running_mean`` / ``running_var``
 * any other leaf (``logsigmas_X``, ``logsigmas_y``, a posterior's
-  ``mean`` / ``logsigma``) -> the parameter of that name.
+  ``mean`` / ``logsigma``, a linear or MLP codec's ``logsigma``) -> the
+  parameter of that name.
+
+A conv kernel of a codec built with ``codec_pad_cin`` holds more input
+rows than the port's unpadded conv: the rows past the conv's real input
+channels only ever see the zero padding, so they are dropped and the
+loaded module computes the same function.  The MLPs (``Dense_0``,
+``Dense_1``, ...) and the linear codecs map layer for layer.
 
 A whole ``GenerativeModel`` whose posteriors were created for the same
 datasets (``init_params``) loads from the JAX model's ``params`` (``f``,
@@ -60,6 +67,9 @@ def _load(module, tree, prefix: str, loaded: set, stats: bool):
         target = getattr(module, attr, None)
         if not isinstance(target, torch.Tensor):
             raise KeyError(f"no tensor for {path} ({attr})")
+        if key == "kernel" and arr.ndim == 4 and target.ndim == 4 \
+                and arr.shape[1] > target.shape[1]:
+            arr = arr[:, :target.shape[1]]  # zero-fed padded input rows
         if tuple(target.shape) != arr.shape:
             raise ValueError(f"{path}: Flax shape {arr.shape} vs port "
                              f"{tuple(target.shape)}")

@@ -7,9 +7,10 @@ host numpy float64; labels come from the port's batched solve in dispatches
 of ``label_batch`` fields (the tail padded, as the reference pads it); the
 partition bookkeeping keeps the reference's permutation-compatible
 semantics, and a ``DataSet`` view hands out tensors of its dtype on its
-device.  Left out: ``save``/``from_file``/``from_sampler`` (nothing here
-writes a dataset cache) and the reference's retry loop around a label
-dispatch, a guard against restarts of a remote TPU worker.
+device.  ``from_sampler`` draws a pool from the port's random field.
+Left out: ``save``/``from_file`` (nothing here writes a dataset cache) and
+the reference's retry loop around a label dispatch, a guard against
+restarts of a remote TPU worker.
 """
 
 from __future__ import annotations
@@ -24,6 +25,21 @@ import torch
 from ..fem.bc import BoundaryConditionEnsemble
 from ..fem.pixels import PixelConverter
 from ..utils.device import resolve_device
+
+
+def draw_fields(sampler, N: int, generator: torch.Generator,
+                dtype=torch.float64, device="cuda") -> np.ndarray:
+    """``N`` fields of ``sampler`` drawn with ``generator`` in ``dtype`` on
+    ``device``, in batches of its ``max_sample_batch`` (a memory bound),
+    returned on the host."""
+    device = resolve_device(device)
+    # one chunk size, the sampler's memory bound: the JAX package's fixed
+    # 128/1024 chunks bound its compiled shapes on the TPU
+    step = max(1, sampler.max_sample_batch)
+    return np.concatenate([
+        sampler.sample(generator, batch_size=min(step, N - i), dtype=dtype,
+                       device=device).cpu().numpy()
+        for i in range(0, N, step)])
 
 
 class DataLoader:
@@ -52,6 +68,19 @@ class DataLoader:
         self._hash = hash
         self._lock_physics_assembly = False
         self.label_iterations = []  # of the last assemble, per dispatch
+
+    @classmethod
+    def from_sampler(cls, sampler, N: int, key=None, dtype=torch.float64,
+                     device="cuda") -> "DataLoader":
+        """``N`` fields of ``sampler`` (a ``GaussianRandomField``) drawn in
+        ``dtype`` on ``device``, in batches of its ``max_sample_batch``,
+        from a CPU ``torch.Generator`` seeded by ``key`` (default 0); the
+        fields are kept on the host in float64.  The same key gives the
+        same pool on every device, but not the JAX package's pool: the two
+        packages' random streams differ."""
+        generator = torch.Generator().manual_seed(0 if key is None
+                                                  else int(key))
+        return cls(draw_fields(sampler, N, generator, dtype, device))
 
     # ------------------------------------------------------------ basic
     def lock_physics_assembly(self):

@@ -2,6 +2,7 @@
 (``data.py``)."""
 
 from .data import DataFactory
-from .model import ModelFactory, highres, highres32
+from .model import ModelFactory, highres, highres32, highres128
 
-__all__ = ["DataFactory", "ModelFactory", "highres", "highres32"]
+__all__ = ["DataFactory", "ModelFactory", "highres", "highres32",
+           "highres128"]

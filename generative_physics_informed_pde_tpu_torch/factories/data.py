@@ -1,13 +1,16 @@
 """Named data presets: a random field plus the labeled/unlabeled pools.
 
-Port of the ``highres`` and ``highres32`` presets of
+Port of the ``highres``, ``highres32`` and ``highres128`` presets of
 ``generative_physics_informed_pde_tpu/factories/data.py``:
 
 * ``highres``: 2048 labeled and 20480 unlabeled fields from a 64^2
   squared-exponential field (mean 0.4, stddev 0.8, corrlength 0.04,
   adaptive Karhunen-Loeve truncation);
 * ``highres32``: 1024 labeled and 20480 unlabeled fields from a 32^2 field
-  (mean 0.4, stddev 0.8, corrlength 0.15, Cholesky factor).
+  (mean 0.4, stddev 0.8, corrlength 0.15, Cholesky factor);
+* ``highres128``: 2048 labeled and 20480 unlabeled fields from a 128^2
+  squared-exponential field (mean 0.4, stddev 0.8, corrlength 0.04, FFT
+  circulant embedding).
 
 A labeled pool is read read-only from ``cdata/<preset>.labeled.npz`` where
 that file exists (``highres32``), else drawn from the preset's field with a
@@ -25,7 +28,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..data.loader import DataLoader
+from ..data.loader import DataLoader, draw_fields
 from ..fem.randomfield import GaussianRandomField
 from ..utils.device import resolve_device
 
@@ -56,25 +59,15 @@ class DataFactory:
                            f"identifier {identifier!r}")
         return factory_class(*args, **kwargs)
 
-    def _draw(self, N: int, generator: torch.Generator, device) -> np.ndarray:
-        """``N`` fields in float64 on ``device``, in batches of the
-        field's ``max_sample_batch``, returned on the host."""
-        step = self._rfs.max_sample_batch
-        return np.concatenate([
-            self._rfs.sample(generator, batch_size=min(step, N - i),
-                             dtype=torch.float64, device=device).cpu().numpy()
-            for i in range(0, N, step)])
-
     def labeled(self, device="cuda") -> DataLoader:
         """The labeled pool's fields: read-only from
         ``<path>/<identifier>.labeled.npz`` where it exists, else drawn on
         ``device`` with a generator seeded 0."""
         file = self.path / f"{self.identifier}.labeled.npz"
         if not file.exists():
-            device = resolve_device(device)
-            return DataLoader(self._draw(self._N,
-                                         torch.Generator().manual_seed(0),
-                                         device))
+            return DataLoader(draw_fields(
+                self._rfs, self._N, torch.Generator().manual_seed(0),
+                device=device))
         with np.load(file, allow_pickle=False) as state:
             X = np.array(state["X"], dtype=np.float64)
             h = bytes(state["hash"]).decode() if "hash" in state else None
@@ -93,7 +86,8 @@ class DataFactory:
         if generator is None:
             generator = torch.Generator().manual_seed(1)
         N = self._N_unsupervised if N_u_max is None else int(N_u_max)
-        dlu = DataLoader(self._draw(N, generator, device))
+        dlu = DataLoader(draw_fields(self._rfs, N, generator,
+                                      device=device))
         dlu.lock_physics_assembly()
         return dlu
 
@@ -128,4 +122,16 @@ class highres32(DataFactory):
             32, 32, mean=0.4, stddev=0.80, corrlength=0.15, truncation=None)
 
 
-_REGISTRY = {"highres": highres, "highres32": highres32}
+class highres128(DataFactory):
+    """128x128 fields, FFT circulant embedding."""
+
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self._N = 2 * 1024
+        self._N_unsupervised = 2048 * 10
+        self._rfs = GaussianRandomField.from_image(
+            128, 128, mean=0.4, stddev=0.80, corrlength=0.04, method="fft")
+
+
+_REGISTRY = {"highres": highres, "highres32": highres32,
+             "highres128": highres128}

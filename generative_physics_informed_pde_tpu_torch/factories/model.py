@@ -1,12 +1,16 @@
 """Named model presets wiring physics and networks into models.
 
-Port of ``ModelFactory`` and its ``highres`` and ``highres32`` presets from
+Port of ``ModelFactory`` and its ``highres``, ``highres32`` and
+``highres128`` presets from
 ``generative_physics_informed_pde_tpu/factories/model.py``: the fom/rom
 physics, the decoder, the encoder, gp and g wired into a
-``GenerativeModel``.  The other presets and the reduced-precision, fused
-and channel-padded codec options are not ported yet.  Weights are random,
-drawn from an explicit ``torch.Generator``; trained weights come in
-through ``convert.py``.
+``GenerativeModel``, with the JAX factory's knobs: the codec's
+``compute_dtype``, ``unsup_compute_dtype`` ('auto': bf16 from 128^2
+decodes on), ``fuse_decodes``, ``remat_codec``, ``codec_pad_cin`` and the
+decoder overrides ``dec_growth_rate`` / ``dec_init_features`` /
+``dec_blocks`` (None: the preset's).  Weights are random, drawn from an
+explicit ``torch.Generator``; trained weights come in through
+``convert.py``.
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ def fetch_dtype(dtype: str) -> torch.dtype:
         return torch.float32
     if d in ("float64", "double"):
         return torch.float64
+    if d in ("bfloat16", "bf16"):
+        return torch.bfloat16
     raise ValueError(f"dtype option not recognized: {dtype}")
 
 
@@ -64,7 +70,8 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
 
 class ModelFactory:
     """Base factory: a parameter dict with ``set`` overrides; a preset
-    names its codec widths in ``_decoder`` / ``_encoder``."""
+    names its codec widths in ``_decoder`` / ``_encoder`` (or computes
+    them from the target size in ``_codec``)."""
 
     _decoder: dict
     _encoder: dict
@@ -83,6 +90,17 @@ class ModelFactory:
             "binary_field": False,
             "droprate": 0.0,
             "homoscedastic": False,
+            # the codec's conv compute dtype (None: full precision)
+            "compute_dtype": None,
+            "fuse_decodes": False,
+            "remat_codec": False,
+            # the unsupervised terms' codec dtype; 'auto' is bf16 from
+            # 128^2 decodes on, as the JAX package measured it
+            "unsup_compute_dtype": "auto",
+            "codec_pad_cin": 0,
+            "dec_growth_rate": None,
+            "dec_init_features": None,
+            "dec_blocks": None,
         }
 
     @property
@@ -109,6 +127,21 @@ class ModelFactory:
             raise ValueError(f"parameter {key} is unset")
         return value
 
+    def _dec(self, key, default):
+        """A decoder override, None meaning the preset's value: an
+        explicit None check, so that a falsy override (0, ()) reaches the
+        constructor and fails there."""
+        v = self.params[key]
+        return default if v is None else v
+
+    def _codec(self, target: int):
+        """(decoder, encoder) widths of the preset at ``target``."""
+        return dict(self._decoder), dict(self._encoder)
+
+    def _compute_dtype(self):
+        cd = self.params["compute_dtype"]
+        return None if cd is None else fetch_dtype(cd)
+
     def _setup_physics(self, device):
         return make_fom_rom_pair(self._gp("ptype"), self._gp("nx_rom"),
                                  self._gp("ny_rom"), self._gp("num_refines"),
@@ -121,10 +154,16 @@ class ModelFactory:
             dim_effective_property=g.dim_effective_property,
             num_hidden_layers=self._gp("eff_property_map_hidden_layers"),
             independent_X=self.params["independent_X"])
+        ucd = self.params["unsup_compute_dtype"]
+        if ucd == "auto":
+            ucd = "bfloat16" if decoder.target_img_size >= 128 else None
         model = GenerativeModel(
             g=g, gp=gp, encoder=encoder, f=decoder,
             independent_X=self.params["independent_X"],
-            binary_field=self.params["binary_field"])
+            binary_field=self.params["binary_field"],
+            fuse_decodes=self.params["fuse_decodes"],
+            remat_codec=self.params["remat_codec"],
+            unsup_compute_dtype=None if ucd is None else fetch_dtype(ucd))
         init_weights_(model, generator)
         model.to(device=device, dtype=self.dtype).eval()
         return physics, model, DiscriminativeModel(model), encoder, self.dtype
@@ -137,15 +176,22 @@ class ModelFactory:
             generator = torch.Generator().manual_seed(0)
         physics = self._setup_physics(device)
         target = self._gp("nx_rom") * 2 ** self._gp("num_refines")
+        dec, enc = self._codec(target)
+        dec.update(
+            init_features=self._dec("dec_init_features",
+                                    dec["init_features"]),
+            blocks=tuple(self._dec("dec_blocks", dec["blocks"])),
+            growth_rate=self._dec("dec_growth_rate", dec["growth_rate"]))
+        codec = dict(drop_rate=self.params["droprate"],
+                     pad_cin=self.params["codec_pad_cin"],
+                     compute_dtype=self._compute_dtype())
         decoder = CNNDecoder(
             target_img_size=target, dim_latent=self._gp("dim_latent"),
-            upsample="nearest", drop_rate=self.params["droprate"],
-            binary=self.params["binary_field"],
-            homoscedastic=self.params["homoscedastic"], **self._decoder)
+            upsample="nearest", binary=self.params["binary_field"],
+            homoscedastic=self.params["homoscedastic"], **dec, **codec)
         encoder = CNNEncoder(imsize=target,
-                             latent_dim=self._gp("dim_latent"),
-                             drop_rate=self.params["droprate"],
-                             **self._encoder)
+                             latent_dim=self._gp("dim_latent"), **enc,
+                             **codec)
         if not self.params["use_encoder"]:
             encoder = None
         return self._closure(physics, encoder, decoder, device, generator)
@@ -193,4 +239,30 @@ class highres32(ModelFactory):
         self.set(kwargs)
 
 
-_REGISTRY = {"highres": highres, "highres32": highres32}
+class highres128(ModelFactory):
+    """128x128 FOM / 8x8 ROM refined 4 times on 'NDP' (BASELINE config
+    3): latent 64, an 8x8x2 latent image and one decoder block per x2
+    up-sampling, ``log2(target / 8)`` of them."""
+
+    def __init__(self, **kwargs):
+        super().__init__()
+        self.params.update(
+            ptype="NDP", dim_latent=64, binary_field=False, dtype="float32",
+            nx_rom=8, ny_rom=8, eff_property_map_hidden_layers=0,
+            num_refines=4, droprate=0.0, homoscedastic=False)
+        self.set(kwargs)
+
+    def _codec(self, target: int):
+        n_up = int(math.log2(target // 8))
+        blocks = tuple(self._dec("dec_blocks", (1, 2, 1, 1, 1, 1)[:n_up]))
+        if len(blocks) != n_up:
+            raise ValueError(f"dec_blocks {blocks} must have {n_up} "
+                             f"entries for target {target}")
+        return (dict(latent_img_size=8, latent_img_features=2,
+                     init_features=16, blocks=blocks, growth_rate=8),
+                dict(blocks=(1, 2, 1, 1, 1)[:max(2, n_up - 1)],
+                     growth_rate=8, init_features=16))
+
+
+_REGISTRY = {"highres": highres, "highres32": highres32,
+             "highres128": highres128}

@@ -30,8 +30,11 @@ def rom_solve(M: torch.Tensor, alpha: torch.Tensor, F: torch.Tensor,
 
     alpha: (..., c) positive conductivities; F: (..., d) forces that carry
     the Dirichlet values at ``bc_dofs`` (host numpy, as the reference keeps
-    them).  Returns (..., d).  The reference's TPU ``max_chunk`` batching
-    is a TPU runtime workaround and is left out.
+    them).  Returns (..., d).  A system whose Cholesky factorisation fails
+    (not positive definite in the working precision) gives NaN, as
+    ``jnp.linalg.cholesky`` does in the JAX package, instead of raising;
+    ``cholesky_ex`` does not wait for the device.  The reference's TPU
+    ``max_chunk`` batching is a TPU runtime workaround and is left out.
     """
     dt = torch.promote_types(torch.promote_types(M.dtype, alpha.dtype),
                              F.dtype)
@@ -44,7 +47,9 @@ def rom_solve(M: torch.Tensor, alpha: torch.Tensor, F: torch.Tensor,
     F = F.expand(alpha.shape[:-1] + (d,))
     K = torch.einsum("ijc,...c->...ij", M, alpha)
     Kff = K[..., FREE[:, None], FREE[None, :]]
-    L = torch.linalg.cholesky(Kff)
+    L, info = torch.linalg.cholesky_ex(Kff)
+    L = torch.where((info != 0)[..., None, None],
+                    torch.full_like(L, float("nan")), L)
     rhs = F[..., FREE]
     if len(bc):
         Kfc = K[..., FREE[:, None], BC[None, :]]

@@ -6,8 +6,11 @@ per-datapoint posterior ``q`` over the validation fields, optimised by its
 own Adam against the reconstruction-only ELBO ``logL_x - KLD``.  Only
 ``q`` is optimised: the gradients are taken with respect to it alone, and
 the decoder runs in train mode (batch statistics) with its updated running
-statistics thrown away, as the reference discards them.  The
-reduced-precision hot-loop decode is not ported yet.
+statistics thrown away, as the reference discards them.  ``compute_dtype``
+is the hot loop's decode precision: the updates with ``final=True`` and a
+decoder without a compute dtype (the linear and MLP ones) run at full
+precision.  Only ``q`` is optimised, so a reduced-precision decode here
+never touches the training trajectory.
 """
 
 from __future__ import annotations
@@ -24,10 +27,12 @@ class PredictionEnsemble:
     ``schedule(count) -> lr`` with the optax count (update n uses
     ``schedule(n)``)."""
 
-    def __init__(self, model, X: torch.Tensor, schedule: Callable):
+    def __init__(self, model, X: torch.Tensor, schedule: Callable,
+                 compute_dtype=None):
         self.model = model
         self.X = X
         self.schedule = schedule
+        self.compute_dtype = compute_dtype
         self.q = va.init_variational(X.shape[0], model.dim_latent,
                                      dtype=X.dtype, device=X.device)
         self.optimizer = torch.optim.Adam(self.q.parameters(),
@@ -38,26 +43,34 @@ class PredictionEnsemble:
         return [b for name, b in self.model.f.named_buffers()
                 if name.endswith(("running_mean", "running_var"))]
 
-    def elbo(self, q, generator=None):
+    def _decode_dtype(self, final: bool):
+        if final or self.compute_dtype is None \
+                or not hasattr(self.model.f, "compute_dtype"):
+            return None
+        return self.compute_dtype
+
+    def elbo(self, q, generator=None, final: bool = False):
         """Reconstruction-only ELBO -> (elbo, logL)."""
         Z = va.sample(q, generator)
         saved = [b.clone() for b in self._bn_buffers()]
-        predict_x = self.model.apply_decoder(Z, train=True,
-                                             generator=generator)
+        predict_x = self.model.apply_decoder(
+            Z, train=True, generator=generator,
+            compute_dtype=self._decode_dtype(final))
         with torch.no_grad():  # the reference discards the stats update
             for b, s in zip(self._bn_buffers(), saved):
                 b.copy_(s)
         logL = self.model.random_field_likelihood(predict_x, self.X)
         return logL - va.kld(q), logL
 
-    def update(self, num_iter: int, generator=None):
+    def update(self, num_iter: int, generator=None, final: bool = False):
         """``num_iter`` Adam steps on q only -> (last elbo, last logL),
-        each as of before its step (detached)."""
+        each as of before its step (detached); ``final`` decodes at full
+        precision."""
         params = [self.q["mean"], self.q["logsigma"]]
         elbo = logL = torch.zeros((), dtype=self.X.dtype,
                                   device=self.X.device)
         for _ in range(num_iter):
-            elbo, logL = self.elbo(self.q, generator)
+            elbo, logL = self.elbo(self.q, generator, final)
             grads = torch.autograd.grad(-elbo, params)
             for p, g in zip(params, grads):
                 p.grad = g

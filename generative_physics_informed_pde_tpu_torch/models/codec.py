@@ -2,10 +2,10 @@
 
 Port of ``generative_physics_informed_pde_tpu/models/codec.py``:
 ``NormReluConv``, ``DenseLayer``, ``DenseBlock``, ``TransitionDown``,
-``TransitionUp``, ``LastDecoding`` and the nearest x2 upsampling.  Tensors
-are NCHW inside the modules.  Submodules carry the Flax module names
-(``BatchNorm_0``, ``Conv_0``, ``DenseLayer_0``, ...) so that ``convert.py``
-maps a Flax parameter tree onto them path for path.
+``TransitionUp``, ``LastDecoding`` and the nearest and bilinear x2
+upsamplings.  Tensors are NCHW inside the modules.  Submodules carry the
+Flax module names (``BatchNorm_0``, ``Conv_0``, ``DenseLayer_0``, ...) so
+that ``convert.py`` maps a Flax parameter tree onto them path for path.
 
 BatchNorm follows Flax: in eval mode it reads the running statistics; in
 train mode (``module.train()``) it normalises with the batch mean and the
@@ -17,15 +17,67 @@ so the update is written out here.  Channel dropout (Flax ``Dropout`` with
 module tree stays the Flax parameter tree.  Its masks come from the
 caller's ``torch.Generator``, handed down every ``forward`` as
 ``generator``, through :func:`dropout_mask`, the one place a mask is
-drawn.  Channel padding, bilinear upsampling and the reduced-precision
-compute dtypes are not ported yet.
+drawn.
+
+Reduced precision follows Flax's module ``dtype`` as the JAX codec uses
+it, written as explicit casts: every module takes ``compute_dtype`` (None:
+full precision) as a forward-time argument over the same parameters.  A
+conv casts its input and kernel to it; BatchNorm reduces its batch
+statistics and updates its running averages in at least f32, normalises
+in f32 and returns the compute dtype; the parameters stay f32 masters.
+``torch.autocast`` is not used: its per-op policy (BatchNorm in f32 with
+f32 output) is another function.
+
+:func:`checkpointed` runs a train-mode codec apply under
+``torch.utils.checkpoint`` (the JAX package's ``remat_codec``): the
+recompute in the backward pass replays the first run's dropout masks and
+leaves the BatchNorm running statistics alone, so it is the same math.
 """
 
 from __future__ import annotations
 
+import threading
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+
+class _RematState(threading.local):
+    """The dropout masks of a checkpointed apply: recorded on its first
+    run, replayed (and the running statistics left alone) on its
+    recompute.  Thread-local: a CUDA backward recomputes on the autograd
+    engine's own thread."""
+
+    masks = None
+    replay = False
+
+
+_REMAT = _RematState()
+
+
+def checkpointed(fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward pass
+    instead of kept; the recompute draws no dropout mask and updates no
+    running statistic, so values, gradients, statistics and the
+    generator's state are those of the plain call."""
+    masks = []
+    runs = [0]
+
+    def run(*a):
+        saved = (_REMAT.masks, _REMAT.replay)
+        replay = runs[0] > 0
+        runs[0] += 1
+        _REMAT.masks, _REMAT.replay = (list(masks) if replay else masks,
+                                       replay)
+        try:
+            return fn(*a)
+        finally:
+            _REMAT.masks, _REMAT.replay = saved
+
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def same_padding(size: int, kernel: int, stride: int) -> tuple:
@@ -38,43 +90,61 @@ def same_padding(size: int, kernel: int, stride: int) -> tuple:
 
 
 class SameConv2d(nn.Conv2d):
-    """Bias-free conv with Flax ``padding="SAME"`` semantics."""
+    """Bias-free conv with Flax ``padding="SAME"`` semantics; with a
+    ``compute_dtype`` its input, kernel and bias are cast to it."""
 
     def __init__(self, in_features: int, features: int, kernel: int,
                  stride: int = 1, bias: bool = False):
         super().__init__(in_features, features, kernel, stride=stride,
                          padding=0, bias=bias)
 
-    def forward(self, x):
+    def forward(self, x, compute_dtype=None):
         k, s = self.kernel_size[0], self.stride[0]
         py = same_padding(x.shape[-2], k, s)
         px = same_padding(x.shape[-1], k, s)
-        return super().forward(F.pad(x, (px[0], px[1], py[0], py[1])))
+        x = F.pad(x, (px[0], px[1], py[0], py[1]))
+        if compute_dtype is None:
+            return super().forward(x)
+        bias = None if self.bias is None else self.bias.to(compute_dtype)
+        return F.conv2d(x.to(compute_dtype), self.weight.to(compute_dtype),
+                        bias, self.stride)
 
 
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm over NCHW channels with Flax semantics (momentum 0.9,
-    epsilon 1e-5, biased running variance)."""
+    epsilon 1e-5, biased running variance).  With a ``compute_dtype`` the
+    statistics and the normalisation run in at least f32 and the output
+    is cast to it (Flax ``BatchNorm(dtype=...)``)."""
 
     MOMENTUM = 0.9  # Flax convention: running = 0.9 running + 0.1 batch
 
     def __init__(self, features: int):
         super().__init__(features, eps=1e-5)
 
-    def forward(self, x):
-        if not self.training:
+    def forward(self, x, compute_dtype=None):
+        if compute_dtype is None and not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, training=False,
                                 eps=self.eps)
-        mean = x.mean(dim=(0, 2, 3))
-        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0)
-        with torch.no_grad():
-            m = self.MOMENTUM
-            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        out_dtype = x.dtype if compute_dtype is None else compute_dtype
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
+        if self.training:
+            mean = x.mean(dim=(0, 2, 3))
+            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean,
+                              min=0)
+            if not _REMAT.replay:
+                with torch.no_grad():
+                    m = self.MOMENTUM
+                    self.running_mean.copy_(m * self.running_mean
+                                            + (1 - m) * mean)
+                    self.running_var.copy_(m * self.running_var
+                                           + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean[:, None, None]) * mul[:, None, None] \
+        y = (x - mean[:, None, None]) * mul[:, None, None] \
             + self.bias[:, None, None]
+        return y.to(out_dtype)
 
 
 def dropout_mask(shape, keep: float, generator, device) -> torch.Tensor:
@@ -89,21 +159,53 @@ def dropout_mask(shape, keep: float, generator, device) -> torch.Tensor:
     return (u < keep).to(device)
 
 
-def channel_dropout(x, rate: float, training: bool, generator=None):
-    """Flax ``Dropout(rate, broadcast_dims=(1, 2))`` on NCHW: whole
-    channels of a sample are zeroed, the rest scaled by 1/(1-rate); the
-    (N, C, 1, 1) mask comes from :func:`dropout_mask`, which raises
-    without a ``generator``."""
+def dropout(x, rate: float, training: bool, generator=None, shape=None):
+    """Flax ``Dropout(rate)``: entries zeroed by a Bernoulli mask of
+    ``shape`` (default ``x``'s; broadcast over the rest), the others
+    scaled by 1/(1-rate); the mask comes from :func:`dropout_mask`, which
+    raises without a ``generator`` (inside :func:`checkpointed`: recorded
+    on the first run, replayed on the recompute)."""
     if not training or rate <= 0:
         return x
     keep = 1.0 - rate
-    mask = dropout_mask(x.shape[:2] + (1, 1), keep, generator, x.device)
+    if _REMAT.replay:
+        mask = _REMAT.masks.pop(0)
+    else:
+        mask = dropout_mask(x.shape if shape is None else shape, keep,
+                            generator, x.device)
+        if _REMAT.masks is not None:
+            _REMAT.masks.append(mask)
     return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def channel_dropout(x, rate: float, training: bool, generator=None):
+    """Flax ``Dropout(rate, broadcast_dims=(1, 2))`` on NCHW: whole
+    channels of a sample are zeroed by an (N, C, 1, 1) mask."""
+    return dropout(x, rate, training, generator, x.shape[:2] + (1, 1))
 
 
 def upsample_nearest_2x(x):
     """Exact nearest-neighbour x2 upsampling, NCHW."""
     return x.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+
+
+def upsample_bilinear_2x(x):
+    """Bilinear x2 upsampling with ``align_corners=True`` (torch
+    ``UpsamplingBilinear2d(scale_factor=2)``), NCHW: output index i
+    samples input coordinate ``i (n-1) / (2n-1)``, a single row is
+    copied."""
+    return F.interpolate(x, scale_factor=2, mode="bilinear",
+                         align_corners=True)
+
+
+UPSAMPLE = {"nearest": upsample_nearest_2x,
+            "bilinear": upsample_bilinear_2x}
+
+
+def _upsample(kind: str):
+    if kind not in UPSAMPLE:
+        raise ValueError(f"upsample={kind!r}: one of {sorted(UPSAMPLE)}")
+    return UPSAMPLE[kind]
 
 
 class NormReluConv(nn.Module):
@@ -117,8 +219,9 @@ class NormReluConv(nn.Module):
         self.BatchNorm_0 = BatchNorm(in_features)
         self.Conv_0 = SameConv2d(in_features, features, kernel, stride)
 
-    def forward(self, x, generator=None):
-        x = self.Conv_0(F.relu(self.BatchNorm_0(x)))
+    def forward(self, x, generator=None, compute_dtype=None):
+        x = self.Conv_0(F.relu(self.BatchNorm_0(x, compute_dtype)),
+                        compute_dtype)
         return channel_dropout(x, self.drop_rate, self.training, generator)
 
 
@@ -138,20 +241,21 @@ class DenseLayer(nn.Module):
             self.NormReluConv_0 = NormReluConv(in_features, growth_rate,
                                                kernel=3)
 
-    def forward(self, x, generator=None):
+    def forward(self, x, generator=None, compute_dtype=None):
         y = x
         for layer in self.children():
-            y = layer(y, generator)
+            y = layer(y, generator, compute_dtype)
         y = channel_dropout(y, self.drop_rate, self.training, generator)
         return torch.cat([x, y], dim=1)
 
 
 class _GeneratorSequential(nn.Sequential):
-    """``nn.Sequential`` that hands the dropout generator to each child."""
+    """``nn.Sequential`` that hands the dropout generator and the compute
+    dtype to each child."""
 
-    def forward(self, x, generator=None):
+    def forward(self, x, generator=None, compute_dtype=None):
         for layer in self:
-            x = layer(x, generator)
+            x = layer(x, generator, compute_dtype)
         return x
 
 
@@ -189,33 +293,38 @@ class TransitionDown(_GeneratorSequential):
 
 
 class TransitionUp(nn.Module):
-    """Upsampling transition: norm-relu-conv1x1 -> norm-relu -> nearest
-    x2 -> conv3x3."""
+    """Upsampling transition: norm-relu-conv1x1 -> norm-relu -> x2
+    (``upsample``: 'nearest' or 'bilinear') -> conv3x3."""
 
     def __init__(self, in_features: int, out_features: int,
-                 drop_rate: float = 0.0):
+                 drop_rate: float = 0.0, upsample: str = "nearest"):
         super().__init__()
         self.drop_rate = drop_rate
+        self.upsample = _upsample(upsample)
         self.NormReluConv_0 = NormReluConv(in_features, out_features,
                                            kernel=1, drop_rate=drop_rate)
         self.BatchNorm_0 = BatchNorm(out_features)
         self.Conv_0 = SameConv2d(out_features, out_features, 3)
 
-    def forward(self, x, generator=None):
-        x = F.relu(self.BatchNorm_0(self.NormReluConv_0(x, generator)))
-        x = self.Conv_0(upsample_nearest_2x(x))
+    def forward(self, x, generator=None, compute_dtype=None):
+        cd = compute_dtype
+        x = F.relu(self.BatchNorm_0(self.NormReluConv_0(x, generator, cd),
+                                    cd))
+        x = self.Conv_0(self.upsample(x), cd)
         return channel_dropout(x, self.drop_rate, self.training, generator)
 
 
 class LastDecoding(nn.Module):
     """Final up-transition emitting the output channels: norm-relu-
-    conv3x3(f/2) -> norm-relu -> nearest x2 -> conv3x3(f/4) -> norm-relu
+    conv3x3(f/2) -> norm-relu -> x2 -> conv3x3(f/4) -> norm-relu
     -> conv5x5(out)."""
 
     def __init__(self, in_features: int, out_channels: int,
-                 drop_rate: float = 0.0, bias: bool = False):
+                 drop_rate: float = 0.0, bias: bool = False,
+                 upsample: str = "nearest"):
         super().__init__()
         f = in_features
+        self.upsample = _upsample(upsample)
         self.NormReluConv_0 = NormReluConv(f, f // 2, kernel=3,
                                            drop_rate=drop_rate)
         self.BatchNorm_0 = BatchNorm(f // 2)
@@ -223,7 +332,9 @@ class LastDecoding(nn.Module):
         self.BatchNorm_1 = BatchNorm(f // 4)
         self.Conv_1 = SameConv2d(f // 4, out_channels, 5, bias=bias)
 
-    def forward(self, x, generator=None):
-        x = F.relu(self.BatchNorm_0(self.NormReluConv_0(x, generator)))
-        x = self.Conv_0(upsample_nearest_2x(x))
-        return self.Conv_1(F.relu(self.BatchNorm_1(x)))
+    def forward(self, x, generator=None, compute_dtype=None):
+        cd = compute_dtype
+        x = F.relu(self.BatchNorm_0(self.NormReluConv_0(x, generator, cd),
+                                    cd))
+        x = self.Conv_0(self.upsample(x), cd)
+        return self.Conv_1(F.relu(self.BatchNorm_1(x, cd)), cd)

@@ -18,6 +18,7 @@ from torch import nn
 
 from ..fem.solvers import rom_solve
 from ..inference.likelihoods import reparametrize, standard_normal
+from .mlp import architecture_from_linear_decay
 
 
 class EffectivePropertyMap(nn.Module):
@@ -29,12 +30,9 @@ class EffectivePropertyMap(nn.Module):
                  num_hidden_layers: int = 0, independent_X: bool = True):
         super().__init__()
         self.independent_X = independent_X
-        widths = [latent_dim]
-        if num_hidden_layers > 0:
-            widths += [int(w) for w in np.linspace(
-                latent_dim, dim_effective_property,
-                num_hidden_layers + 2).astype(int)[1:-1]]
-        widths.append(dim_effective_property)
+        widths = [latent_dim, *architecture_from_linear_decay(
+            latent_dim, dim_effective_property, num_hidden_layers),
+            dim_effective_property]
         for i in range(len(widths) - 1):
             self.add_module(f"Dense_{i}",
                             nn.Linear(widths[i], widths[i + 1]))

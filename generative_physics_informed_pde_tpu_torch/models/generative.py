@@ -9,11 +9,26 @@ holding ``mean`` and ``logsigma``), all optimised by one Adam; the
 BatchNorm statistics are the modules' buffers, updated in place by every
 train-mode decode in the order the reference chains them.
 
-Ported: ``elbo_supervised``, ``elbo_unsupervised_amortized``,
-``elbo_virtual_observables`` (with the holdoff) and ``elbo`` with one
-Monte-Carlo sample, unfused decodes and the L2 penalty, and
-``propagate_vo_moments``.  Not ported yet: the non-amortized unsupervised
-term, fused decodes and ``n_mc > 1``.
+Options of the JAX package's model, as it defines them:
+
+* ``n_mc``: Monte-Carlo samples of the supervised term per ELBO, folded
+  into the batch N-major (the data repeated in ``jnp.repeat``'s order);
+  each likelihood is divided by ``n_mc``, the KLD and the entropy are not.
+* ``unsup_compute_dtype``: the codec's compute dtype in the unsupervised
+  terms (amortized and not), in train mode only; the supervised and VO
+  terms and eval mode run at full precision.
+* ``fuse_decodes``: one decode over the concatenated z-samples of the
+  active terms (BatchNorm batch statistics over all of them in train
+  mode) at full precision.  Every posterior draw of the terms is made
+  before it, in the order the unfused terms make them, so that in eval
+  mode the fused ELBO equals the unfused one bit for bit; in train mode
+  the dropout masks are drawn once for the fused batch.  Fewer than two
+  active terms keep the unfused semantics.
+* ``remat_codec``: train-mode codec applies under ``codec.checkpointed``
+  (activations recomputed in the backward pass, the same math).
+
+The JAX package's ``mc_sharding`` (its multi-device Monte-Carlo batch) is
+not ported.
 """
 
 from __future__ import annotations
@@ -27,8 +42,17 @@ from ..inference import variational as va
 from ..inference.likelihoods import (bernoulli_log_likelihood,
                                      diagonal_gaussian_log_likelihood,
                                      reparametrize, unit_gaussian_kld)
+from .codec import checkpointed
 from .components import (EffectivePropertyMap, ReducedOrderModelOperator,
                          propagate_gp_samples)
+
+
+def _dtype_for(module, compute_dtype):
+    """``compute_dtype`` where ``module`` supports one, else None (the
+    linear and MLP codecs run at their own precision)."""
+    if compute_dtype is None or not hasattr(module, "compute_dtype"):
+        return None
+    return compute_dtype
 
 
 class GenerativeModel(nn.Module):
@@ -41,8 +65,14 @@ class GenerativeModel(nn.Module):
                  encoder: Optional[nn.Module] = None,
                  f: Optional[nn.Module] = None, *,
                  independent_X: bool = True, binary_field: bool = False,
-                 reconstruct_log_eff_property: bool = True):
+                 reconstruct_log_eff_property: bool = True, n_mc: int = 1,
+                 fuse_decodes: bool = False, remat_codec: bool = False,
+                 unsup_compute_dtype=None):
         super().__init__()
+        self.n_mc = n_mc
+        self.fuse_decodes = fuse_decodes
+        self.remat_codec = remat_codec
+        self.unsup_compute_dtype = unsup_compute_dtype
         self.f = f
         self.g = g
         self.gp = gp
@@ -93,16 +123,31 @@ class GenerativeModel(nn.Module):
         return self
 
     # ------------------------------------------------------- applications
-    def apply_decoder(self, z, *, train: bool, generator=None):
+    def _run_codec(self, module, x, train, generator, compute_dtype):
+        module.train(train)
+        kw = {} if compute_dtype is None else {"compute_dtype": compute_dtype}
+        if train and self.remat_codec:
+            return checkpointed(lambda x: module(x, generator, **kw), x)
+        return module(x, generator, **kw)
+
+    def apply_decoder(self, z, *, train: bool, generator=None,
+                      compute_dtype=None):
         """Decode in train mode (batch statistics, running-stat update,
         dropout masks from ``generator``) or eval mode (running
-        statistics, no dropout)."""
-        self.f.train(train)
-        return self.f(z, generator)
+        statistics, no dropout); ``compute_dtype`` overrides the
+        decoder's."""
+        return self._run_codec(self.f, z, train, generator, compute_dtype)
 
-    def apply_encoder(self, x, *, train: bool = False, generator=None):
-        self.encoder.train(train)
-        return self.encoder(x, generator)
+    def apply_encoder(self, x, *, train: bool = False, generator=None,
+                      compute_dtype=None):
+        return self._run_codec(self.encoder, x, train, generator,
+                               compute_dtype)
+
+    def _unsup_dtypes(self, train: bool):
+        """(decoder, encoder) compute dtypes of the unsupervised terms:
+        ``unsup_compute_dtype`` in train mode where the codec takes one."""
+        dt = self.unsup_compute_dtype if train else None
+        return _dtype_for(self.f, dt), _dtype_for(self.encoder, dt)
 
     def apply_gp(self, z):
         return self.gp(z)
@@ -123,32 +168,50 @@ class GenerativeModel(nn.Module):
             torch.exp(target), torch.exp(mean), 2 * logsigma)
 
     # ------------------------------------------------------- ELBO pieces
+    def _mc_sample(self, q, generator):
+        """``n_mc`` draws per datapoint of ``q``, N-major (N * n_mc, dim),
+        or one draw per datapoint."""
+        if self.n_mc > 1:
+            return va.sample_all_components(q, generator, self.n_mc).reshape(
+                -1, q["mean"].shape[-1])
+        return va.sample(q, generator)
+
     def elbo_supervised(self, data, generator=None, *, train: bool = True,
-                        normalize: bool = False):
-        """Labeled-pair term -> (elbo, logs)."""
+                        normalize: bool = False, fused=None):
+        """Labeled-pair term -> (elbo, logs).  ``fused``: the draws
+        ('Z', 'X') and the decode ('predict_x') of the fused decode."""
         if self.disable_elbo_supervised:
             return 0.0, {}
         X, Y, F_ = data["X"], data["Y"], data["F_ROM_BC"]
         qz = self.q_z["supervised"]
-        Z = va.sample(qz, generator)
-        predict_x = self.apply_decoder(Z, train=train, generator=generator)
-        logL_x = self.random_field_likelihood(predict_x, X)
+        S = self.n_mc
+        if fused is None:
+            Z = self._mc_sample(qz, generator)
+            predict_x = self.apply_decoder(Z, train=train,
+                                           generator=generator)
+        else:
+            Z, predict_x = fused["Z"], fused["predict_x"]
+        if S > 1:
+            X, Y, F_ = (t.repeat_interleave(S, 0) for t in (X, Y, F_))
+        logL_x = self.random_field_likelihood(predict_x, X) / S
         DKL = va.kld(qz)
         if self.independent_X:
             qX = self.q_X["supervised"]
-            X_sample = va.sample(qX, generator)
+            X_sample = fused["X"] if fused else self._mc_sample(qX,
+                                                                generator)
             mu_X, logsigmas_X = self.apply_gp(Z)
-            logL_X = diagonal_gaussian_log_likelihood(X_sample, mu_X,
-                                                      2 * logsigmas_X)
+            logL_X = diagonal_gaussian_log_likelihood(
+                X_sample, mu_X, 2 * logsigmas_X) / S
             ent = va.entropy(qX)
         else:
             X_sample = self.apply_gp(Z)
             logL_X = 0.0
             ent = 0.0
         mu_y, logsigmas_y = self.apply_g(X_sample, F_)
-        logL_y = diagonal_gaussian_log_likelihood(Y, mu_y, 2 * logsigmas_y)
+        logL_y = diagonal_gaussian_log_likelihood(Y, mu_y,
+                                                  2 * logsigmas_y) / S
         if normalize:
-            bs = X.shape[0]
+            bs = data["X"].shape[0]
             logL_x, logL_y, logL_X, ent, DKL = (
                 v / bs for v in (logL_x, logL_y, logL_X, ent, DKL))
         elbo = logL_x + logL_y + logL_X + ent - DKL
@@ -161,14 +224,23 @@ class GenerativeModel(nn.Module):
 
     def elbo_unsupervised_amortized(self, X_batch, generator=None, *,
                                     train: bool = True,
-                                    normalize: bool = False):
-        """Amortized unlabeled term on a minibatch -> (elbo, logs)."""
+                                    normalize: bool = False, fused=None):
+        """Amortized unlabeled term on a minibatch -> (elbo, logs).
+        ``fused``: the encoder's ('Z' = (mean, logsigma)) and the decode
+        ('predict_x') of the fused decode."""
         if self.disable_elbo_unsupervised:
             return 0.0, {}
-        mean, logsigma = self.apply_encoder(X_batch, train=train,
-                                            generator=generator)
-        Z = reparametrize(generator, mean, logsigma)
-        predict_x = self.apply_decoder(Z, train=train, generator=generator)
+        if fused is None:
+            dec_dt, enc_dt = self._unsup_dtypes(train)
+            mean, logsigma = self.apply_encoder(
+                X_batch, train=train, generator=generator,
+                compute_dtype=enc_dt)
+            Z = reparametrize(generator, mean, logsigma)
+            predict_x = self.apply_decoder(Z, train=train,
+                                           generator=generator,
+                                           compute_dtype=dec_dt)
+        else:
+            (mean, logsigma), predict_x = fused["Z"], fused["predict_x"]
         logL_x = self.random_field_likelihood(predict_x, X_batch)
         DKL = unit_gaussian_kld(mean, 2 * logsigma)
         if normalize:
@@ -179,28 +251,56 @@ class GenerativeModel(nn.Module):
                       "ARM_unsupervised_DKL_z": DKL,
                       "ARM_unsupervised_elbo": elbo}
 
+    def elbo_unsupervised(self, X, generator=None, *, train: bool = True,
+                          normalize: bool = False):
+        """Non-amortized unlabeled term over the per-datapoint posterior
+        ``q_z['unsupervised']`` -> (elbo, logs).  Its KLD is that of
+        ``q_z['unsupervised']``: the JAX package's fix of the original
+        code, which took the supervised posterior's."""
+        if self.disable_elbo_unsupervised:
+            return 0.0, {}
+        qz = self.q_z["unsupervised"]
+        Z = va.sample(qz, generator)
+        predict_x = self.apply_decoder(
+            Z, train=train, generator=generator,
+            compute_dtype=self._unsup_dtypes(train)[0])
+        logL_x = self.random_field_likelihood(predict_x, X)
+        DKL = va.kld(qz)
+        if normalize:
+            logL_x, DKL = logL_x / X.shape[0], DKL / X.shape[0]
+        elbo = logL_x - DKL
+        return elbo, {"unsupervised_logL_x": logL_x,
+                      "unsupervised_DKL_z": DKL,
+                      "unsupervised_elbo": elbo}
+
     def elbo_virtual_observables(self, data, generator=None, *, vo_mean,
                                  vo_logsigma, holdoff: bool = False,
                                  train: bool = True,
-                                 normalize: bool = False):
+                                 normalize: bool = False, fused=None):
         """Virtual-observable term -> (elbo, logs): the VO posterior
         (vo_mean, vo_logsigma) over y stands in for labels through a
         reparameterised draw.  With ``holdoff`` only ``logL_x - DKL``
-        remains (the VO posterior is not used)."""
+        remains (the VO posterior is not used).  ``fused``: the draws
+        ('Z', 'X', 'y') and the decode ('predict_x') of the fused
+        decode."""
         if self.disable_elbo_vo:
             return 0.0, {}
         X, F_ = data["X"], data["F_ROM_BC"]
         qz = self.q_z["vo"]
-        Z = va.sample(qz, generator)
+        if fused is None:
+            Z = va.sample(qz, generator)
+            predict_x = self.apply_decoder(Z, train=train,
+                                           generator=generator)
+        else:
+            Z, predict_x = fused["Z"], fused["predict_x"]
         DKL = va.kld(qz)
-        predict_x = self.apply_decoder(Z, train=train, generator=generator)
         logL_x = self.random_field_likelihood(predict_x, X)
         if holdoff:
             logL_y = logL_X = ent = 0.0
         else:
             if self.independent_X:
                 qX = self.q_X["vo"]
-                X_sample = va.sample(qX, generator)
+                X_sample = fused["X"] if fused else va.sample(qX, generator)
                 mu_X, logsigmas_X = self.apply_gp(Z)
                 logL_X = diagonal_gaussian_log_likelihood(
                     X_sample, mu_X, 2 * logsigmas_X)
@@ -209,8 +309,8 @@ class GenerativeModel(nn.Module):
                 X_sample = self.apply_gp(Z)
                 logL_X = ent = 0.0
             mu_y, logsigmas_y = self.apply_g(X_sample, F_)
-            y_sample = reparametrize(generator, vo_mean.to(mu_y.dtype),
-                                     vo_logsigma.to(mu_y.dtype))
+            y_sample = fused["y"] if fused else self._vo_y_sample(
+                vo_mean, vo_logsigma, generator)
             logL_y = diagonal_gaussian_log_likelihood(y_sample, mu_y,
                                                       2 * logsigmas_y)
         if normalize:
@@ -235,26 +335,37 @@ class GenerativeModel(nn.Module):
         update the BatchNorm statistics in the reference's order."""
         total = 0.0
         logs = {}
+        vo_active = data.get("vo") is not None and vo_state is not None
+        fused = {}
+        # without the encoder the unsupervised decode is not part of the
+        # fused batch, and its BatchNorm update must not be dropped
+        if self.fuse_decodes and (self.encoder is not None
+                                  or data.get("unsupervised") is None):
+            fused = self._fused_decode(data, generator, vo_state=vo_state,
+                                       vo_holdoff=vo_holdoff, train=train)
         if data.get("unsupervised") is not None:
-            if self.encoder is None:
-                raise NotImplementedError(
-                    "the non-amortized unsupervised term is not ported yet")
-            e, lg = self.elbo_unsupervised_amortized(
-                data["unsupervised"]["X"], generator, train=train,
-                normalize=normalize)
+            X_u = data["unsupervised"]["X"]
+            if self.encoder is not None:
+                e, lg = self.elbo_unsupervised_amortized(
+                    X_u, generator, train=train, normalize=normalize,
+                    fused=fused.get("u"))
+            else:
+                e, lg = self.elbo_unsupervised(X_u, generator, train=train,
+                                               normalize=normalize)
             total += e
             logs.update(lg)
         if data.get("supervised") is not None:
             e, lg = self.elbo_supervised(data["supervised"], generator,
-                                         train=train, normalize=normalize)
+                                         train=train, normalize=normalize,
+                                         fused=fused.get("s"))
             total += e
             logs.update(lg)
-        if data.get("vo") is not None and vo_state is not None:
+        if vo_active:
             vo_mean, vo_logsigma = vo_state
             e, lg = self.elbo_virtual_observables(
                 data["vo"], generator, vo_mean=vo_mean,
                 vo_logsigma=vo_logsigma, holdoff=vo_holdoff, train=train,
-                normalize=normalize)
+                normalize=normalize, fused=fused.get("v"))
             total += e
             logs.update(lg)
         if l2_penalty is not None:
@@ -266,6 +377,62 @@ class GenerativeModel(nn.Module):
         logs["elbo"] = total
         return total, logs
 
+    def _vo_y_sample(self, vo_mean, vo_logsigma, generator):
+        dt = self.q_z["vo"]["mean"].dtype
+        return reparametrize(generator, vo_mean.to(dt), vo_logsigma.to(dt))
+
+    def _fused_decode(self, data, generator, *, vo_state, vo_holdoff: bool,
+                      train: bool) -> dict:
+        """ONE full-precision decode over the z-samples of the active
+        terms -> {term: {'Z', 'predict_x' and the term's other draws}}
+        for the terms 'u', 's' and 'v', or {} when fewer than two are
+        active (nothing is drawn then).  The draws are made in the unfused
+        terms' order; the unlabeled term's 'Z' is its encoder output."""
+        names = []
+        if data.get("unsupervised") is not None \
+                and self.encoder is not None \
+                and not self.disable_elbo_unsupervised:
+            names.append("u")
+        if data.get("supervised") is not None \
+                and not self.disable_elbo_supervised:
+            names.append("s")
+        if data.get("vo") is not None and vo_state is not None \
+                and not self.disable_elbo_vo:
+            names.append("v")
+        if len(names) < 2:
+            return {}
+        fused, parts = {}, []
+        for name in names:
+            if name == "u":
+                head = self.apply_encoder(data["unsupervised"]["X"],
+                                          train=train, generator=generator)
+                parts.append(reparametrize(generator, *head))
+                fused["u"] = {"Z": head}
+            elif name == "s":
+                parts.append(self._mc_sample(self.q_z["supervised"],
+                                             generator))
+                fused["s"] = {"Z": parts[-1]}
+                if self.independent_X:
+                    fused["s"]["X"] = self._mc_sample(
+                        self.q_X["supervised"], generator)
+            else:
+                parts.append(va.sample(self.q_z["vo"], generator))
+                fused["v"] = {"Z": parts[-1]}
+                if not vo_holdoff:
+                    if self.independent_X:
+                        fused["v"]["X"] = va.sample(self.q_X["vo"],
+                                                    generator)
+                    fused["v"]["y"] = self._vo_y_sample(*vo_state,
+                                                        generator)
+        out = self.apply_decoder(torch.cat(parts), train=train,
+                                 generator=generator)
+        lo = 0
+        for name, Z in zip(names, parts):
+            hi = lo + Z.shape[0]
+            fused[name]["predict_x"] = tuple(o[lo:hi] for o in out) \
+                if isinstance(out, tuple) else out[lo:hi]
+            lo = hi
+        return fused
 
     # ------------------------------------------------ VO moment propagation
     def propagate_vo_moments(self, data_vo, generator, n_monte_carlo: int):

@@ -13,10 +13,17 @@ draws come from one ``torch.Generator`` on the trainer's device, seeded by
 ``seed``; the virtual observables draw from their own, seeded by
 ``seed + 7919``, so turning them on does not shift the training draws.
 
+``N_monte_carlo_elbo`` sets the model's ``n_mc``; ``PE_compute_dtype``
+('auto': bf16 from 128^2 fields on) is the prediction ensemble's hot-loop
+decode precision, its final refinement runs at full precision; a
+scheduler spec with ``patience`` selects the plateau schedule, stepped on
+the ELBO at the monitor points; without ``armortized_bs`` the unlabeled
+term is the non-amortized one over the whole unlabeled chunk (the model
+drops its encoder).
+
 Left out: the ``lax.scan`` chunking and its ``_SCAN_BUCKETS`` (a dispatch
 device of the reference's jitted step; PyTorch runs eagerly), buffer
-donation, mesh sharding, checkpointing, the plateau schedule and the
-reduced-precision prediction-ensemble decode.
+donation, mesh sharding and checkpointing.
 """
 
 from __future__ import annotations
@@ -36,7 +43,7 @@ from ..inference.analysis import Analysis
 from ..inference.prediction import PredictionEnsemble
 from ..utils.device import resolve_device
 from .metrics import MetricsWriter
-from .schedules import make_schedule
+from .schedules import PlateauController, make_schedule
 
 DEFAULT_CONFIG = dict(
     lr_init=None,
@@ -50,8 +57,8 @@ DEFAULT_CONFIG = dict(
     # a burst of N_PE_updates_monitor (None: 8 * N_PE_updates) iterations
     N_PE_interval=8,
     N_PE_updates_monitor=None,
-    # 'auto' resolves to full precision below 128^2 fields, the only case
-    # ported
+    # prediction-ensemble hot-loop decode dtype: 'auto' resolves to bf16
+    # from 128^2 fields on and to full precision below
     PE_compute_dtype="auto",
     N_monte_carlo_analysis=64,
     N_monte_carlo_analysis_final=128,
@@ -80,6 +87,18 @@ DEBUG_CONFIG = dict(
 
 class TrainingDivergedError(RuntimeError):
     """Raised at a monitor point when the ELBO has gone non-finite."""
+
+
+def resolve_pe_compute_dtype(pe_dt, x_shape):
+    """The ``PE_compute_dtype`` config value against the validation field
+    shape (..., py, px): 'auto' is bf16 from 128^2 on, else None (full
+    precision); a dtype string is resolved."""
+    if isinstance(pe_dt, str) and pe_dt == "auto":
+        pe_dt = "bfloat16" if min(x_shape[-2:]) >= 128 else None
+    if isinstance(pe_dt, str):
+        from ..factories.model import fetch_dtype
+        return fetch_dtype(pe_dt)
+    return pe_dt
 
 
 class TrainerParameters:
@@ -140,6 +159,7 @@ class Trainer:
         # per-iteration ELBO as device scalars: no host sync per step
         self.elbo_history = []
         self.optimizer = None
+        self._plateau = None
 
     @classmethod
     def FromIdentifier(cls, identifier: str, margs=None, **kwargs):
@@ -211,16 +231,15 @@ class Trainer:
                 raise ValueError("N_u > 0 needs a non-empty unsupervised "
                                  "chunk")
             datasets["unsupervised"].restrict(Nu)
-            if armortized_bs is None:
-                raise NotImplementedError(
-                    "the non-amortized unsupervised term is not ported "
-                    "yet; set armortized_bs")
         else:
             datasets.pop("unsupervised", None)
             armortized_bs = None
         if armortized_bs is not None and self.encoder is None:
             raise RuntimeError("amortized batch size set but factory has no"
                                " encoder")
+        if armortized_bs is None and Nu > 0:
+            # the non-amortized term: a per-datapoint q_z, no encoder
+            self.model.encoder = None
         self._armortized_bs = armortized_bs
         self.datasets = datasets
 
@@ -229,17 +248,25 @@ class Trainer:
         """Create the posteriors, the optimisers and the analyses."""
         if self._config is None:
             raise RuntimeError("Config has not yet been setup")
-        if scheduler_spec and "patience" in scheduler_spec:
-            raise NotImplementedError(
-                "the plateau schedule is not ported yet")
         if self.get("l1_penalty") is not None:
             raise NotImplementedError(
                 "l1_penalty is declared but not implemented (the "
                 "reference raises as well); use l2_penalty")
-        if self.get("N_monte_carlo_elbo") != 1:
-            raise NotImplementedError("only N_monte_carlo_elbo=1 is ported")
         lr = self.get("lr_init")
-        self._schedule = make_schedule(scheduler_spec, lr)
+        self._plateau = None
+        spec = scheduler_spec
+        if spec and "patience" in spec:
+            # ReduceLROnPlateau: the host scales the lr at monitor points;
+            # the prediction ensemble's lr stays constant
+            self._plateau = PlateauController(
+                patience=spec["patience"],
+                threshold=spec.get("threshold", 1e-3),
+                factor=spec.get("factor", 0.1),
+                min_lr=spec.get("min_lr", 1e-3),
+                mode=spec.get("mode", "max"), lr_init=lr)
+            spec = None
+        self._schedule = make_schedule(spec, lr)
+        self.model.n_mc = self.get("N_monte_carlo_elbo")
 
         ds = self.datasets
         keys = ("X", "Y", "F_ROM_BC")
@@ -266,19 +293,16 @@ class Trainer:
         self.optimizer = torch.optim.Adam(self._params, lr=self._schedule(0))
 
         X_val = ds["validation"].get("X")
-        pe_dt = self.get("PE_compute_dtype")
-        if not (pe_dt is None or (pe_dt == "auto"
-                                  and min(X_val.shape[-2:]) < 128)):
-            raise NotImplementedError(
-                "a reduced-precision prediction-ensemble decode is not "
-                "ported yet")
         # the PE's Adam advances N_PE_updates counts per active iteration,
         # N_PE_updates / N_PE_interval per iteration on average
         pe_sched = make_schedule(
-            scheduler_spec, lr,
+            spec, lr,
             steps_per_update=(self.get("N_PE_updates")
                               / max(1, int(self.get("N_PE_interval") or 1))))
-        self._PE = PredictionEnsemble(self.model, X_val, pe_sched)
+        self._PE = PredictionEnsemble(
+            self.model, X_val, pe_sched,
+            compute_dtype=resolve_pe_compute_dtype(
+                self.get("PE_compute_dtype"), X_val.shape))
 
         data_val = {k: ds["validation"].get(k) for k in keys}
         self._data_val = data_val
@@ -303,7 +327,9 @@ class Trainer:
         if self.update_vo():
             self.update_virtual_observables(self.gn)
         data = {"supervised": self._data_sup}
-        if self._X_unsup is not None:
+        if self._X_unsup is not None and model.encoder is None:
+            data["unsupervised"] = {"X": self._X_unsup}
+        elif self._X_unsup is not None:
             idx = minibatch_indices(self.generator, self._X_unsup.shape[0],
                                     self._armortized_bs,
                                     device=self.device)
@@ -324,7 +350,7 @@ class Trainer:
             if p.grad is None:  # optax updates moments on zero gradients
                 p.grad = torch.zeros_like(p)
         for group in self.optimizer.param_groups:
-            group["lr"] = self._schedule(self.gn)
+            group["lr"] = self.lr(self.gn)
         self.optimizer.step()
 
         interval = int(self.get("N_PE_interval") or 1)
@@ -341,6 +367,13 @@ class Trainer:
         self._global_iteration_counter += 1
         self.elbo_history.append(logs["elbo"])
         return logs
+
+    def lr(self, step: int) -> float:
+        """The learning rate of update ``step``: the schedule's, or
+        ``lr_init`` times the plateau scale."""
+        if self._plateau is not None:
+            return self._plateau.lr_init * self._plateau.scale
+        return self._schedule(step)
 
     def _pe_logs(self, pe_elbo, pe_logL) -> dict:
         return {"PredictionEnsemble/elbo": pe_elbo,
@@ -399,6 +432,10 @@ class Trainer:
                         f"non-finite ELBO at iteration {n} -- training "
                         "diverged (set trainer config halt_on_divergence="
                         "False to keep stepping anyway)")
+                if self._plateau is not None:
+                    self._plateau.step(elbo)
+                    for group in self.optimizer.param_groups:
+                        group["lr"] = self.lr(self.gn)
                 logs = self._pe_monitor_burst(logs)
                 self._record(logs)
                 if verbose:
@@ -409,7 +446,7 @@ class Trainer:
                 callback(n, self.gn)
         n_final = self.get("N_PE_updates_final") * self.get("N_PE_updates")
         if n_final > 0:
-            self._PE.update(n_final, self.generator)
+            self._PE.update(n_final, self.generator, final=True)
         self._analysis.eval_all_y(
             self._PE.q, self.generator,
             self.get("N_monte_carlo_analysis_final"),
@@ -447,7 +484,7 @@ class Trainer:
         self.writer.add_scalar(
             "Monitoring/S_avg_precisions",
             torch.mean(1.0 / torch.exp(self.model.g.logsigmas_y) ** 2), gn)
-        self.writer.add_scalar("Monitoring/lr", self._schedule(gn), gn)
+        self.writer.add_scalar("Monitoring/lr", self.lr(gn), gn)
 
         n_mc = self.get("N_monte_carlo_analysis")
         self._analysis.eval_all_y(self._PE.q, self.generator, n_mc,

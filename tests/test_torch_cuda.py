@@ -500,3 +500,107 @@ def test_vo_failure_containment_on_the_card():
         assert bool((ve.mean == 0).all())
     for a, b in zip(results["cuda"], results["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-14)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ident,train", [("highres32", False),
+                                         ("highres32", True),
+                                         ("highres128", False)])
+def test_bf16_codec_on_the_card_tracks_the_f32_codec(ident, train):
+    """The codec with bf16 convolutions (cuDNN, TF32 off) on the card
+    against the same f32 weights at full precision: outputs in f32 within
+    0.05 of the output scale, the bound of the JAX package's test on the
+    highres32 codec (tests/test_models.py, eval mode), here also in train
+    mode, and on the deeper highres128 codec in eval mode.  The highres128
+    codec in train mode (batch statistics of 16 fields, four up-sampling
+    blocks) moves further than that bound; the bf16 unlabeled term it
+    feeds is held to the JAX test's ELBO bound in chip_smoke.py phase 9."""
+    from generative_physics_informed_pde_tpu_torch.factories.model import (
+        ModelFactory)
+
+    _need_cuda()
+    torch.backends.cudnn.allow_tf32 = False
+    _, model, _, enc, _ = ModelFactory.FromIdentifier(ident).setup(
+        device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    n = model.f.target_img_size
+    z = torch.randn(16, model.dim_latent, generator=g, device="cuda")
+    x = 0.4 + torch.randn(16, n, n, generator=g, device="cuda")
+    out = {}
+    for cd in (None, torch.bfloat16):
+        m = model  # the same weights; BatchNorm state reset below
+        state = {k: v.clone() for k, v in m.state_dict().items()}
+        mean, logsigma = m.apply_decoder(z, train=train, compute_dtype=cd)
+        head = m.apply_encoder(x, train=train, compute_dtype=cd)
+        m.load_state_dict(state)
+        out[cd] = [t.detach() for t in (mean, logsigma, *head)]
+        assert all(t.dtype == torch.float32 for t in out[cd])
+    for a, b in zip(out[torch.bfloat16], out[None]):
+        assert bool(torch.isfinite(a).all())
+        assert (a - b).abs().max() < 0.05 * b.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [129, 65, 5])
+def test_stencil_kernel_bit_equal_at_the_128_vcycle_levels(n):
+    """K1 at levels of the 128^2 f64 V-cycle (129^2 nodes down to 5^2) at
+    the label dispatch's batch of 128."""
+    _need_cuda()
+    grid = fem.StructuredTriGrid(n - 1, n - 1)
+    op = fem.StencilOperator(grid)
+    g = torch.Generator().manual_seed(n)
+    alphas = torch.exp(torch.randn(128, grid.n_cells, generator=g,
+                                   dtype=torch.float64)).cuda()
+    coefs = op.coefficients(alphas).permute(1, 2, 3, 0).contiguous()
+    v = torch.randn(n, n, 128, generator=g, dtype=torch.float64).cuda()
+    mask = torch.as_tensor(
+        fem.DirichletProfile(grid).free_mask.reshape(n, n, 1),
+        dtype=torch.float64).cuda()
+    got = apply_stencil(coefs, v, mask)
+    ref = apply_stencil_reference(coefs, v, mask)
+    assert torch.equal(got.view(torch.int64), ref.view(torch.int64))
+
+
+@pytest.mark.cuda
+def test_fused_decode_equals_unfused_in_eval_on_the_card():
+    """One decode over the supervised (two MC samples), unlabeled and VO
+    z-samples equals the three decodes bit for bit in eval mode on the
+    card (cuDNN may not pick a batch-dependent algorithm in eval)."""
+    from generative_physics_informed_pde_tpu_torch.factories import highres128
+
+    _need_cuda()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        _, model, _, _, _ = highres128(nx_rom=4, ny_rom=4, num_refines=3,
+                                       dtype="float64").setup(device="cuda")
+        rng = np.random.default_rng(0)
+        dim_y = model.dim_y
+        n_rom = model.g.rom.M.shape[0]
+
+        def t(*shape, loc=0.0):
+            return torch.as_tensor(rng.normal(loc, 0.5, shape),
+                                   device="cuda")
+
+        data = {"supervised": {"X": t(3, 32, 32, loc=0.4), "Y": t(3, dim_y),
+                               "F_ROM_BC": t(3, n_rom)},
+                "unsupervised": {"X": t(5, 32, 32, loc=0.4)},
+                "vo": {"X": t(2, 32, 32, loc=0.4), "F_ROM_BC": t(2, n_rom)}}
+        model.init_params({k: {"X": v["X"]} for k, v in data.items()
+                           if k != "unsupervised"})
+        model.n_mc = 2
+        vo_state = (t(2, dim_y), torch.full((2, dim_y), -1.0,
+                                            dtype=torch.float64,
+                                            device="cuda"))
+        logs = {}
+        for fuse in (False, True):
+            model.fuse_decodes = fuse
+            gen = torch.Generator(device="cuda").manual_seed(4)
+            with torch.no_grad():
+                _, logs[fuse] = model.elbo(data, gen, train=False,
+                                           vo_state=vo_state)
+        for k, v in logs[False].items():
+            assert torch.equal(torch.as_tensor(logs[True][k]),
+                               torch.as_tensor(v)), k
+    finally:
+        torch.backends.cudnn.deterministic = False
