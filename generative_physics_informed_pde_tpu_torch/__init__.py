@@ -16,8 +16,9 @@ Karhunen-Loeve and FFT random fields, the data loader and presets, the
 dense ROM solve, the DenseNet codec in train and eval mode with seeded
 channel dropout, the ELBO, virtual observables (constraint and energy
 arms, their stiffness applies on the stencil kernel), the prediction
-ensemble, the analysis metrics, the SVI trainer and pad-to-bucket
-serving.
+ensemble, the analysis metrics, the SVI trainer with checkpoint and
+resume, the metrics file, dataset files and pad-to-bucket serving with its
+on-disk bundle of ``torch.export`` programs.
 """
 
 __version__ = "0.1.0"

@@ -7,10 +7,11 @@ host numpy float64; labels come from the port's batched solve in dispatches
 of ``label_batch`` fields (the tail padded, as the reference pads it); the
 partition bookkeeping keeps the reference's permutation-compatible
 semantics, and a ``DataSet`` view hands out tensors of its dtype on its
-device.  ``from_sampler`` draws a pool from the port's random field.
-Left out: ``save``/``from_file`` (nothing here writes a dataset cache) and
-the reference's retry loop around a label dispatch, a guard against
-restarts of a remote TPU worker.
+device.  ``from_sampler`` draws a pool from the port's random field;
+``save`` / ``from_file`` keep the fields and their hash in the JAX
+package's file format (``np.savez`` of ``X`` and ``hash``), so a file moves
+between the two packages.  Left out: the reference's retry loop around a
+label dispatch, a guard against restarts of a remote TPU worker.
 """
 
 from __future__ import annotations
@@ -81,6 +82,20 @@ class DataLoader:
         generator = torch.Generator().manual_seed(0 if key is None
                                                   else int(key))
         return cls(draw_fields(sampler, N, generator, dtype, device))
+
+    # --------------------------------------------------------------- io
+    def save(self, path: str):
+        """Write the raw fields and their hash to ``path`` (``.npz``)."""
+        if not path.endswith(".npz"):
+            # np.savez appends '.npz' to any other name, so save() would
+            # write to a different file than from_file() later reads
+            raise ValueError(f"path must end with .npz, got {path!r}")
+        np.savez(path, X=self._X, hash=np.bytes_(self.hash.encode()))
+
+    @classmethod
+    def from_file(cls, path: str) -> "DataLoader":
+        with np.load(path, allow_pickle=False) as state:
+            return cls(X=state["X"], hash=bytes(state["hash"]).decode())
 
     # ------------------------------------------------------------ basic
     def lock_physics_assembly(self):
@@ -215,6 +230,19 @@ class DataLoader:
         return self._need(self._BCE, "BCE")
 
     # -------------------------------------------------------- partitions
+    def reset_partition(self, identifier: Optional[str] = None):
+        """Drop the partition ``identifier``, or every partition."""
+        if identifier is not None:
+            del self._permutation[identifier]
+            del self._assigned_chunks[identifier]
+            del self._state_indicator[identifier]
+        else:
+            self._permutation = {}
+            self._assigned_chunks = {}
+            self._state_indicator = {}
+        for ds in self._live_datasets():
+            ds.trigger_update()
+
     def ascending_partition(self, chunks, identifier="default",
                             ForceOverwrite=False):
         return self.randomized_partition(

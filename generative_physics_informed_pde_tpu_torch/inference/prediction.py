@@ -39,6 +39,17 @@ class PredictionEnsemble:
                                           lr=schedule(0))
         self.count = 0
 
+    def state_dict(self) -> dict:
+        """``q``, its Adam's state and the update count."""
+        return {"q": self.q.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "count": self.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.q.load_state_dict(state["q"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.count = int(state["count"])
+
     def _bn_buffers(self):
         return [b for name, b in self.model.f.named_buffers()
                 if name.endswith(("running_mean", "running_var"))]

@@ -1,5 +1,8 @@
-"""SVI training loop, learning-rate schedules and the metrics record."""
+"""SVI training loop, learning-rate schedules, the metrics record and
+checkpointing."""
 
+from .checkpoint import (restore_encoder_decoder, restore_train_state,
+                         save_encoder_decoder, save_train_state)
 from .metrics import MetricsWriter
 from .schedules import (PlateauController, constant_lr, make_schedule,
                         multistep_lr, step_lr)
@@ -13,5 +16,6 @@ __all__ = [
     "multistep_lr", "step_lr", "DEFAULT_CONFIG", "resolve_pe_compute_dtype",
     "CreateDataSetsFromPermutation",
     "CreateTrainer", "CreateTrainerFromPermutation", "Trainer",
-    "TrainerParameters", "TrainingDivergedError",
+    "TrainerParameters", "TrainingDivergedError", "save_train_state",
+    "restore_train_state", "save_encoder_decoder", "restore_encoder_decoder",
 ]

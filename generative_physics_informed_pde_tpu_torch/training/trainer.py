@@ -9,9 +9,16 @@ schedule's learning rate, and every ``N_PE_interval``-th iteration runs the
 prediction ensemble's inner Adam; the run loop monitors every
 ``N_monitor_interval`` iterations (a prediction-ensemble burst, then the
 analyses) and ends with the final refinement and evaluation.  The training
-draws come from one ``torch.Generator`` on the trainer's device, seeded by
-``seed``; the virtual observables draw from their own, seeded by
-``seed + 7919``, so turning them on does not shift the training draws.
+draws (minibatch indices, the ELBO's samples, dropout masks, the step's
+prediction-ensemble update) come from one ``torch.Generator`` on the
+trainer's device, seeded by ``seed``; the virtual observables draw from
+their own, seeded by ``seed + 7919``, so turning them on does not shift the
+training draws.  Each monitor point and the final refinement and analysis
+draw from a fresh generator seeded from ``(seed + c, gn)`` (the reference's
+``fold_in(PRNGKey(seed + c), gn)``), so how a run is split into ``run``
+calls does not change its training draws.  ``save_checkpoint`` /
+``restore_checkpoint`` (``checkpoint.py``) carry everything a resumed run
+needs, the generators' states included.
 
 ``N_monte_carlo_elbo`` sets the model's ``n_mc``; ``PE_compute_dtype``
 ('auto': bf16 from 128^2 fields on) is the prediction ensemble's hot-loop
@@ -23,7 +30,7 @@ drops its encoder).
 
 Left out: the ``lax.scan`` chunking and its ``_SCAN_BUCKETS`` (a dispatch
 device of the reference's jitted step; PyTorch runs eagerly), buffer
-donation, mesh sharding and checkpointing.
+donation and mesh sharding.
 """
 
 from __future__ import annotations
@@ -125,8 +132,9 @@ class Trainer:
     """Orchestrates SVI on the composite ELBO on ``device`` (default
     ``"cuda"``; raises without a card unless ``device="cpu"``)."""
 
-    def __init__(self, mf: ModelFactory, comment: str = "",
-                 debug: bool = False, seed: int = 0, device="cuda"):
+    def __init__(self, mf: ModelFactory, folder: Optional[str] = None,
+                 comment: str = "", debug: bool = False, seed: int = 0,
+                 device="cuda"):
         self.device = resolve_device(device)
         self._mf = mf
         physics, model, discriminative, encoder, dtype = mf.setup(
@@ -139,7 +147,7 @@ class Trainer:
         self._dtype = dtype
         self.debug = debug
         self.comment = comment
-        self.writer = MetricsWriter()
+        self.writer = MetricsWriter(folder, comment=comment)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         # the virtual observables' own draws (the reference folds its
         # PRNGKey(seed + 7919) with the step)
@@ -158,6 +166,8 @@ class Trainer:
         self._seed = seed
         # per-iteration ELBO as device scalars: no host sync per step
         self.elbo_history = []
+        # host values at the monitor points, where the host already waits
+        self._monitor = dict(elbo=[], elbo_iter=[], lr=[], lr_iter=[])
         self.optimizer = None
         self._plateau = None
 
@@ -197,6 +207,25 @@ class Trainer:
     @property
     def gn(self) -> int:
         return self._global_iteration_counter
+
+    def tinfo(self, N: Optional[int] = None):
+        """Average seconds per iteration, and the projection for ``N``."""
+        if self.gn == 0:
+            return
+        avg = self._global_runtime / self.gn
+        print(f"{self.gn} iterations in {self._global_runtime} seconds : "
+              f"that makes on average {avg} seconds per iteration")
+        if N is not None:
+            print(f"Will require (approx) {avg * N} for {N} iterations")
+
+    def _monitor_generator(self, offset: int) -> torch.Generator:
+        """A generator on the trainer's device for the draws of one monitor
+        point or of the final refinement and analysis, seeded from
+        ``(seed + offset, gn)``: offsets 13 (final PE refinement), 17
+        (final analysis), 37 (monitor PE burst) and 23 (monitor analyses),
+        as the reference's stateless keys."""
+        return torch.Generator(device=self.device).manual_seed(
+            ((self._seed + offset) << 32) + self.gn)
 
     # --------------------------------------------------------------- data
     def set_data_from_datasets(self, datasets, Nu, Ns, Nvo, VO=None,
@@ -446,9 +475,9 @@ class Trainer:
                 callback(n, self.gn)
         n_final = self.get("N_PE_updates_final") * self.get("N_PE_updates")
         if n_final > 0:
-            self._PE.update(n_final, self.generator, final=True)
+            self._PE.update(n_final, self._monitor_generator(13), final=True)
         self._analysis.eval_all_y(
-            self._PE.q, self.generator,
+            self._PE.q, self._monitor_generator(17),
             self.get("N_monte_carlo_analysis_final"),
             iteration=self.gn + self.get("N_PE_updates_final"))
 
@@ -466,7 +495,8 @@ class Trainer:
             return {k: v for k, v in logs.items()
                     if not (k.startswith("PredictionEnsemble")
                             and not math.isfinite(float(v)))}
-        pe_elbo, pe_logL = self._PE.update(int(n_burst), self.generator)
+        pe_elbo, pe_logL = self._PE.update(int(n_burst),
+                                           self._monitor_generator(37))
         return {**logs, **self._pe_logs(pe_elbo, pe_logL)}
 
     @torch.no_grad()
@@ -484,14 +514,19 @@ class Trainer:
         self.writer.add_scalar(
             "Monitoring/S_avg_precisions",
             torch.mean(1.0 / torch.exp(self.model.g.logsigmas_y) ** 2), gn)
-        self.writer.add_scalar("Monitoring/lr", self.lr(gn), gn)
+        lr = self.lr(gn)
+        self.writer.add_scalar("Monitoring/lr", lr, gn)
+        self._monitor["elbo_iter"].append(gn)
+        self._monitor["elbo"].append(float(logs["elbo"]))
+        self._monitor["lr_iter"].append(gn)
+        self._monitor["lr"].append(float(lr))
 
         n_mc = self.get("N_monte_carlo_analysis")
-        self._analysis.eval_all_y(self._PE.q, self.generator, n_mc,
-                                  iteration=gn)
+        generator = self._monitor_generator(23)
+        self._analysis.eval_all_y(self._PE.q, generator, n_mc, iteration=gn)
         if self.get("MonitorTraining") and self._data_sup["X"].shape[0] > 0:
             self._analysis_training.eval_all_y(
-                self.model.q_z["supervised"], self.generator, n_mc,
+                self.model.q_z["supervised"], generator, n_mc,
                 iteration=gn)
             if self._analysis_encoder is not None:
                 with torch.no_grad():
@@ -499,7 +534,7 @@ class Trainer:
                         self._data_val["X"], train=False)
                 # the reference uses the final MC count at this site
                 logscore, r2, relerr = self._analysis_encoder.eval_all_y(
-                    {"mean": mean, "logsigma": logsigma}, self.generator,
+                    {"mean": mean, "logsigma": logsigma}, generator,
                     self.get("N_monte_carlo_analysis_final"))
                 self.writer.add_scalar("validation_encoder/logscore_y",
                                        logscore, gn)
@@ -527,22 +562,89 @@ class Trainer:
             pass  # the run ended before the first analysis pass
         else:
             self.writer.add_hparams({"dummy": 0}, results)
+        self.writer.flush()
+        self.writer.close()
         self._finalized = True
 
-    def export_surrogate(self, *, buckets=None):
+    # ------------------------------------------------- checkpoint / resume
+    def save_checkpoint(self, path: str) -> str:
+        """Write the whole training state to one file at ``path`` (returns
+        its absolute path): the model's parameters, BatchNorm statistics
+        and posteriors, Adam's state, the prediction ensemble (``q``, its
+        Adam, its count), ``gn``, the runtime, the monitor series, the
+        plateau controller and the states of both generators.
+
+        The VO posterior is not written: the first step after a restore
+        reconditions it, as in the reference."""
+        from .checkpoint import save_train_state
+
+        if self.optimizer is None:
+            raise RuntimeError("call setup() before saving a checkpoint")
+        state = {"device_type": self.device.type,
+                 "model": self.model.state_dict(),
+                 "optimizer": self.optimizer.state_dict(),
+                 "prediction_ensemble": self._PE.state_dict(),
+                 "gn": self._global_iteration_counter,
+                 "runtime": self._global_runtime,
+                 "monitor": self._monitor,
+                 "generator": self.generator.get_state(),
+                 "vo_generator": self.vo_generator.get_state()}
+        if self._plateau is not None:
+            state["plateau"] = self._plateau.state_dict()
+        return save_train_state(path, state)
+
+    def restore_checkpoint(self, path: str):
+        """Load a :meth:`save_checkpoint` file into this trainer, built
+        as the one that wrote it.  A checkpoint written before the plateau
+        state was kept leaves the controller as it is.  A generator's
+        state is only valid on its device type, so a checkpoint from
+        another device type is refused (``checkpoint.
+        restore_encoder_decoder`` loads the codec's parameters across
+        devices)."""
+        from .checkpoint import restore_train_state
+
+        if self.optimizer is None:
+            raise RuntimeError("call setup() before restoring a checkpoint")
+        state = restore_train_state(path)
+        if state["device_type"] != self.device.type:
+            raise ValueError(
+                f"{path} was written by a trainer on "
+                f"{state['device_type']!r}, this one runs on "
+                f"{self.device.type!r}: its random generators' states do "
+                "not carry over; restore on the device type that wrote it "
+                "(restore_encoder_decoder loads the parameters alone)")
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self._PE.load_state_dict(state["prediction_ensemble"])
+        self.generator.set_state(state["generator"])
+        self.vo_generator.set_state(state["vo_generator"])
+        if self._plateau is not None and "plateau" in state:
+            self._plateau.load_state_dict(state["plateau"])
+        self._global_iteration_counter = int(state["gn"])
+        self._global_runtime = float(state["runtime"])
+        self._monitor = {k: list(v) for k, v in state["monitor"].items()}
+        self._vo_state = None
+        self._vo_is_initialized = False
+
+    def export_surrogate(self, path: Optional[str] = None, *, buckets=None):
         """The discriminative surrogate as a ``serving.SurrogateBundle``
-        over a frozen copy of the current weights (the reference's
-        StableHLO file export is not ported yet)."""
+        over a frozen copy of the current weights, in the trainer's dtype
+        on its device; with ``path`` also written there (one
+        ``torch.export`` program per bucket, see
+        ``SurrogateBundle.save``)."""
         from ..serving import DEFAULT_BUCKETS, SurrogateBundle
 
         if self.optimizer is None:
             raise RuntimeError("call setup()/run() before exporting")
         img = self.physics["fom"].grid.nx
-        return SurrogateBundle.build(
+        bundle = SurrogateBundle.build(
             self.discriminative_model, (img, img),
             self.physics["rom"].grid.n_nodes,
             buckets=DEFAULT_BUCKETS if buckets is None else buckets,
             dtype=self._dtype, device=self.device)
+        if path is not None:
+            bundle.save(path)
+        return bundle
 
     def info(self):  # pragma: no cover
         ds = self.datasets or {}
@@ -570,8 +672,9 @@ def CreateTrainerFromPermutation(params: TrainerParameters, permutation=None,
                                  permutation_u=None, dl=None, dlu=None,
                                  datasets=None, device="cuda") -> Trainer:
     trainer = Trainer.FromIdentifier(
-        params.identifier, params.margs, comment=params.comment,
-        debug=params.debug, seed=params.seed, device=device)
+        params.identifier, params.margs, folder=params.folder,
+        comment=params.comment, debug=params.debug, seed=params.seed,
+        device=device)
     if datasets is None:
         _, _, datasets = CreateDataSetsFromPermutation(
             params.identifier, permutation, permutation_u,

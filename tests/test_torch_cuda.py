@@ -604,3 +604,29 @@ def test_fused_decode_equals_unfused_in_eval_on_the_card():
                                torch.as_tensor(v)), k
     finally:
         torch.backends.cudnn.deterministic = False
+
+
+@pytest.mark.cuda
+def test_surrogate_bundle_saved_and_loaded_on_the_card(tmp_path):
+    """A bundle exported on the card, saved and loaded there predicts bit
+    for bit what the in-memory bundle predicts, at every bucket and past
+    the largest; a card bundle is refused on the CPU."""
+    _need_cuda()
+    from generative_physics_informed_pde_tpu_torch.factories import highres32
+    from generative_physics_informed_pde_tpu_torch.serving import (
+        SurrogateBundle)
+
+    dm = highres32().setup(device="cuda")[2]
+    bundle = SurrogateBundle.build(dm, (32, 32), 25, buckets=(8, 64),
+                                   device="cuda")
+    path = bundle.save(str(tmp_path / "surrogate.zip"))
+    loaded = SurrogateBundle.load(path, device="cuda")
+    rng = np.random.default_rng(0)
+    for n in (5, 8, 64, 70):
+        x = rng.normal(0.4, 0.8, (n, 32, 32))
+        F = rng.uniform(-0.5, 0.5, (n, 25))
+        got, want = loaded.predict(x, F), bundle.predict(x, F)
+        assert got.device.type == "cuda" and got.shape == want.shape
+        assert torch.equal(got, want), n
+    with pytest.raises(ValueError, match="device='cuda'"):
+        SurrogateBundle.load(path, device="cpu")

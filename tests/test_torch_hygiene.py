@@ -1,6 +1,8 @@
-"""Hygiene of the port: it imports nothing of JAX or the JAX package, its
-entry points refuse to fall back to the CPU silently, and chip_smoke.py
-runs only when executed, and only on a card."""
+"""Hygiene of the port: it, its runners (``examples/torch_*.py``) and
+chip_smoke.py import nothing of JAX or the JAX package, its entry points
+refuse to fall back to the CPU silently, its files are written only where
+the caller says, and chip_smoke.py runs only when executed, and only on a
+card."""
 
 import ast
 import importlib
@@ -38,8 +40,11 @@ def _forbidden(name: str) -> bool:
 
 
 def test_port_and_chip_smoke_import_no_jax():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] \
+        + sorted((ROOT / "examples").glob("torch_*.py"))
     assert len(files) > 15
+    assert {f.name for f in files} >= {"torch_baseline_configs.py",
+                                       "torch_train_highres32.py"}
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_modules(f) if _forbidden(m)]
     assert not bad, bad
@@ -152,3 +157,51 @@ def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path, alone):
                               "CUDA_VISIBLE_DEVICES": ""})
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def _repo_files():
+    """(path, size, mtime) of every file in the repo tree, without git's
+    own files and bytecode caches."""
+    out = set()
+    for path in ROOT.rglob("*"):
+        parts = path.relative_to(ROOT).parts
+        if ".git" in parts or "__pycache__" in parts or not path.is_file():
+            continue
+        st = path.stat()
+        out.add((str(path), st.st_size, st.st_mtime_ns))
+    return out
+
+
+def test_saves_write_only_under_the_given_path(tmp_path):
+    """A checkpoint, a surrogate bundle, a metrics file and a dataset file,
+    each saved under ``tmp_path``, write nothing in the repo tree."""
+    from generative_physics_informed_pde_tpu_torch.data import DataLoader
+    from generative_physics_informed_pde_tpu_torch.training import (
+        CreateTrainer, TrainerParameters, save_encoder_decoder)
+
+    rf = fem.GaussianRandomField.from_image(32, 32, 0.4, 0.8, 0.15)
+    X = rf.sample(torch.Generator().manual_seed(0), batch_size=20,
+                  dtype=torch.float64, device="cpu").numpy()
+    before = _repo_files()
+    p = TrainerParameters()
+    p.identifier = "highres32"
+    p.folder = str(tmp_path / "logs")
+    p.trainer.update(lr_init=1e-2, N_monitor_interval=1, N_PE_updates=1,
+                     N_PE_updates_final=1, N_monte_carlo_analysis=4,
+                     N_monte_carlo_analysis_final=4)
+    p.data.update(N_u=8, N_s=8, N_u_max=8, N_s_max=8, N_val=4,
+                  armortized_bs=4)
+    dlu = DataLoader(X[12:])
+    dlu.lock_physics_assembly()
+    dl = DataLoader(X[:12])
+    tr = CreateTrainer(p, dl, dlu, device="cpu")
+    tr.run(2, verbose=False)
+    tr.save_checkpoint(str(tmp_path / "ckpt.pt"))
+    save_encoder_decoder(str(tmp_path / "codec.pt"), tr.model)
+    tr.export_surrogate(str(tmp_path / "surrogate.zip"), buckets=(4,))
+    dl.save(str(tmp_path / "fields.npz"))
+    tr.finalize()
+    assert _repo_files() == before
+    assert {f.name for f in tmp_path.iterdir()} == {
+        "logs", "ckpt.pt", "codec.pt", "surrogate.zip", "fields.npz"}
+    assert (tmp_path / "logs" / "metrics.jsonl").stat().st_size > 0
