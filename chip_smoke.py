@@ -43,6 +43,12 @@ metrics file against its in-memory scalars; and config 2 ('highres' 64^2
 with the constrain virtual observables on 64 fields) through the runner,
 its labels under the V-cycle on K1 and its constraint assemblies on K1,
 with phase 4c's checks.
+Then BASELINE config 5 (phase 11, ``examples/torch_uncertainty_study.py``
+through the runner's ``config5``): 4 correlation lengths x 4096 FFT fields
+of 64^2 in one batched solve of 16,384 systems under the V-cycle on K1,
+cold and warm, every system's true residual, 256 of the fields in f64 on
+the card and the CPU, the per-case QOI moments against numpy's, and its
+ParameterStudy saved to a temporary directory and loaded back.
 Last, K1 and K2 run at every shape the main paths launched
 them at, each held bit for bit against its plain version and timed, with
 its launches derived from the paths' iteration counts (and checked against
@@ -182,6 +188,19 @@ RESUME_RTOL, RESUME_ATOL = 1e-6, 1e-7
 C2_STEPS, C2_HOLDOFF, C2_VO, C2_LABEL_BATCH = 150, 25, 64, 256
 C2_REFRESHES = [25, 50, 100]
 C2_PROFILED_STEPS = 10
+# Phase 11, BASELINE config 5 (examples/torch_uncertainty_study.py, through
+# the runner's config5 module): C5_CASES correlation lengths x C5_B fields
+# of C5_N^2 f32 in one batched solve of C5_SYSTEMS under the 5-level
+# V-cycle, cold and warm.  Checks: every system's true relative residual
+# (f64, plain apply, in slices of C5_SLICE) <= F32_FLOOR; C5_CHECK fields a
+# case solved in f64 on the card and on the CPU (plain path), their QOI
+# values to C5_F64_RTOL of each other and the f32 sweep's to F32_FLOOR of
+# them; the moments against numpy's f64 mean, std (ddof 0) and percentiles
+# of the gathered QOI to C5_MOMENT_RTOL.
+C5_CASES, C5_B, C5_N = 4, 4096, 64
+C5_SYSTEMS = C5_CASES * C5_B
+C5_SLICE, C5_CHECK = 4096, 64
+C5_F64_RTOL, C5_MOMENT_RTOL = 1e-10, 1e-6
 # Every shape (nodes a side, B, dtype) the main paths launch K1 and K2 at:
 # the highres32 label solve (f32), its VJP (f64) and training labels (f64,
 # B=256); the VO constraint assembly (f32, B=128) and the energy arm (f64,
@@ -189,7 +208,8 @@ C2_PROFILED_STEPS = 10
 # B=2048), of its VJP and of its training labels (f64, B=256); the six
 # levels of BASELINE config 3's 128^2 label solve (f64, B=128); config 2's
 # label dispatch (the 'highres' levels, f64, B=256) and its VO applies
-# (65^2 nodes, f32, B=64).  Phase 8
+# (65^2 nodes, f32, B=64); BASELINE config 5's sweep (the 'highres'
+# levels, f32, B=16,384).  Phase 8
 # derives each shape's launches from the paths' iteration counts and holds
 # this list to them.
 MG_NODES = (65, 33, 17, 9, 5)
@@ -209,7 +229,8 @@ STENCIL_SHAPES = {
                                for n in MG128_NODES}
                             | {(n, C2_LABEL_BATCH, "float64")
                                for n in MG_NODES}
-                            | {(MG_NODES[0], C2_VO, "float32")},
+                            | {(MG_NODES[0], C2_VO, "float32")}
+                            | {(n, C5_SYSTEMS, "float32") for n in MG_NODES},
                             key=lambda s: (-s[0], -s[1], s[2])),
     "apply_stencil_sym": [(33, 1024, "float32"), (33, 1024, "float64")]}
 STENCIL_GRIDS = {"apply_stencil": 7, "apply_stencil_sym": 4}
@@ -1391,6 +1412,156 @@ def phase10_persistence(card, c3, start_path, end_path, report_profile):
     return out
 
 
+def phase11_config5(card, start_path, end_path, report_profile):
+    """Phase 11: BASELINE config 5 (``examples/baseline_configs.py``
+    ``config5``: ``examples/torch_uncertainty_study.py`` with 4096 fields
+    a case) on the card.  The runner's study module sweeps 16,384 64^2
+    f32 fields in one batched solve under the V-cycle on K1, cold and then
+    warm with fresh fields (seed 1): seconds and solves/s on the host
+    clock after the moments reach the host, PCG iterations, K1 launches
+    per level, the warm sweep's device busy share and peak memory.  Then
+    its checks (see the C5_* constants) and a ParameterStudy of the four
+    cases saved to a temporary directory and loaded back.  Returns what
+    phase 8 and the records read."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from generative_physics_informed_pde_tpu_torch import fem
+    from generative_physics_informed_pde_tpu_torch.ops import (
+        apply_stencil_reference)
+    from generative_physics_informed_pde_tpu_torch.utils import (
+        ParameterStudy, StopWatch)
+
+    t_phase = time.perf_counter()
+    us = torch_runner().torch_uncertainty_study
+    if len(us.CORRLENGTHS) != C5_CASES:
+        raise AssertionError(f"the study sweeps {len(us.CORRLENGTHS)} cases")
+    say(f"phase 11: BASELINE config 5, the uncertainty sweep: "
+        f"{C5_CASES} correlation lengths x {C5_B} fields of {C5_N}^2 f32 in "
+        f"one batched solve of {C5_SYSTEMS}; card: {card}")
+    phys = fem.LinearEllipticPhysics("fom", "ND", fem.StructuredTriGrid(
+        C5_N, C5_N), device="cuda")
+    mg = phys._batched_solver.mg
+    if mg is None or mg.num_levels != len(MG_NODES):
+        raise AssertionError("'auto' did not pick the 5-level V-cycle")
+
+    def sweep(seed):
+        return us.qoi_sweep(phys, us.CORRLENGTHS, C5_B, n=C5_N, seed=seed,
+                            device="cuda")
+
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    start_path()
+    for what, seed in (("cold", 0), ("warm", 1)):
+        sw = StopWatch(start=True)
+        out = {k: v.cpu().numpy() for k, v in sweep(seed).items()}
+        runs[what] = {"s": sw.stop(), "iterations": phys.last_iterations,
+                      "out": out}
+    counts = end_path("11 config5 sweep")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_above_gb = (torch.cuda.max_memory_allocated() - mem0) / 1e9
+    per_level = [sum(c) for c in zip(*(mg_by_level(mg, r["iterations"])
+                                       for r in runs.values()))]
+    for what, r in runs.items():
+        say(f"  {what}: {r['s']:.3f} s, {C5_SYSTEMS / r['s']:.0f} solves/s, "
+            f"{r['iterations']} PCG iterations")
+    say(f"  K1 launches {counts}, per level "
+        f"{dict(zip(MG_NODES, per_level))}; peak memory {peak_gb:.2f} GB "
+        f"allocated ({peak_above_gb:.2f} GB above the phase's start)")
+    if counts["apply_stencil"] != sum(per_level) \
+            or sum(counts.values()) != counts["apply_stencil"]:
+        raise AssertionError("the config 5 sweep's launches differ from "
+                             "the count of the V-cycle's applies")
+    busy = report_profile("warm config 5 sweep", lambda: sweep(1),
+                          1e3 * runs["warm"]["s"])
+
+    say("  checks: the warm sweep's fields solved again, every residual, "
+        "f64 on the card and the CPU, the moments")
+    fields = us.sample_fields(us.CORRLENGTHS, C5_B, n=C5_N, seed=1,
+                              device="cuda")
+    bc = us.centre_bc_values(phys, C5_SYSTEMS)
+    alphas, Y = us.solve_systems(phys, fields, bc)
+    q = us.centre_qoi(phys, Y, bc)
+    res = torch.cat([true_residual(phys, Y[i:i + C5_SLICE],
+                                   alphas[i:i + C5_SLICE], bc[i:i + C5_SLICE],
+                                   apply_stencil_reference)
+                     for i in range(0, C5_SYSTEMS, C5_SLICE)])
+    max_res = res.max().item()
+    say(f"  true relative residual of all {res.numel()} systems: max "
+        f"{max_res:.3e} (bound {F32_FLOOR:g})")
+    if res.numel() != C5_SYSTEMS or not bool((res <= F32_FLOOR).all()):
+        raise AssertionError("a config 5 system's residual exceeds the f32 "
+                             "floor")
+    del Y, alphas, res
+    idx = (torch.arange(C5_CASES)[:, None] * C5_B
+           + torch.arange(C5_CHECK)).ravel()
+    f64 = fields[idx.cuda()].double()
+    q64 = {}
+    for device in ("cuda", "cpu"):
+        ph = phys if device == "cuda" else fem.LinearEllipticPhysics(
+            "fom", "ND", fem.StructuredTriGrid(C5_N, C5_N), device="cpu")
+        q64[device] = us.solve_qoi(ph, f64.to(device), us.centre_bc_values(
+            ph, len(idx), torch.float64)).cpu()
+    e64 = ((q64["cuda"] - q64["cpu"]).abs() / q64["cpu"].abs()).max().item()
+    e32 = ((q[idx.cuda()].double().cpu() - q64["cpu"]).abs()
+           / q64["cpu"].abs()).max().item()
+    say(f"  {len(idx)} fields in f64: QOI card vs CPU max rel {e64:.3e} "
+        f"(tolerance {C5_F64_RTOL:g}); f32 sweep vs f64 max rel {e32:.3e} "
+        f"(tolerance {F32_FLOOR:g})")
+    if not e64 <= C5_F64_RTOL or not e32 <= F32_FLOOR:
+        raise AssertionError("config 5's f64 QOI differ between card and "
+                             "CPU, or the f32 sweep's from them")
+    qn = q.double().cpu().numpy().reshape(C5_CASES, C5_B)
+    ref = {"mean": qn.mean(1), "std": qn.std(1),
+           "p5": np.percentile(qn, 5, axis=1),
+           "p95": np.percentile(qn, 95, axis=1)}
+    got = runs["warm"]["out"]
+    moment_err = max(float(np.max(np.abs(got[k] - v) / np.abs(v)))
+                     for k, v in ref.items())
+    for i, l in enumerate(us.CORRLENGTHS):
+        say(f"    l={l}: mean {got['mean'][i]:.6f} std {got['std'][i]:.6f} "
+            f"p5 {got['p5'][i]:.6f} p95 {got['p95'][i]:.6f}")
+    say(f"  moments vs numpy f64 of the gathered QOI: max rel "
+        f"{moment_err:.3e} (tolerance {C5_MOMENT_RTOL:g})")
+    if not all(np.isfinite(v).all() and v.shape == (C5_CASES,)
+               for r in runs.values() for v in r["out"].values()) \
+            or not moment_err <= C5_MOMENT_RTOL:
+        raise AssertionError("config 5's moments are not finite or differ "
+                             "from numpy's")
+    if not (np.all((got["mean"] > 0.2) & (got["mean"] < 0.8))
+            and np.all(got["std"] > 0) and np.all(got["p5"] < got["p95"])):
+        raise AssertionError(f"config 5's moments are degenerate: {got}")
+    study = us.build_study(got)
+    tmp = tempfile.mkdtemp()
+    try:
+        study.save(f"{tmp}/{us.STUDY_FILE}")
+        back = ParameterStudy.load(f"{tmp}/{us.STUDY_FILE}")
+    finally:
+        shutil.rmtree(tmp)
+    if {k: back.get(k) for k in back.keys()} \
+            != {k: study.get(k) for k in study.keys()}:
+        raise AssertionError("the config 5 study does not load back equal")
+    del fields, bc, q, f64
+    phase_s = time.perf_counter() - t_phase
+    say(f"  study of {len(study.keys())} cases saved and loaded back equal; "
+        f"phase 11 {phase_s:.1f} s")
+    return {"mg": mg, "iterations": {k: r["iterations"]
+                                     for k, r in runs.items()},
+            "seconds": {k: r["s"] for k, r in runs.items()},
+            "solves_per_s": {k: C5_SYSTEMS / r["s"] for k, r in runs.items()},
+            "launches_per_level": dict(zip(MG_NODES, per_level)),
+            "busy_share": busy, "peak_gb": peak_gb,
+            "peak_gb_above_start": peak_above_gb,
+            "max_true_residual": max_res, "f64_card_vs_cpu_rel": e64,
+            "f32_vs_f64_rel": e32, "moments_vs_numpy_rel": moment_err,
+            "moments": {k: v.tolist() for k, v in got.items()},
+            "phase_s": phase_s}
+
+
 def main() -> int:
     import torch
 
@@ -2433,7 +2604,8 @@ def main() -> int:
                              "the CPU")
 
 
-    # (run before phase 8, which checks K1 at every shape the paths used)
+    # (9-11 run before phase 8, which checks K1 at every shape the paths
+    # used)
     c3 = phase9_config3(card, gen, start_path, end_path, report_profile)
     c3_label_iters, mg_c3 = c3["label_iterations"], c3["mg"]
     c10 = phase10_persistence(card, c3, start_path, end_path,
@@ -2443,6 +2615,7 @@ def main() -> int:
     errors["apply_stencil"] = (max(errors["apply_stencil"][0],
                                    c2["k1_worst_abs"]),
                                errors["apply_stencil"][1])
+    c5 = phase11_config5(card, start_path, end_path, report_profile)
 
     # ------------------------------ 8. K1 and K2 at every main-path shape
     say("phase 8: K1 and K2 at every shape of the main paths: launches, "
@@ -2494,6 +2667,11 @@ def main() -> int:
     derived.append(("10d config2", "apply_stencil", MG_NODES[0], C2_VO,
                     "float32",
                     c2["k1_per_assembly"] * (1 + len(c2["refreshes"]))))
+    # config 5: the cold and the warm sweep, each one MG-PCG of all systems
+    for k in c5["iterations"].values():
+        for nodes, count in zip(MG_NODES, mg_by_level(c5["mg"], k)):
+            derived.append(("11 config5 sweep", "apply_stencil", nodes,
+                            C5_SYSTEMS, "float32", count))
     # K3: phase 6's chain at its first shape (padded nodes), no other path
     k3 = apply_stencil_sym_blocked.__name__
     derived.append((K3_CHAIN_PATH, k3, *K3_SHAPES[0], K3_CHAIN))
@@ -2612,7 +2790,9 @@ def main() -> int:
           "config2_vo": {k: c2[k] for k in (
               "label_iterations", "refreshes", "k1_per_assembly",
               "refresh_ms", "propagation_ms", "resample_ms",
-              "conditioning_ms")}}),
+              "conditioning_ms")},
+          "config5_mg": {k: c5[k] for k in (
+              "iterations", "launches_per_level", "seconds")}}),
         ("apply_stencil_sym", "stencil_sym.cu", f"{tpu}:129",
          "_make_sym_kernel",
          {"launches_per_label_solve": iters_sym + 1,
@@ -2659,6 +2839,8 @@ def main() -> int:
                 "results")},
             "svi_config2": {k: c2[k] for k in (
                 "steps_per_s", "busy_share", "results")},
+            "uncertainty_sweep_config5": {
+                k: v for k, v in c5.items() if k != "mg"},
             "persistence": {**c10["resume"], **c10["export"]},
             "predict_ms": {str(b): t for b, t in predict_ms.items()}}}
     ends = [t for _, t in PHASE_STARTS[1:]] + [time.perf_counter() - _T0]

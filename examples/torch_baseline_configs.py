@@ -24,6 +24,8 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import torch_uncertainty_study  # noqa: E402
 from generative_physics_informed_pde_tpu_torch.constraints import (  # noqa: E402
     vo_spec_preset)
 from generative_physics_informed_pde_tpu_torch.data import DataLoader  # noqa: E402
@@ -225,11 +227,10 @@ def config512(iterations=3000, device="cuda"):
 
 def config5(device="cuda"):
     """4096 batched PDE solves a step (an uncertainty-propagation sweep):
-    the JAX package runs ``examples/uncertainty_study.py``, which the port
-    does not have yet."""
-    raise NotImplementedError(
-        "config 5 needs a torch counterpart of examples/uncertainty_study.py"
-        " (ROADMAP A4: parallel and BASELINE config 5), not ported yet")
+    ``examples/torch_uncertainty_study.py`` with 4096 fields per
+    correlation length, as the JAX runner runs
+    ``examples/uncertainty_study.py 4096``."""
+    return torch_uncertainty_study.main(["4096"], device=device)
 
 
 CONFIGS = {"1": config1, "2": config2, "2e": config2e, "2h": config2h,

@@ -18,9 +18,13 @@ channel dropout, the ELBO, virtual observables (constraint and energy
 arms, their stiffness applies on the stencil kernel), the prediction
 ensemble, the analysis metrics, the SVI trainer with checkpoint and
 resume, the metrics file, dataset files and pad-to-bucket serving with its
-on-disk bundle of ``torch.export`` programs.
+on-disk bundle of ``torch.export`` programs; probes and quantities of
+interest, the study database and timers, and the sweep half of the
+parallel layer (``torch.distributed``: process sweeps, one-device and
+process meshes, batch sharding) that the uncertainty sweep
+(``examples/torch_uncertainty_study.py``) runs on.
 """
 
 __version__ = "0.1.0"
 
-from . import fem, models, ops  # noqa: F401
+from . import fem, models, ops, parallel, utils  # noqa: F401

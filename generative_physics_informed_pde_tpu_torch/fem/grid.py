@@ -59,6 +59,10 @@ class StructuredTriGrid:
         return 2 * self.nx * self.ny
 
     @property
+    def n_pixels(self) -> int:
+        return self.nx * self.ny
+
+    @property
     def hx(self) -> float:
         return self.lx / self.nx
 
@@ -96,6 +100,20 @@ class StructuredTriGrid:
         cells[0::2] = lower
         cells[1::2] = upper
         return cells
+
+    @cached_property
+    def cell_midpoints(self) -> np.ndarray:
+        """(n_cells, 2) float64 triangle centroids (DG0 "points",
+        reference: physics/RandomField.py:237-250)."""
+        return self.node_coords[self.cells].mean(axis=1)
+
+    @cached_property
+    def cell_areas(self) -> np.ndarray:
+        """(n_cells,) float64 triangle areas."""
+        p = self.node_coords[self.cells]  # (nc, 3, 2)
+        d1 = p[:, 1] - p[:, 0]
+        d2 = p[:, 2] - p[:, 0]
+        return 0.5 * np.abs(d1[:, 0] * d2[:, 1] - d1[:, 1] * d2[:, 0])
 
     # ------------------------------------------------------ boundary masks
     @cached_property

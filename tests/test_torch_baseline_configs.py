@@ -119,10 +119,20 @@ def test_every_config_builds_the_jax_recipe(runners, monkeypatch, which,
         assert t[k] == j[k], k
 
 
-def test_config5_names_the_missing_port(runners):
+def test_config5_names_the_missing_port(runners, monkeypatch):
+    """Config 5 runs the port's uncertainty study
+    (``examples/torch_uncertainty_study.py``) with 4096 fields per
+    correlation length, as the JAX runner runs ``uncertainty_study.py
+    4096``; its entry point is replaced by a recorder."""
     _, tmod = runners
-    with pytest.raises(NotImplementedError, match="A4"):
-        tmod.CONFIGS["5"]()
+    calls = []
+    monkeypatch.setattr(tmod.torch_uncertainty_study, "main",
+                        lambda argv, device: calls.append((argv, device)))
+    tmod.CONFIGS["5"]()
+    tmod.CONFIGS["5"](device="cpu")
+    assert calls == [(["4096"], "cuda"), (["4096"], "cpu")]
+    assert Path(tmod.torch_uncertainty_study.__file__).resolve() \
+        == EXAMPLES / "torch_uncertainty_study.py"
 
 
 def test_train_highres32_builds_the_jax_recipe(monkeypatch):

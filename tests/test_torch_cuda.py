@@ -630,3 +630,36 @@ def test_surrogate_bundle_saved_and_loaded_on_the_card(tmp_path):
         assert torch.equal(got, want), n
     with pytest.raises(ValueError, match="device='cuda'"):
         SurrogateBundle.load(path, device="cpu")
+
+
+@pytest.mark.cuda
+def test_uncertainty_sweep_on_the_card_equals_the_cpu():
+    """BASELINE config 5's solve and reduce
+    (``examples/torch_uncertainty_study.py``) at 32^2, 4 cases x 64 f64
+    fields drawn once on the CPU: the moments on the card (K1) equal the
+    CPU's (plain apply) to 1e-10 relative."""
+    _need_cuda()
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "examples" \
+        / "torch_uncertainty_study.py"
+    spec = importlib.util.spec_from_file_location("torch_uncertainty_study",
+                                                  path)
+    us = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(us)
+    fields = us.sample_fields(us.CORRLENGTHS, 64, n=32, dtype=torch.float64,
+                              device="cpu")
+    out = {}
+    for device in ("cuda", "cpu"):
+        phys = fem.LinearEllipticPhysics("fom", "ND", fem.StructuredTriGrid(
+            32, 32), device=device)
+        bc = us.centre_bc_values(phys, fields.shape[0], torch.float64)
+        before = apply_stencil.launches
+        q = us.solve_qoi(phys, fields.to(device), bc)
+        assert (apply_stencil.launches > before) == (device == "cuda")
+        out[device] = {k: v.cpu() for k, v in us.qoi_moments(
+            q, len(us.CORRLENGTHS)).items()}
+    for k, v in out["cpu"].items():
+        assert torch.isfinite(out["cuda"][k]).all()
+        assert ((out["cuda"][k] - v).abs() / v.abs()).max() <= 1e-10, k
