@@ -7,8 +7,9 @@ The recipes of ``examples/baseline_configs.py`` (configs 1, 2, 2e, 2h,
 2he, 3, 4, 5 and 512), built from ``generative_physics_informed_pde_tpu_
 torch`` on the card (``device="cuda"``); each config function also takes
 ``device="cpu"``.  The pools come from the port's random fields through
-``DataLoader.from_sampler`` (keys 0 and 1: the same pool on every device,
-not the JAX package's pool, whose random stream differs).  Long runs
+``DataLoader.from_sampler`` (keys 0 and 1, drawn on the device: the same
+pool on every run on one device type, another on the CPU, and not the JAX
+package's pool, whose random stream differs).  Long runs
 train in segments and checkpoint after each one to ``ckpt_dir/latest.pt``
 (relative to the working directory); started again with the same
 arguments, a run resumes from there.  Imports nothing of JAX.
@@ -145,9 +146,10 @@ def config2h(iterations=1000, device="cuda"):
     return _run(p, dl, dlu, iterations, device=device)
 
 
-def config2he(iterations=2000, device="cuda"):
+def config2he(iterations=2000, device="cuda",
+              ckpt_dir="results/config2he_ckpt"):
     """Energy virtual observables at 128^2; runs above 1000 iterations
-    checkpoint every 1000 to results/config2he_ckpt."""
+    checkpoint every 1000 to ``ckpt_dir``."""
     p = TrainerParameters()
     p.identifier = "highres128"
     p.trainer.update(lr_init=1e-3, N_monitor_interval=500,
@@ -164,7 +166,7 @@ def config2he(iterations=2000, device="cuda"):
     rf = GaussianRandomField.from_image(128, 128, 0.4, 0.8, 0.04,
                                         method="fft")
     dl, dlu = _loaders(rf, 64 + 64 + 64, 1024, device=device)
-    ckpt = "results/config2he_ckpt" if iterations > 1000 else None
+    ckpt = ckpt_dir if iterations > 1000 else None
     return _run(p, dl, dlu, iterations, ckpt_dir=ckpt, seg=1000,
                 device=device)
 
@@ -208,9 +210,10 @@ def config4(iterations=2000, device="cuda"):
     return _run(p, dl, dlu, iterations, device=device)
 
 
-def config512(iterations=3000, device="cuda"):
+def config512(iterations=3000, device="cuda",
+              ckpt_dir="results/config512_ckpt"):
     """Config 4's recipe one octave up: an 8^2 ROM against a 512^2 FOM,
-    checkpointing every 500 iterations to results/config512_ckpt."""
+    checkpointing every 500 iterations to ``ckpt_dir``."""
     p = TrainerParameters()
     p.identifier = "highres128"
     p.margs = {"num_refines": 6, "nx_rom": 8, "ny_rom": 8}  # FOM 512^2
@@ -221,8 +224,8 @@ def config512(iterations=3000, device="cuda"):
     rf = GaussianRandomField.from_image(512, 512, 0.4, 0.8, 0.08,
                                         method="fft")
     dl, dlu = _loaders(rf, 64 + 32, 1024, device=device)
-    return _run(p, dl, dlu, iterations, ckpt_dir="results/config512_ckpt",
-                seg=500, device=device)
+    return _run(p, dl, dlu, iterations, ckpt_dir=ckpt_dir, seg=500,
+                device=device)
 
 
 def config5(device="cuda"):

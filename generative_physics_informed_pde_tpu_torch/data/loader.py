@@ -68,19 +68,24 @@ class DataLoader:
         self._dependent_datasets = []
         self._hash = hash
         self._lock_physics_assembly = False
-        self.label_iterations = []  # of the last assemble, per dispatch
+        # of the last assemble: PCG iterations per dispatch, dispatch size
+        self.label_iterations = []
+        self.label_batch = None
 
     @classmethod
     def from_sampler(cls, sampler, N: int, key=None, dtype=torch.float64,
                      device="cuda") -> "DataLoader":
         """``N`` fields of ``sampler`` (a ``GaussianRandomField``) drawn in
         ``dtype`` on ``device``, in batches of its ``max_sample_batch``,
-        from a CPU ``torch.Generator`` seeded by ``key`` (default 0); the
-        fields are kept on the host in float64.  The same key gives the
-        same pool on every device, but not the JAX package's pool: the two
-        packages' random streams differ."""
-        generator = torch.Generator().manual_seed(0 if key is None
-                                                  else int(key))
+        from a ``torch.Generator`` on ``device`` seeded by ``key`` (default
+        0); the fields are kept on the host in float64.  As the JAX
+        package's, the draw runs on the accelerator when there is one (a
+        host generator draws 10,240 fields of 256^2 in minutes): the same
+        key gives the same pool on every run on one device type, but the
+        card's stream is not the CPU's, and neither is the JAX package's."""
+        device = resolve_device(device)
+        generator = torch.Generator(device).manual_seed(
+            0 if key is None else int(key))
         return cls(draw_fields(sampler, N, generator, dtype, device))
 
     # --------------------------------------------------------------- io
@@ -183,7 +188,7 @@ class DataLoader:
                     else r.astype(np.int64)
             Y = np.full((self.N, fom.dim_out), np.nan, dtype=np.float64)
         label_batch = max(8, min(label_batch, 2 ** 22 // fom.grid.n_cells))
-        self.label_iterations = []
+        self.label_iterations, self.label_batch = [], label_batch
         for k in range(-(-row_idx.size // label_batch)):
             sl = row_idx[k * label_batch: (k + 1) * label_batch]
             a = np.exp(self._X_DG[sl])

@@ -3,13 +3,15 @@
 Port of ``Analysis`` / ``DataPair`` from
 ``generative_physics_informed_pde_tpu/inference/analysis.py``: the whole
 Monte-Carlo sample -> propagate -> metric pipeline runs batched over the
-dataset.  The reference's ``_mc_chunk`` streaming of the Monte-Carlo axis
-bounds a TPU's memory at 512^2 and is left out: the highres32 working set
-(validation x samples x dofs) fits the card as it is.
+dataset.  Above an element budget the Monte-Carlo axis streams in equal
+chunks (``_mc_chunk``), as the reference's does: the working set stays
+bounded at 256^2 and 512^2, and the sample count is rounded up to fill the
+chunks, so the metrics average over the reference's number of samples.
 """
 
 from __future__ import annotations
 
+import math
 from math import prod
 from typing import Dict, Optional
 
@@ -19,6 +21,50 @@ from ..models import components
 from . import variational as va
 from .likelihoods import (coefficient_of_determination, predictive_logscore,
                           relative_error, standard_normal)
+
+
+# Largest Monte-Carlo block, in elements of the N x S_chunk x dim working
+# set, that one evaluation materialises; above it the samples stream in
+# chunks with first- and second-moment sums.  Read at call time (tests
+# patch it); the x evaluation's budget is 8 times tighter (the decoder's
+# intermediates run ~8x its output pixels).
+_EVAL_ELEMENT_BUDGET = 2 ** 27
+
+
+def _mc_chunk(n_monte_carlo: int, per_mc_elements: int,
+              budget: Optional[int] = None):
+    """(chunk, n_chunks): ``n_monte_carlo`` split into equal chunks whose
+    ``chunk * per_mc_elements`` stays under ``budget`` (default the module
+    budget); ``chunk * n_chunks >= n_monte_carlo``, the effective sample
+    count rounded up, never down."""
+    if budget is None:
+        budget = _EVAL_ELEMENT_BUDGET
+    chunk = max(1, min(n_monte_carlo, budget // max(per_mc_elements, 1)))
+    return chunk, math.ceil(n_monte_carlo / chunk)
+
+
+def _moments(draw, n_monte_carlo: int, per_mc_elements: int, budget: int):
+    """(mean, std, (chunk, n_chunks)) over the sample axis 1 of
+    ``draw(S)``'s (N, S, dim) samples: one draw of all samples (std
+    floored at 1e-6), or ``n_chunks`` draws of ``chunk`` in call order
+    whose sums give E[y] and E[y^2] - E[y]^2 over ``chunk * n_chunks``
+    samples (variance floored at 1e-12, the same floor)."""
+    chunk, n_chunks = _mc_chunk(n_monte_carlo, per_mc_elements, budget)
+    if n_chunks == 1:
+        S = draw(n_monte_carlo)
+        return (S.mean(dim=1),
+                torch.clamp(S.std(dim=1, correction=1), min=1e-6),
+                (chunk, n_chunks))
+    s1 = s2 = 0.0
+    for _ in range(n_chunks):
+        S = draw(chunk)
+        s1 = s1 + S.sum(dim=1)
+        s2 = s2 + S.square().sum(dim=1)
+        del S
+    S_eff = chunk * n_chunks
+    mean = s1 / S_eff
+    var = torch.clamp((s2 - S_eff * mean.square()) / (S_eff - 1), min=1e-12)
+    return mean, var.sqrt(), (chunk, n_chunks)
 
 
 class DataPair:
@@ -76,6 +122,9 @@ class Analysis:
             name: DataPair(writer, label, name)
             for name in ("relerr_x", "relerr_y", "logscore_x", "logscore_y",
                          "r2_y")}
+        # ("y" or "x", n_monte_carlo) -> (chunk, n_chunks) of the last
+        # evaluation: its metrics averaged chunk * n_chunks samples
+        self.mc_chunks = {}
 
     @torch.no_grad()
     def sample_predictive_y(self, q, generator, n_monte_carlo: int):
@@ -94,34 +143,42 @@ class Analysis:
 
     @torch.no_grad()
     def eval_all_y(self, q, generator, n_monte_carlo: int,
-                   iteration: Optional[int] = None):
-        """Record the y metrics at ``iteration``, or without one return
-        (logscore_y, r2_y, relerr_y)."""
-        Ys = self.sample_predictive_y(q, generator, n_monte_carlo)
-        # variance floor: a collapsed posterior must not give -log(0)
-        std = torch.clamp(Ys.std(dim=1, correction=1), min=1e-6)
-        out = y_metrics(Ys.mean(dim=1), std, self.data["Y"])
+                   iteration: Optional[int] = None,
+                   return_mean_std: bool = False):
+        """Record the y metrics at ``iteration`` (and with
+        ``return_mean_std`` return the predictive (y_mean, y_std)), or
+        without one return (logscore_y, r2_y, relerr_y)."""
+        if iteration is None and return_mean_std:
+            raise ValueError("return_mean_std needs an iteration")
+        Y = self.data["Y"]
+        y_mean, y_std, self.mc_chunks["y", n_monte_carlo] = _moments(
+            lambda S: self.sample_predictive_y(q, generator, S),
+            n_monte_carlo, Y.shape[0] * Y.shape[-1], _EVAL_ELEMENT_BUDGET)
+        out = y_metrics(y_mean, y_std, Y)
         if iteration is None:
             return (float(out["logscore_y"]), float(out["r2_y"]),
                     float(out["relerr_y"]))
         for k in ("relerr_y", "logscore_y", "r2_y"):
             self.series[k].append(iteration, out[k])
-        return None
+        return (y_mean, y_std) if return_mean_std else None
 
     @torch.no_grad()
     def eval_all_x(self, q, generator, n_monte_carlo: int,
                    iteration: Optional[int] = None) -> dict:
         """x metrics of eval-mode decodes of q's samples."""
         X = self.data["X"]
-        N = X.shape[0]
-        Zs = va.sample_all_components(q, generator, n_monte_carlo)
-        mean, logsigma = self.model.apply_decoder(
-            Zs.reshape(N * n_monte_carlo, -1), train=False)
-        eps = standard_normal(mean.shape, mean, generator)
-        Xs = (mean + torch.exp(logsigma) * eps).reshape(
-            N, n_monte_carlo, prod(X.shape[1:]))
-        std = torch.clamp(Xs.std(dim=1, correction=1), min=1e-6)
-        out = x_metrics(Xs.mean(dim=1), std, X)
+        N, dim_x = X.shape[0], prod(X.shape[1:])
+
+        def draw(S):
+            Zs = va.sample_all_components(q, generator, S)
+            mean, logsigma = self.model.apply_decoder(
+                Zs.reshape(N * S, -1), train=False)
+            eps = standard_normal(mean.shape, mean, generator)
+            return (mean + torch.exp(logsigma) * eps).reshape(N, S, dim_x)
+
+        x_mean, x_std, self.mc_chunks["x", n_monte_carlo] = _moments(
+            draw, n_monte_carlo, N * dim_x, _EVAL_ELEMENT_BUDGET // 8)
+        out = x_metrics(x_mean, x_std, X)
         if iteration is not None:
             for k in ("relerr_x", "logscore_x"):
                 self.series[k].append(iteration, out[k])

@@ -119,6 +119,18 @@ def test_every_config_builds_the_jax_recipe(runners, monkeypatch, which,
         assert t[k] == j[k], k
 
 
+@pytest.mark.parametrize("which,args", [("512", ()), ("2he", (2000,))])
+def test_checkpointing_configs_take_a_ckpt_dir(runners, monkeypatch, which,
+                                               args):
+    """Configs 512 and 2he checkpoint to the ``ckpt_dir`` a caller gives
+    (the default is the JAX runner's, checked above)."""
+    _, tmod = runners
+    rec = _record(monkeypatch, tmod)
+    tmod.CONFIGS[which](*args, ckpt_dir="elsewhere/ckpt")
+    assert rec["ckpt_dir"] == "elsewhere/ckpt"
+    assert rec["seg"] == (500 if which == "512" else 1000)
+
+
 def test_config5_names_the_missing_port(runners, monkeypatch):
     """Config 5 runs the port's uncertainty study
     (``examples/torch_uncertainty_study.py``) with 4096 fields per

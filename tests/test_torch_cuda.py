@@ -513,8 +513,9 @@ def test_bf16_codec_on_the_card_tracks_the_f32_codec(ident, train):
     highres32 codec (tests/test_models.py, eval mode), here also in train
     mode, and on the deeper highres128 codec in eval mode.  The highres128
     codec in train mode (batch statistics of 16 fields, four up-sampling
-    blocks) moves further than that bound; the bf16 unlabeled term it
-    feeds is held to the JAX test's ELBO bound in chip_smoke.py phase 9."""
+    blocks) moves further than that bound; chip_smoke.py phase 9 holds the
+    bf16 unlabeled term to the JAX test's ELBO bound on that test's model
+    and reports the highres128 model's."""
     from generative_physics_informed_pde_tpu_torch.factories.model import (
         ModelFactory)
 
