@@ -61,6 +61,15 @@ analysis's memory streamed and in one shot), and the virtual-observable
 configs 2e, 2h and 2he (energy at 64^2, constrain and energy at 128^2, their
 refreshes and energy updates on K1, each checked card vs CPU in f64); every
 validation analysis samples the JAX package's Monte-Carlo plan.
+Then the rest of the public API (phase 15): single-system solves
+(``fom.solve``, K1 at (33,33,1) and (65,65,1)) and their VJPs against the
+batched solve, the direct solve and finite differences;
+``solve_batched_vmap`` on the 1024 fields, each system stopped on its own
+criterion, against the single solves and timed beside ``solve_batched``;
+a source and a Neumann flux through ``solve_full``; the ROM calibration,
+card against CPU; ``DenseED`` at its class defaults; the highres32
+preset's dataset cache in a temporary directory; and
+``Analysis.from_encoder`` + ``eval_all``, card against CPU.
 Last, K1 and K2 run at every shape the main paths launched
 them at, each held bit for bit against its plain version and timed, with
 its launches derived from the paths' iteration counts (and checked against
@@ -262,6 +271,29 @@ VO_POOLS, VO_HOLDOFF, VO_PE_FINAL = (192, 1024, 0), 10, 10
 VO_STEPS = {"2e": 40, "2h": 60, "2he": 40}
 VO_REFRESHES = {"2e": [10, 20, 30], "2h": [10, 50], "2he": [10, 20, 30]}
 VO_MC_PLAN = (128, 1)
+# Phase 15, the rest of the API on the card.  (a) P15_SINGLE f64 single
+# solves of the labeled highres32 fields (K1 at (33,33,1)) and their VJPs,
+# held to the batched solve and its VJP to P15_BATCHED_RTOL (both PCGs stop
+# at a 1e-10 relative residual, the batched one only when its slowest
+# system has: on the CPU the two differ by up to 9.9e-10 over the 1024
+# fields), to the dense direct solve to DIRECT_RTOL (phase 3's bound; 7.3e-10
+# on the CPU over these 8 fields), and to a central
+# difference on 2 cells (FD_STEP, a solver to FD_TOL) to VJP_FD_RTOL; two
+# 'highres' 64^2 FFT fields (K1 at (65,65,1)) and a forced solve to the
+# dense solve; one f32 solve to the residual floor.  (b)
+# solve_batched_vmap's rows hold their single solves to P15_SINGLE_RTOL
+# (the same iterates, kept per system by a select).  (d) The calibration
+# at the JAX package's defaults (300 Adam steps, lr 1e-2), card vs CPU
+# f64, and the Galerkin oracle to the JAX test's 0.5.  (e) DenseED at its
+# class defaults, blocks (3, 6, 3), on 64 fields of 64^2 f32; card vs CPU
+# f64 on 4.  (f) The highres32 preset's dataset cache; a subclass with
+# P15_STALE_N labeled fields is stale.  (g) The analysis over 64 fields
+# with 64 Monte-Carlo samples, card vs CPU f64 under injected draws.
+P15_SINGLE, P15_BATCHED_RTOL = 8, 1e-8
+P15_SINGLE_RTOL, P15_CAL_RTOL, P15_ROM_BOUND = 1e-12, 1e-8, 0.5
+P15_ED_BLOCKS, P15_ED_FIELDS, P15_ED_RTOL = (3, 6, 3), 64, 1e-10
+P15_STALE_N = 512
+P15_ANALYSIS_FIELDS, P15_ANALYSIS_MC, P15_ANALYSIS_RTOL = 64, 64, 1e-8
 # Every shape (nodes a side, B, dtype) the main paths launch K1 and K2 at:
 # the highres32 label solve (f32), its VJP (f64) and training labels (f64,
 # B=256); the VO constraint assembly (f32, B=128) and the energy arm (f64,
@@ -274,7 +306,9 @@ VO_MC_PLAN = (128, 1)
 # B=32) and config 512's (the 8 levels of 512^2, f64, B=8); the VO
 # configs' labels (2e: 'highres' levels, B=256; 2h, 2he: config 3's
 # levels, B=128; f64) and their VO applies (2e at (65,65,64) f32, 2h and
-# 2he at (129,129,64) f32).  Phase 8
+# 2he at (129,129,64) f32); phase 15's single-system solves ((33,33,1)
+# f64 and f32, (65,65,1) f64) and its vmap solves ((33,33,1024) f64 and
+# f32).  Phase 8
 # derives each shape's launches from the paths' iteration counts and holds
 # this list to them.
 MG_NODES = (65, 33, 17, 9, 5)
@@ -300,7 +334,9 @@ STENCIL_SHAPES = {
                                for n in MG256_NODES}
                             | {(n, C512_LABEL_BATCH, "float64")
                                for n in MG512_NODES}
-                            | {(MG128_NODES[0], C2_VO, "float32")},
+                            | {(MG128_NODES[0], C2_VO, "float32")}
+                            | {(33, 1, "float64"), (33, 1, "float32"),
+                               (65, 1, "float64")},
                             key=lambda s: (-s[0], -s[1], s[2])),
     "apply_stencil_sym": [(33, 1024, "float32"), (33, 1024, "float64")]}
 STENCIL_GRIDS = {"apply_stencil": 7, "apply_stencil_sym": 4}
@@ -474,17 +510,19 @@ def true_residual(fom, Y, alphas, vals, apply_plain):
 
 class plain_applies:
     """Route the batched solver's stencil applies (both forms), the
-    V-cycle's and ``fem.assembly``'s (the virtual observables') through
+    single-system solver's, the V-cycle's and ``fem.assembly``'s (the
+    virtual observables') through
     their plain PyTorch versions for the duration of a ``with`` block."""
 
     def __enter__(self):
         from generative_physics_informed_pde_tpu_torch.fem import (
-            assembly, batched_solver, multigrid)
+            assembly, batched_solver, multigrid, solvers)
         from generative_physics_informed_pde_tpu_torch.ops import (
             apply_stencil_reference, apply_stencil_sym_reference)
 
         self.targets = ((batched_solver, "apply_stencil",
                          apply_stencil_reference),
+                        (solvers, "apply_stencil", apply_stencil_reference),
                         (batched_solver, "apply_stencil_sym",
                          apply_stencil_sym_reference),
                         (multigrid, "apply_stencil", apply_stencil_reference),
@@ -522,7 +560,7 @@ class injected_draws:
         from generative_physics_informed_pde_tpu_torch.training import \
             trainer
 
-        rng = np.random.default_rng(self.seed)
+        rng = self.rng = np.random.default_rng(self.seed)
 
         def normal(like):
             return torch.as_tensor(rng.standard_normal(tuple(like.shape)),
@@ -2317,6 +2355,437 @@ def phase14_vo_configs(card, start_path, end_path, report_profile):
     return out
 
 
+class injected_analysis_draws(injected_draws):
+    """``injected_draws`` plus the analyses' own standard normals (the
+    property map's and the ROM's reparametrised draws, the decodes'
+    noise), from the same numpy stream in call order."""
+
+    def __enter__(self):
+        import torch
+        from generative_physics_informed_pde_tpu_torch.inference import (
+            analysis)
+        from generative_physics_informed_pde_tpu_torch.models import (
+            components)
+
+        super().__enter__()
+        rng = self.rng
+
+        def standard_normal(shape, like, generator=None):
+            return torch.as_tensor(rng.standard_normal(tuple(shape)),
+                                   dtype=like.dtype, device=like.device)
+
+        extra = ((components, "standard_normal", standard_normal),
+                 (analysis, "standard_normal", standard_normal))
+        self.saved += [getattr(m, n) for m, n, _ in extra]
+        self.targets += extra
+        for m, n, f in extra:
+            setattr(m, n, f)
+        return self
+
+
+def phase15_api(card, start_path, end_path, report_profile):
+    """Phase 15: the rest of the public API on the card, at the highres32
+    and 'highres' widths.  (a) Single-system solves (``fom.solve``, K1 at
+    (33,33,1) and (65,65,1)) of 8 labeled highres32 fields in f64 against
+    the batched labels and the dense direct solve, their VJPs against the
+    batched solve's VJP and a central difference on 2 cells, 2 'highres'
+    64^2 fields against the direct solve, one f32 solve's true residual.
+    (b) ``solve_batched_vmap`` on the 1024 fields, f64 and f32, against
+    the single solves, ``solve_batched`` and the residual floor, timed
+    beside ``solve_batched``.  (c) A source and a top flux through
+    ``solve_full`` against the dense solve.  (d) ROM calibration at the
+    JAX defaults on the 1024 f64 labels, card against CPU, and the
+    Galerkin oracle.  (e) ``DenseED`` at its class defaults on 64 fields
+    of 64^2, card against CPU f64.  (f) The highres32 preset's dataset
+    cache in a temporary directory outside the repo.  (g)
+    ``Analysis.from_encoder`` + ``eval_all`` at the seed-0 init, card
+    against CPU f64 under injected draws.  The device's busy share of one
+    single solve and of 5 calibration steps under the profiler.  Returns
+    (derived launches
+    [(path, kernel, nodes, B, dtype, launches)], records)."""
+    import shutil
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+    from generative_physics_informed_pde_tpu_torch import fem
+    from generative_physics_informed_pde_tpu_torch.factories import (
+        data as data_presets, highres, highres32)
+    from generative_physics_informed_pde_tpu_torch.factories.model import (
+        init_weights_)
+    from generative_physics_informed_pde_tpu_torch.inference.analysis \
+        import Analysis
+    from generative_physics_informed_pde_tpu_torch.models import (
+        DenseED, ReducedOrderModelOperator, optimize_effective_properties,
+        reduced_order_model_solve)
+    from generative_physics_informed_pde_tpu_torch.ops import (
+        apply_stencil_reference)
+
+    t_phase = time.perf_counter()
+    say("phase 15: the rest of the API on the card (single-system solves, "
+        "vmap solves, forcing, calibration, DenseED, dataset cache, "
+        "analysis)")
+    derived, rec = [], {}
+    with np.load(LABELED) as data:
+        X = np.array(data["X"])
+    N = X.shape[0]
+    phys = highres32().physics(device="cuda")
+    fom = phys["fom"]
+    bce = fem.BoundaryConditionEnsemble.from_factory(
+        "NDP", N, np.random.default_rng(15))
+    bce.register_function_space("fom", fom.grid)
+    bce.register_function_space("rom", phys["rom"].grid)
+    a64 = torch.exp(fom.pixels.image_to_function(
+        torch.as_tensor(X, device="cuda")))
+    v64 = torch.as_tensor(bce.constrained_values("fom"), device="cuda")
+    Y_batched = fom.solve_batched(a64, v64)
+    w = torch.randn(P15_SINGLE, fom.dim_out, dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(15)).cuda()
+
+    # ------------------------------------------------ (a) single solves
+    start_path()
+    singles, grads, iters, adj = [], [], [], []
+    for i in range(P15_SINGLE):
+        singles.append(fom.solve(a64[i], v64[i]))
+        iters.append(fom._solver.iterations)
+    for i in range(P15_SINGLE):
+        a = a64[i].clone().requires_grad_()
+        v = v64[i].clone().requires_grad_()
+        f = torch.zeros(fom.grid.n_nodes, dtype=torch.float64,
+                        device="cuda", requires_grad=True)
+        y = fom.solve(a, v, f)
+        iters.append(fom._solver.iterations)
+        grads.append(torch.autograd.grad((w[i] * y).sum(), (a, f, v)))
+        adj.append(fom._solver.adjoint_iterations)
+    hr_phys = highres().physics(device="cuda")
+    hr_fom = hr_phys["fom"]
+    rf = fem.GaussianRandomField.from_image(64, 64, 0.4, 0.8, 0.04,
+                                            method="fft")
+    X_hr = rf.sample(torch.Generator(device="cuda").manual_seed(15),
+                     batch_size=2, dtype=torch.float64, device="cuda")
+    a_hr = torch.exp(hr_fom.pixels.image_to_function(X_hr))
+    v_hr = torch.as_tensor(hr_fom.profile.constrained_values(
+        np.random.default_rng(16).normal(size=(2, 4))), device="cuda")
+    hr_singles, hr_iters = [], []
+    for i in range(2):
+        hr_singles.append(hr_fom.solve(a_hr[i], v_hr[i]))
+        hr_iters.append(hr_fom._solver.iterations)
+    y32 = fom.solve(a64[0].float(), v64[0].float())
+    iters32 = fom._solver.iterations
+    counts = end_path("15a single solves")
+    if counts["apply_stencil"] == 0:
+        raise AssertionError("the single solves launched K1 0 times")
+    derived += [("15a single solves", "apply_stencil", 33, 1, "float64",
+                 k + 1) for k in iters + adj]
+    derived += [("15a single solves", "apply_stencil", 65, 1, "float64",
+                 k + 1) for k in hr_iters]
+    derived.append(("15a single solves", "apply_stencil", 33, 1, "float32",
+                    iters32 + 1))
+    Ys = torch.stack(singles)
+    err_b = rel_diff(Ys, Y_batched[:P15_SINGLE])
+    err_d = max(
+        np.abs(Ys[i].cpu().numpy() - fom.solve_direct(
+            a64[i].cpu().numpy(), v64[i].cpu().numpy())).max()
+        / np.abs(Ys[i].cpu().numpy()).max() for i in range(P15_SINGLE))
+    say(f"  {P15_SINGLE} f64 single solves at (33,33,1), {iters[:P15_SINGLE]}"
+        f" PCG iterations: vs solve_batched {err_b:.3e} (bound "
+        f"{P15_BATCHED_RTOL:g}), vs the dense direct solve {err_d:.3e} "
+        f"(bound {DIRECT_RTOL:g})")
+    if not (err_b <= P15_BATCHED_RTOL and err_d <= DIRECT_RTOL):
+        raise AssertionError("single solves disagree with the batched or "
+                             "direct solve")
+    # the VJP against the batched solve's on the same 8 fields
+    ab = a64[:P15_SINGLE].clone().requires_grad_()
+    vb = v64[:P15_SINGLE].clone().requires_grad_()
+    gb = torch.autograd.grad((w * fom.solve_batched(ab, vb)).sum(), (ab, vb))
+    err_ga = rel_diff(torch.stack([g[0] for g in grads]), gb[0])
+    err_gv = rel_diff(torch.stack([g[2] for g in grads]), gb[1])
+    # a central difference along 2 cells, on a solver to 1e-13
+    tight = fem.make_fom_solver(fom.op, fom.profile.free_mask, tol=FD_TOL)
+    bc0 = fom.profile.scatter_full(v64[0])
+    zero = torch.zeros_like(bc0)
+    fd_err = 0.0
+    # the two cells of the largest sensitivity
+    for c in grads[0][0].abs().topk(2).indices.tolist():
+        e = torch.zeros_like(a64[0])
+        e[c] = FD_STEP * a64[0, c]
+        lp = (w[0] * fom.profile.restrict_free(tight(a64[0] + e, zero, bc0))
+              ).sum()
+        lm = (w[0] * fom.profile.restrict_free(tight(a64[0] - e, zero, bc0))
+              ).sum()
+        fd = float(lp - lm) / (2 * float(e[c]))
+        fd_err = max(fd_err, abs(fd - float(grads[0][0][c])) / abs(fd))
+    say(f"  VJPs (adjoint iterations {adj}): alpha vs the batched VJP "
+        f"{err_ga:.3e}, bc {err_gv:.3e} (bound {P15_BATCHED_RTOL:g}); "
+        f"central difference on 2 cells {fd_err:.3e} (bound "
+        f"{VJP_FD_RTOL:g}); f-cotangent finite: "
+        f"{all(bool(torch.isfinite(g[1]).all()) for g in grads)}")
+    if not (err_ga <= P15_BATCHED_RTOL and err_gv <= P15_BATCHED_RTOL
+            and fd_err <= VJP_FD_RTOL
+            and all(bool(torch.isfinite(g[1]).all()) for g in grads)):
+        raise AssertionError("single-solve VJP disagrees")
+    err_hr = max(
+        np.abs(hr_singles[i].cpu().numpy() - hr_fom.solve_direct(
+            a_hr[i].cpu().numpy(), v_hr[i].cpu().numpy())).max()
+        / np.abs(hr_singles[i].cpu().numpy()).max() for i in range(2))
+    res32 = true_residual(fom, y32[None], a64[:1].float(),
+                          v64[:1].float(), apply_stencil_reference)
+    say(f"  'highres' 64^2 f64 single solves at (65,65,1), {hr_iters} "
+        f"iterations: vs the direct solve {err_hr:.3e} (bound "
+        f"{DIRECT_RTOL:g}); f32 single solve: {iters32} iterations, "
+        f"true relative residual {float(res32[0]):.3e} (bound "
+        f"{F32_FLOOR:g})")
+    if not (err_hr <= DIRECT_RTOL and float(res32[0]) <= F32_FLOOR):
+        raise AssertionError("'highres' or f32 single solve off")
+    single_ms = {"float64": event_ms(lambda: fom.solve(a64[0], v64[0])),
+                 "float32": event_ms(lambda: fom.solve(a64[0].float(),
+                                                       v64[0].float()))}
+    say(f"  one single solve: f64 {single_ms['float64']:.2f} ms, f32 "
+        f"{single_ms['float32']:.2f} ms (CUDA events, median of 3)")
+    busy_single = report_profile(
+        "one f64 single solve", lambda: fom.solve(a64[0], v64[0]),
+        single_ms["float64"])
+    rec["single"] = dict(iterations_f64=iters[:P15_SINGLE],
+                         adjoint_iterations=adj, iterations_f32=iters32,
+                         highres_iterations=hr_iters, ms=single_ms,
+                         vs_batched=err_b, vs_direct=err_d,
+                         vjp_vs_batched=max(err_ga, err_gv),
+                         vjp_vs_fd=fd_err, highres_vs_direct=err_hr,
+                         f32_residual=float(res32[0]),
+                         busy_share=busy_single)
+
+    # --------------------------------------- (b) vmap on the 1024 fields
+    a32, v32 = a64.float(), v64.float()
+    start_path()
+    Yv64 = fom.solve_batched_vmap(a64, v64)
+    it64 = fom._solver.iterations
+    Yv32 = fom.solve_batched_vmap(a32, v32)
+    it32 = fom._solver.iterations
+    counts = end_path("15b vmap solves")
+    if counts["apply_stencil"] == 0:
+        raise AssertionError("the vmap solves launched K1 0 times")
+    derived += [("15b vmap solves", "apply_stencil", 33, N, "float64",
+                 int(it64.max()) + 1),
+                ("15b vmap solves", "apply_stencil", 33, N, "float32",
+                 int(it32.max()) + 1)]
+    err_vs = rel_diff(Yv64[:P15_SINGLE], Ys)
+    err_vb = rel_diff(Yv64, Y_batched)
+    res_v32 = true_residual(fom, Yv32, a32, v32, apply_stencil_reference)
+    say(f"  f64: per-system iterations {int(it64.min())}..."
+        f"{int(it64.max())}; rows vs the single solves {err_vs:.3e} (bound "
+        f"{P15_SINGLE_RTOL:g}), vs solve_batched {err_vb:.3e} (bound "
+        f"{P15_BATCHED_RTOL:g}); f32 ({int(it32.min())}...{int(it32.max())} "
+        f"iterations): true relative residual max "
+        f"{float(res_v32.max()):.3e} (bound {F32_FLOOR:g})")
+    if not (err_vs <= P15_SINGLE_RTOL and err_vb <= P15_BATCHED_RTOL
+            and bool((res_v32 <= F32_FLOOR).all())):
+        raise AssertionError("solve_batched_vmap disagrees")
+    vmap_ms = {}
+    for name, (a, v) in (("float64", (a64, v64)), ("float32", (a32, v32))):
+        vmap_ms[name] = (event_ms(lambda: fom.solve_batched_vmap(a, v)),
+                         event_ms(lambda: fom.solve_batched(a, v)))
+        say(f"  {name} 1024 fields: solve_batched_vmap "
+            f"{vmap_ms[name][0]:.2f} ms, solve_batched "
+            f"{vmap_ms[name][1]:.2f} ms, ratio "
+            f"{vmap_ms[name][0] / vmap_ms[name][1]:.3f} (medians of 3)")
+    rec["vmap"] = dict(iterations_f64=[int(it64.min()), int(it64.max())],
+                       iterations_f32=[int(it32.min()), int(it32.max())],
+                       ms={k: dict(vmap=t[0], batched=t[1])
+                           for k, t in vmap_ms.items()},
+                       vs_single=err_vs, vs_batched=err_vb,
+                       f32_residual=float(res_v32.max()))
+
+    # ------------------------------------------------------- (c) forcing
+    grid = fom.grid
+    gen = torch.Generator().manual_seed(17)
+    src = torch.randn(grid.n_cells, dtype=torch.float64, generator=gen)
+    flux = torch.randn(len(grid.boundary_nodes("top")) - 1,
+                       dtype=torch.float64, generator=gen)
+    f_full = (fem.volume_force(grid, src.cuda())
+              + fem.neumann_force(grid, "top", flux.cuda()))
+    start_path()
+    y_f = fom.solve_full(a64[0], v64[0], f_full)
+    it_f = fom._solver.iterations
+    counts = end_path("15c forcing")
+    derived.append(("15c forcing", "apply_stencil", 33, 1, "float64",
+                    it_f + 1))
+    K = fem.dense_stiffness(grid, a64[0].cpu().numpy())
+    free, con = fom.free_dofs, fom.constrained_dofs
+    vals0 = v64[0].cpu().numpy()
+    want = np.zeros(grid.n_nodes)
+    want[con] = vals0
+    want[free] = np.linalg.solve(
+        K[np.ix_(free, free)],
+        f_full.cpu().numpy()[free] - K[np.ix_(free, con)] @ vals0)
+    err_f = np.abs(y_f.cpu().numpy() - want).max() / np.abs(want).max()
+    say(f"  a DG0 source plus a top flux through solve_full ({it_f} "
+        f"iterations, {counts['apply_stencil']} K1 launches): vs the dense "
+        f"f64 solve {err_f:.3e} (bound {DIRECT_RTOL:g})")
+    if not err_f <= DIRECT_RTOL:
+        raise AssertionError("forced solve disagrees with the dense solve")
+    rec["forcing"] = dict(iterations=it_f, vs_dense=err_f)
+
+    # --------------------------------------------------- (d) calibration
+    F_rom = torch.as_tensor(np.array(bce.full_f_with_applied_bc("rom")))
+    g_card = ReducedOrderModelOperator.from_physics(phys).double().cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lx, Yp, obj = optimize_effective_properties(g_card, Yv64, F_rom.cuda())
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t0
+    g_cpu = ReducedOrderModelOperator.from_physics(
+        highres32().physics(device="cpu")).double()
+    t0 = time.perf_counter()
+    lx_cpu, _, obj_cpu = optimize_effective_properties(g_cpu, Yv64.cpu(),
+                                                       F_rom)
+    cal_cpu_s = time.perf_counter() - t0
+    busy_cal = report_profile(
+        "5 calibration steps", lambda: optimize_effective_properties(
+            g_card, Yv64, F_rom.cuda(), num_iterations=5),
+        1e3 * cal_s * 5 / len(obj))
+    err_lx = rel_diff(lx.cpu(), lx_cpu)
+    relerr = float(((Yp - Yv64).norm(dim=1) / Yv64.norm(dim=1)).mean())
+    X_dg = fom.pixels.image_to_function(torch.as_tensor(X[:4])).numpy()
+    Y_rom = reduced_order_model_solve(fom, np.asarray(phys["W"]), X_dg,
+                                      v64[:4].cpu().numpy())
+    Y_fine = np.stack([fom.solve_direct(np.exp(X_dg[n]),
+                                        v64[n].cpu().numpy())
+                       for n in range(4)])
+    rom_err = float(np.linalg.norm(Y_rom - Y_fine) / np.linalg.norm(Y_fine))
+    say(f"  calibration of {N} fields ({len(obj)} Adam steps, lr 1e-2): "
+        f"objective {obj[0]:.4e} -> {obj[-1]:.4e}, final mean relative "
+        f"error {relerr:.4f}; {cal_s:.2f} s on the card, {cal_cpu_s:.2f} s "
+        f"on the CPU; logX card vs CPU {err_lx:.3e} (bound "
+        f"{P15_CAL_RTOL:g}); Galerkin ROM oracle vs the direct solve on 4 "
+        f"fields {rom_err:.4f} (bound {P15_ROM_BOUND:g})")
+    if not (obj[-1] < obj[0] and err_lx <= P15_CAL_RTOL
+            and rom_err < P15_ROM_BOUND):
+        raise AssertionError("calibration failed its checks")
+    rec["calibration"] = dict(objective=[obj[0], obj[-1]], relerr=relerr,
+                              seconds=cal_s, cpu_seconds=cal_cpu_s,
+                              card_vs_cpu=err_lx, rom_oracle_relerr=rom_err,
+                              busy_share=busy_cal)
+
+    # -------------------------------------------------------- (e) DenseED
+    ed = init_weights_(DenseED(out_channels=2, blocks=P15_ED_BLOCKS),
+                       torch.Generator().manual_seed(15)).cuda()
+    x_ed = torch.randn(P15_ED_FIELDS, 64, 64, 1,
+                       generator=torch.Generator().manual_seed(18)).cuda()
+    ed.train()
+    out_tr = ed(x_ed)
+    out_tr.square().mean().backward()
+    ed.eval()
+    with torch.no_grad():
+        out_ev = ed(x_ed)
+    ed.train()
+
+    def fwd_bwd():
+        ed.zero_grad(set_to_none=True)
+        ed(x_ed).square().mean().backward()
+
+    ed_ms = event_ms(fwd_bwd)
+    ed.eval()
+    with torch.no_grad():
+        ed_eval_ms = event_ms(lambda: ed(x_ed))
+    finite = all(bool(torch.isfinite(t).all()) for t in (out_tr, out_ev))
+    finite = finite and all(bool(torch.isfinite(p.grad).all())
+                            for p in ed.parameters())
+    ed64 = ed.double()
+    ed_cpu = DenseED(out_channels=2, blocks=P15_ED_BLOCKS).double()
+    ed_cpu.load_state_dict({k: v.cpu() for k, v in ed64.state_dict().items()})
+    x4 = x_ed[:4].double()
+    ed_err = 0.0
+    for mode in ("eval", "train"):
+        for m in (ed64, ed_cpu):
+            getattr(m, mode)()
+        with torch.no_grad():
+            ed_err = max(ed_err, rel_diff(ed64(x4).cpu(), ed_cpu(x4.cpu())))
+    n_par = sum(p.numel() for p in ed.parameters())
+    say(f"  DenseED (growth 16, init 48, bn_size 8, blocks "
+        f"{P15_ED_BLOCKS}, {n_par} parameters) on {P15_ED_FIELDS} fields of "
+        f"64^2 f32: train forward + backward {ed_ms:.2f} ms, eval forward "
+        f"{ed_eval_ms:.2f} ms (medians of 3), finite {finite}; card vs CPU "
+        f"f64 on 4 fields (eval, train) {ed_err:.3e} (bound "
+        f"{P15_ED_RTOL:g})")
+    if not (finite and out_ev.shape == (P15_ED_FIELDS, 64, 64, 2)
+            and ed_err <= P15_ED_RTOL):
+        raise AssertionError("DenseED failed its checks")
+    rec["dense_ed"] = dict(train_fwd_bwd_ms=ed_ms, eval_ms=ed_eval_ms,
+                           parameters=n_par, card_vs_cpu=ed_err)
+    del ed, ed64, ed_cpu, out_tr, out_ev
+
+    # ------------------------------------------------ (f) dataset cache
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_phase15_")
+    try:
+        path = tmp + "/"
+        times, loaded = [], []
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for _ in range(2):
+                t0 = time.perf_counter()
+                loaded.append(data_presets.highres32(path=path).setup(
+                    device="cuda"))
+                times.append(time.perf_counter() - t0)
+        (dl0, dlu0), (dl, dlu) = loaded
+        hit = (not any(issubclass(c.category, RuntimeWarning)
+                       for c in caught)
+               and np.array_equal(dl.X, dl0.X)
+               and np.array_equal(dlu.X, dlu0.X))
+        size_mb = sum(f.stat().st_size for f in Path(tmp).iterdir()) / 1e6
+
+        class highres32_fewer(data_presets.highres32):
+            _identifier = "highres32"
+
+            def __init__(self, **kw):
+                super().__init__(**kw)
+                self._N = P15_STALE_N
+
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            dl_s, _ = highres32_fewer(path=path).setup(device="cuda")
+        stale = any(issubclass(c.category, RuntimeWarning)
+                    and "stale" in str(c.message) for c in caught)
+        say(f"  dataset cache ({dl.N} + {dlu.N} fields of 32^2, "
+            f"{size_mb:.1f} MB on disk): write {times[0]:.2f} s, read "
+            f"{times[1]:.2f} s; the second setup a hit with no warning and "
+            f"the same fields: {hit}; another _N warned 'stale' and drew "
+            f"{dl_s.N}: {stale}")
+        if not (hit and stale and dl_s.N == P15_STALE_N
+                and dl.X.shape == (1024, 32, 32) and dlu.N == 20480):
+            raise AssertionError("the dataset cache failed its checks")
+        rec["cache"] = dict(write_s=times[0], read_s=times[1], mb=size_mb)
+        del dl, dlu, dl_s, loaded, dl0, dlu0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ------------------------------------------------------- (g) analysis
+    res = {}
+    n_a = P15_ANALYSIS_FIELDS
+    for where, dev in (("card", "cuda"), ("host", "cpu")):
+        _, model, _, _, _ = highres32(dtype="float64").setup(
+            device=dev, generator=torch.Generator().manual_seed(0))
+        data = {"X": torch.as_tensor(X[:n_a], device=dev),
+                "Y": Yv64[:n_a].to(dev),
+                "F_ROM_BC": F_rom[:n_a].to(dev)}
+        with injected_analysis_draws(19):
+            analysis, q = Analysis.from_encoder(model, data)
+            res[where] = analysis.eval_all(q, None, P15_ANALYSIS_MC)
+    err_a = max(abs(res["card"][k] - res["host"][k]) / abs(res["host"][k])
+                for k in res["host"])
+    say(f"  Analysis.from_encoder + eval_all over {n_a} fields at the "
+        f"seed-0 init ({P15_ANALYSIS_MC} samples): {res['card']}; card vs "
+        f"CPU f64 {err_a:.3e} (bound {P15_ANALYSIS_RTOL:g})")
+    if not (all(np.isfinite(v) for v in res["card"].values())
+            and err_a <= P15_ANALYSIS_RTOL):
+        raise AssertionError("the analysis failed its checks")
+    rec["analysis"] = dict(metrics=res["card"], card_vs_cpu=err_a)
+    phase_s = time.perf_counter() - t_phase
+    say(f"  phase 15 took {phase_s:.1f} s; card: {card}")
+    rec["seconds"] = phase_s
+    return derived, rec
+
+
 def main() -> int:
     import torch
 
@@ -3374,6 +3843,7 @@ def main() -> int:
         errors["apply_stencil"] = (max(errors["apply_stencil"][0],
                                        c["k1_worst_abs"]),
                                    errors["apply_stencil"][1])
+    d15, c15 = phase15_api(card, start_path, end_path, report_profile)
 
     # ------------------------------ 8. K1 and K2 at every main-path shape
     say("phase 8: K1 and K2 at every shape of the main paths: launches, "
@@ -3453,6 +3923,9 @@ def main() -> int:
         derived.append((path, "apply_stencil", cfg["nodes"], C2_VO,
                         "float32", cfg["k1_per_refresh"]
                         * (len(cfg["refreshes"]) + (not cfg["energy"]))))
+    # phase 15: one rhs apply and one matvec per PCG iteration of each
+    # single-system forward, adjoint and vmap solve
+    derived += d15
     # K3: phase 6's chain at its first shape (padded nodes), no other path
     k3 = apply_stencil_sym_blocked.__name__
     derived.append((K3_CHAIN_PATH, k3, *K3_SHAPES[0], K3_CHAIN))
@@ -3586,7 +4059,13 @@ def main() -> int:
               "k1_per_refresh": cfg["k1_per_refresh"],
               "refresh_ms": cfg["refresh_ms"],
               "propagation_ms": cfg["propagation_ms"],
-              "update_ms": cfg["update_ms"]} for c, cfg in c14.items()}}),
+              "update_ms": cfg["update_ms"]} for c, cfg in c14.items()},
+          "phase15": {
+              "launches_by_shape": {
+                  f"{n},{n},{B} {d}": sum(r[5] for r in d15
+                                         if r[2:5] == (n, B, d))
+                  for n, B, d in sorted({r[2:5] for r in d15})},
+              **{k: c15[k] for k in ("single", "vmap", "forcing")}}}),
         ("apply_stencil_sym", "stencil_sym.cu", f"{tpu}:129",
          "_make_sym_kernel",
          {"launches_per_label_solve": iters_sym + 1,
@@ -3640,6 +4119,8 @@ def main() -> int:
             **{f"svi_config{c}": {k: v for k, v in cfg.items()
                                   if k != "mg"} for c, cfg in c14.items()},
             "persistence": {**c10["resume"], **c10["export"]},
+            "api_phase15": {k: c15[k] for k in (
+                "calibration", "dense_ed", "cache", "analysis", "seconds")},
             "predict_ms": {str(b): t for b, t in predict_ms.items()}}}
     ends = [t for _, t in PHASE_STARTS[1:]] + [time.perf_counter() - _T0]
     say("seconds per phase: " + ", ".join(

@@ -10,9 +10,10 @@ the card; metrics go to results/metrics_BasicIllustration.jsonl.
 
 Run:  python examples/torch_train_highres32.py [iterations]
 Add --vo to enable virtual observables on 128 extra labeled-pool fields.
-From Python, ``main(["200"], device="cpu")`` runs it on the CPU.  The JAX
-example's plots are left out (the port has no plotting module yet).
-Imports nothing of JAX.
+From Python, ``main(["200"], device="cpu")`` runs it on the CPU.  The
+ELBO and the validation predictions are plotted to results/elbo.png and
+results/predictions.png where matplotlib is installed (else "plotting
+skipped").  Imports nothing of JAX.
 """
 
 import math
@@ -24,6 +25,8 @@ from generative_physics_informed_pde_tpu_torch.factories.data import (  # noqa: 
     DataFactory)
 from generative_physics_informed_pde_tpu_torch.training import (  # noqa: E402
     CreateTrainer, TrainerParameters)
+from generative_physics_informed_pde_tpu_torch.utils.plotting import (  # noqa: E402
+    plot_2d, plot_elbo)
 
 
 def build_params(iterations=15000, use_vo=False) -> TrainerParameters:
@@ -80,6 +83,19 @@ def main(argv=None, device="cuda"):
     print(f"Achieved r2_y: {results['r2_y']}")
     print(f"Achieved relative error: {results['relerr_y']}")
     print(f"Achieved predictive logscore: {results['logscore_y']}")
+
+    try:
+        import matplotlib
+        matplotlib.use("Agg")
+        plot_elbo(trainer, figsize=(6, 4))
+        import matplotlib.pyplot as plt
+        plt.savefig("results/elbo.png")
+        fig = plot_2d(trainer, [0, 7, 8])
+        fig.savefig("results/predictions.png")
+        print("plots saved under results/")
+    except Exception as e:  # pragma: no cover
+        print(f"plotting skipped: {e}")
+
     trainer.finalize()
     return trainer
 

@@ -22,7 +22,11 @@ on-disk bundle of ``torch.export`` programs; probes and quantities of
 interest, the study database and timers, and the sweep half of the
 parallel layer (``torch.distributed``: process sweeps, one-device and
 process meshes, batch sharding) that the uncertainty sweep
-(``examples/torch_uncertainty_study.py``) runs on.
+(``examples/torch_uncertainty_study.py``) runs on; the single-system
+differentiable solve and ``cg``, force vectors, the ROM calibration, the
+DenseED codec, the data presets' dataset cache, the samplers, the
+parameter utilities, sparse conversions and plots.  Sharded training is
+not ported yet.
 """
 
 __version__ = "0.1.0"

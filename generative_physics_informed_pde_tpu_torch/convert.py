@@ -18,7 +18,9 @@ A conv kernel of a codec built with ``codec_pad_cin`` holds more input
 rows than the port's unpadded conv: the rows past the conv's real input
 channels only ever see the zero padding, so they are dropped and the
 loaded module computes the same function.  The MLPs (``Dense_0``,
-``Dense_1``, ...) and the linear codecs map layer for layer.
+``Dense_1``, ...) and the linear codecs map layer for layer, and so does a
+whole ``DenseED`` (``Conv_0``, ``DenseBlock_i``, ``TransitionDown_i``,
+``TransitionUp_i``, ``LastDecoding_0``) with its ``batch_stats``.
 
 A whole ``GenerativeModel`` whose posteriors were created for the same
 datasets (``init_params``) loads from the JAX model's ``params`` (``f``,

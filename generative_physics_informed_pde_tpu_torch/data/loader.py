@@ -7,7 +7,8 @@ host numpy float64; labels come from the port's batched solve in dispatches
 of ``label_batch`` fields (the tail padded, as the reference pads it); the
 partition bookkeeping keeps the reference's permutation-compatible
 semantics, and a ``DataSet`` view hands out tensors of its dtype on its
-device.  ``from_sampler`` draws a pool from the port's random field;
+device (or a random minibatch of them, the rows picked by a numpy
+generator as the JAX package picks them).  ``from_sampler`` draws a pool from the port's random field;
 ``save`` / ``from_file`` keep the fields and their hash in the JAX
 package's file format (``np.savez`` of ``X`` and ``hash``), so a file moves
 between the two packages.  Left out: the reference's retry loop around a
@@ -403,9 +404,23 @@ class DataSet:
         self._cached_indices = None
         self._cache = {}
 
-    def get(self, key: str):
+    def get(self, key: str, random_subset: Optional[int] = None,
+            rng: Optional[np.random.Generator] = None):
         """The chunk's rows of ``key`` as a tensor on the view's device
-        (X, Y, F_ROM_BC in the view's dtype; BCE as a sub-ensemble)."""
+        (X, Y, F_ROM_BC in the view's dtype; BCE as a sub-ensemble).  With
+        ``random_subset`` a random minibatch of that many rows: the first
+        rows of a permutation drawn from the numpy ``rng``, so one seed
+        picks the same rows as the JAX package's ``get``."""
+        val = self._cached(key)
+        if random_subset is None or val is None:
+            return val
+        rng = rng or np.random.default_rng()
+        idx = rng.permutation(self.N)[:random_subset]
+        if key == "BCE":
+            return val[list(idx)]
+        return val[torch.as_tensor(idx, device=val.device)]
+
+    def _cached(self, key: str):
         if key not in DataLoader.VALID_KEYS:
             raise ValueError(key)
         if key not in self._cache:

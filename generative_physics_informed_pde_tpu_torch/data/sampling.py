@@ -1,15 +1,56 @@
-"""Minibatch index draws.
+"""Batch sampling helpers.
 
-Port of ``minibatch_indices`` from
-``generative_physics_informed_pde_tpu/data/sampling.py``, drawing from an
-explicit ``torch.Generator`` on the generator's device.
+Port of ``BatchedOverSampler``, ``TensorDataset`` and
+``minibatch_indices`` from
+``generative_physics_informed_pde_tpu/data/sampling.py``: samplers draw
+index tensors from an explicit ``torch.Generator`` on the generator's
+device; the dataset is a tuple of aligned arrays indexed by them.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Iterator, Optional, Tuple
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchedOverSampler:
+    """``num_batches`` batches of ``batch_size`` indices into
+    ``range(num_data)``, drawn uniformly with replacement."""
+
+    batch_size: int
+    num_batches: int
+    num_data: int
+
+    def __len__(self) -> int:
+        return self.num_batches
+
+    def batches(self, generator: torch.Generator) -> Iterator[torch.Tensor]:
+        for _ in range(self.num_batches):
+            yield torch.randint(0, self.num_data, (self.batch_size,),
+                                generator=generator,
+                                device=generator.device)
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorDataset:
+    """Aligned arrays (tensors or numpy) indexed together."""
+
+    tensors: Tuple
+
+    def __post_init__(self):
+        n = self.tensors[0].shape[0]
+        if not all(t.shape[0] == n for t in self.tensors):
+            raise ValueError("the tensors differ in their first dimension")
+
+    def __len__(self) -> int:
+        return self.tensors[0].shape[0]
+
+    def __getitem__(self, index):
+        out = tuple(t[index] for t in self.tensors)
+        return out[0] if len(out) == 1 else out
 
 
 def minibatch_indices(generator: Optional[torch.Generator], num_data: int,

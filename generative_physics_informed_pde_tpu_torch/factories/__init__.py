@@ -2,7 +2,7 @@
 (``data.py``)."""
 
 from .data import DataFactory
-from .model import ModelFactory, highres, highres32, highres128
+from .model import ModelFactory, fetch_dtype, highres, highres32, highres128
 
-__all__ = ["DataFactory", "ModelFactory", "highres", "highres32",
-           "highres128"]
+__all__ = ["DataFactory", "ModelFactory", "fetch_dtype", "highres",
+           "highres32", "highres128"]

@@ -196,6 +196,12 @@ class ModelFactory:
             encoder = None
         return self._closure(physics, encoder, decoder, device, generator)
 
+    def physics(self, device="cuda") -> dict:
+        """The preset's fom/rom physics dict and interpolator W on
+        ``device``: ``setup()[0]`` (the JAX package's ``physics``
+        property), without building the networks."""
+        return self._setup_physics(resolve_device(device))
+
     @classmethod
     def FromIdentifier(cls, identifier: str, *args, **kwargs):
         try:
@@ -204,6 +210,12 @@ class ModelFactory:
             raise KeyError(f"unknown model factory identifier "
                            f"{identifier!r}")
         return factory_class(*args, **kwargs)
+
+    from_identifier = FromIdentifier
+
+    @property
+    def identifier(self) -> str:
+        return type(self).__name__
 
 
 class highres(ModelFactory):

@@ -8,8 +8,8 @@ piecewise constant (DG0).  Three equivalent forms of the stiffness action:
 
 1. ``assembly_tensor`` -- dense ``M[i, j, c]`` with ``K(alpha) = M @ alpha``
    (the coarse ROM grid).
-2. COO triples ``(rows, cols, cell, w)`` -- the gather/scatter oracle
-   (``dense_stiffness``, used by ``solve_direct``).
+2. COO triples ``(rows, cols, cell, w)`` -- the gather/scatter oracles
+   (``coo_matvec``, and ``dense_stiffness``, used by ``solve_direct``).
 3. ``StencilOperator`` -- a 7-point nodal stencil whose per-node
    coefficients are static linear images of ``alpha``; the fine-grid
    matvec is the stencil apply of ``ops/stencil.py`` (``apply_coeff``,
@@ -77,6 +77,16 @@ def assembly_tensor(grid: StructuredTriGrid, max_cells: int = 4096
     rows, cols, cell_ids, w = coo_triples(grid)
     np.add.at(M, (rows, cols, cell_ids), w)
     return M
+
+
+def coo_matvec(grid: StructuredTriGrid, alpha, v) -> np.ndarray:
+    """Gather/scatter stiffness matvec ``K(alpha) v`` of one sample, host
+    numpy float64 (oracle for tests)."""
+    rows, cols, cell_ids, w = coo_triples(grid)
+    contrib = w * np.asarray(alpha)[cell_ids] * np.asarray(v)[cols]
+    out = np.zeros(grid.n_nodes, dtype=np.float64)
+    np.add.at(out, rows, contrib)
+    return out
 
 
 def dense_stiffness(grid: StructuredTriGrid, alpha) -> np.ndarray:

@@ -69,6 +69,10 @@ class DirichletProfile:
         return m
 
     @cached_property
+    def n_constrained(self) -> int:
+        return self.constrained_dofs.size
+
+    @cached_property
     def n_free(self) -> int:
         return self.free_dofs.size
 
@@ -140,6 +144,15 @@ class BoundaryConditionEnsemble:
         """Sample N boundary conditions from an explicit numpy Generator."""
         return cls(family, sample_theta(rng, family, n))
 
+    @classmethod
+    def from_encoding(cls, family: str, thetas):
+        """Rebuild an ensemble from its (N, 4) encodings."""
+        return cls(family, thetas)
+
+    def encode(self) -> np.ndarray:
+        """The (N, 4) encodings, a copy."""
+        return self.thetas.copy()
+
     def register_function_space(self, identifier: str,
                                 grid: StructuredTriGrid):
         identifier = identifier.lower()
@@ -190,3 +203,6 @@ class BoundaryConditionEnsemble:
             F.setflags(write=False)
             self._F[identifier] = F
         return self._F[identifier]
+
+    # the reference's upper-case name
+    FULL_F_WITH_APPLIED_BC = full_f_with_applied_bc

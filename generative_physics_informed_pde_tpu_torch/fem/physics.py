@@ -1,12 +1,14 @@
 """Linear elliptic (Darcy) physics on structured grids.
 
 Port of ``LinearEllipticPhysics`` and ``make_fom_rom_pair`` from
-``generative_physics_informed_pde_tpu/fem/physics.py``: the batched
-full-order solve (differentiable through its implicit-function VJP), the
-free/constrained dof sets, the coarse assembly tensor, the dense direct
-solve used as an oracle, and the reduced-system helpers (matrix-free
-``K_ff``, the effective force, the scatter of a restricted solution) whose
-stiffness applies run on K1.  The single-sample solve is not ported yet.
+``generative_physics_informed_pde_tpu/fem/physics.py``: the single-system
+solve (``solve_full`` / ``solve``, with a force vector) and its batch of
+independent systems (``solve_batched_vmap``), the batched full-order
+solve (``solve_batched``), all differentiable through their
+implicit-function VJPs, the free/constrained dof sets, the coarse
+assembly tensor, the dense direct solve used as an oracle, and the
+reduced-system helpers (matrix-free ``K_ff``, the effective force, the
+scatter of a restricted solution).  Every stiffness apply runs on K1.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from .grid import StructuredTriGrid
 from .assembly import StencilOperator, assembly_tensor, dense_stiffness
 from .bc import FAMILIES, DirichletProfile
 from .pixels import PixelConverter
+from .solvers import make_fom_solver
 from ..utils.device import check_on, resolve_device
 
 
@@ -52,13 +55,63 @@ class LinearEllipticPhysics:
         return self.profile.free_dofs
 
     @property
+    def dim_in(self) -> int:
+        return self.grid.n_cells
+
+    @property
     def dim_out(self) -> int:
         return self.profile.n_free
+
+    @property
+    def dim_out_all(self) -> int:
+        return self.grid.n_nodes
 
     @cached_property
     def assembly_tensor(self) -> np.ndarray:
         """Dense M[i,j,c] (coarse grids only)."""
         return assembly_tensor(self.grid)
+
+    @cached_property
+    def _solver(self):
+        return make_fom_solver(self.op, self.profile.free_mask,
+                               tol=self._cg_tol, maxiter=self._cg_maxiter)
+
+    def solve_full(self, alpha: torch.Tensor, bc_values: torch.Tensor,
+                   f_full: torch.Tensor | None = None) -> torch.Tensor:
+        """Differentiable single solve returning the full dof vector:
+        alpha (n_cells,) conductivities, bc_values (n_constrained,)
+        Dirichlet values, f_full an optional raw force (n_nodes,), zero by
+        default; all on the physics' device.  One Jacobi-PCG whose applies
+        are K1 launches at (Ny, Nx, 1); the gradients with respect to all
+        three inputs come from one adjoint PCG."""
+        check_on(alpha, self.device, "alpha")
+        check_on(bc_values, self.device, "bc_values")
+        bc_full = self.profile.scatter_full(bc_values)
+        if f_full is None:
+            f_full = torch.zeros_like(bc_full)
+        else:
+            check_on(f_full, self.device, "f_full")
+        return self._solver(alpha, f_full, bc_full)
+
+    def solve(self, alpha, bc_values, f_full=None,
+              only_free_dofs: bool = True) -> torch.Tensor:
+        """``solve_full`` restricted to the free dofs (by default)."""
+        y = self.solve_full(alpha, bc_values, f_full)
+        return self.profile.restrict_free(y) if only_free_dofs else y
+
+    def solve_batched_vmap(self, alphas: torch.Tensor,
+                           bc_values: torch.Tensor) -> torch.Tensor:
+        """(N, n_cells), (N, n_constrained) -> (N, n_free): N independent
+        single solves in one batched PCG whose systems each stop on their
+        own criterion and keep their state from then on (the reference's
+        ``vmap`` of ``solve``), so each row equals its ``solve`` alone;
+        ``solve_batched`` instead iterates every system until the worst
+        has converged."""
+        check_on(alphas, self.device, "alphas")
+        check_on(bc_values, self.device, "bc_values")
+        bc_full = self.profile.scatter_full(bc_values)
+        y = self._solver(alphas, torch.zeros_like(bc_full), bc_full)
+        return self.profile.restrict_free(y)
 
     @cached_property
     def _batched_solver(self):

@@ -21,7 +21,8 @@ three colourings of white noise chosen by ``method``
   spectrum.
 
 'auto' picks 'fft' beyond 8192 pixel points, 'cholesky' without a
-truncation and 'kl' with one.  Standard normals come from an explicit
+truncation and 'kl' with one.  ``sample_numpy`` and ``subspace`` are the
+host numpy side, computed as the JAX package computes them.  Standard normals come from an explicit
 ``torch.Generator`` through :func:`standard_normal`.  The reference's real
 matmul-DFT sampler is a TPU workaround (complex dtypes on a TPU runtime)
 and is left out.
@@ -82,6 +83,13 @@ def stationary_covariance(X: np.ndarray, stddev: float, corrlength: float,
     r = np.sqrt(((X[:, None, :] - X[None, :, :]) ** 2).sum(-1))
     C = _kernel_fn(kernel, stddev, corrlength)(r)
     return C + 1e-12 * np.eye(C.shape[0])
+
+
+def squared_exponential_covariance(X: np.ndarray, stddev: float,
+                                   corrlength: float) -> np.ndarray:
+    """Dense squared-exponential kernel ``sigma^2 exp(-r^2 / (2 l^2))``
+    with the 1e-12 jitter, host float64."""
+    return stationary_covariance(X, stddev, corrlength, "se")
 
 
 def convert_log_mean_std(mean: float, std: float):
@@ -217,6 +225,54 @@ class GaussianRandomField:
                 return vecs[:, :k] * torch.sqrt(torch.clamp(vals[:k], min=0))
             raise RuntimeError(method)
         return self._device_const("L", device, make)
+
+    @cached_property
+    def _L_numpy(self) -> np.ndarray:
+        """The colouring matrix as the JAX package computes it on the host
+        (numpy ``cholesky`` / ``eigh``, float64), for the numpy sampler
+        and ``subspace``: the same numbers in both packages."""
+        method = self._resolved_method
+        C = self._covariance()
+        if method == "cholesky":
+            return np.linalg.cholesky(C)
+        if method != "kl":
+            raise RuntimeError(method)
+        vals, vecs = np.linalg.eigh(C)
+        vals, vecs = np.flip(vals, 0).copy(), np.fliplr(vecs).copy()
+        k = self._kl_modes(vals)
+        return vecs[:, :k] * np.sqrt(np.clip(vals[:k], 0, None))
+
+    def sample_numpy(self, rng: np.random.Generator,
+                     batch_size: int) -> np.ndarray:
+        """Host sampling with numpy, float64: (batch_size, py, px) images
+        (flat vectors off a pixel grid).  Statistically the same as
+        ``sample``, another stream; with one ``rng`` seed the same samples
+        as the JAX package's ``sample_numpy``."""
+        if self._resolved_method == "fft":
+            f = self._fft_factor
+            my, mx = f.shape
+            eps = (rng.standard_normal((batch_size, my, mx))
+                   + 1j * rng.standard_normal((batch_size, my, mx)))
+            try:  # multithreaded fft when scipy is present
+                from scipy import fft as sfft
+                spec = sfft.fft2(eps * f, workers=-1)
+            except ImportError:  # pragma: no cover
+                spec = np.fft.fft2(eps * f)
+            return self.mean + spec.real[:, :self.py, :self.px]
+        L = self._L_numpy
+        gamma = rng.standard_normal((batch_size, L.shape[1]))
+        flat = self.mean + gamma @ L.T
+        if self.py is not None:
+            return flat.reshape(batch_size, self.py, self.px)
+        return flat
+
+    def subspace(self) -> np.ndarray:
+        """The truncated (Karhunen-Loeve) colouring matrix (dim_out, k),
+        host float64; raises for a full-rank factor."""
+        L = self._L_numpy
+        if L.shape[0] == L.shape[1]:
+            raise RuntimeError("subspace requires a truncated factor")
+        return L
 
     # ---------------------------------------------------------- fft factors
     @cached_property

@@ -88,6 +88,12 @@ class DataPair:
             self._writer.add_scalar(f"{self._label}/{self._name}", value,
                                     global_step=iteration)
 
+    def min(self):
+        return min(self.value)
+
+    def max(self):
+        return max(self.value)
+
     def final(self):
         return self.value[-1]
 
@@ -126,10 +132,28 @@ class Analysis:
         # evaluation: its metrics averaged chunk * n_chunks samples
         self.mc_chunks = {}
 
+    @classmethod
+    def from_encoder(cls, model, data: Dict[str, torch.Tensor], **kw):
+        """Amortized-posterior analysis: ``q = encoder(X)`` in eval mode,
+        the weights frozen.  -> (analysis, q)."""
+        with torch.no_grad():
+            mean, logsigma = model.apply_encoder(data["X"], train=False)
+        return cls(model, data, **kw), {"mean": mean, "logsigma": logsigma}
+
     @torch.no_grad()
-    def sample_predictive_y(self, q, generator, n_monte_carlo: int):
-        """(N, S, dim_y) samples: z ~ q -> gp -> g, each reparametrised."""
+    def sample_predictive_y(self, q, generator, n_monte_carlo: int,
+                            index: Optional[int] = None):
+        """(N, S, dim_y) samples: z ~ q -> gp -> g, each reparametrised;
+        with ``index`` the (S, dim_y) samples of that datapoint alone."""
         F_ = self.data["F_ROM_BC"]
+        if index is not None:
+            Zs = va.sample_component(q, index, generator, n_monte_carlo)
+            Xs = components.propagate_gp_samples(self.model.apply_gp(Zs),
+                                                 generator)
+            mean, logsigmas = self.model.apply_g(
+                Xs, F_[index][None, :].expand(n_monte_carlo, F_.shape[-1]))
+            eps = standard_normal(mean.shape, mean, generator)
+            return mean + torch.exp(logsigmas) * eps
         Zs = va.sample_all_components(q, generator, n_monte_carlo)
         N = Zs.shape[0]
         gp_out = self.model.apply_gp(Zs.reshape(-1, Zs.shape[-1]))
@@ -140,6 +164,16 @@ class Analysis:
         eps = standard_normal(mean.shape, mean, generator)
         return (mean + torch.exp(logsigmas) * eps).reshape(
             N, n_monte_carlo, -1)
+
+    @torch.no_grad()
+    def sample_predictive_x(self, q, generator, n_monte_carlo: int,
+                            index: int):
+        """(S, py, px) reconstruction samples of datapoint ``index``:
+        eval-mode decodes of q's samples plus the decoder's noise."""
+        Zs = va.sample_component(q, index, generator, n_monte_carlo)
+        mean, logsigma = self.model.apply_decoder(Zs, train=False)
+        eps = standard_normal(mean.shape, mean, generator)
+        return mean + torch.exp(logsigma) * eps
 
     @torch.no_grad()
     def eval_all_y(self, q, generator, n_monte_carlo: int,
@@ -183,3 +217,16 @@ class Analysis:
             for k in ("relerr_x", "logscore_x"):
                 self.series[k].append(iteration, out[k])
         return {k: float(v) for k, v in out.items()}
+
+    def eval_all(self, q, generator, n_monte_carlo: int,
+                 iteration: Optional[int] = None) -> dict:
+        """The y metrics, then the x metrics (both recorded at
+        ``iteration``); -> the x scalars, and without an iteration, which
+        leaves no series to read them from, the y scalars too."""
+        y = self.eval_all_y(q, generator, n_monte_carlo,
+                            iteration=iteration)
+        res = self.eval_all_x(q, generator, n_monte_carlo,
+                              iteration=iteration)
+        if iteration is None:
+            res["logscore_y"], res["r2_y"], res["relerr_y"] = y
+        return res

@@ -2,8 +2,9 @@
 
 Port of ``generative_physics_informed_pde_tpu/models/codec.py``:
 ``NormReluConv``, ``DenseLayer``, ``DenseBlock``, ``TransitionDown``,
-``TransitionUp``, ``LastDecoding`` and the nearest and bilinear x2
-upsamplings.  Tensors are NCHW inside the modules.  Submodules carry the
+``TransitionUp``, ``LastDecoding``, the whole encoder-decoder ``DenseED``
+with its output activations, ``pad_channels`` and the nearest and bilinear
+x2 upsamplings.  Tensors are NCHW inside the modules.  Submodules carry the
 Flax module names (``BatchNorm_0``, ``Conv_0``, ``DenseLayer_0``, ...) so
 that ``convert.py`` maps a Flax parameter tree onto them path for path.
 
@@ -338,3 +339,101 @@ class LastDecoding(nn.Module):
                                     cd))
         x = self.Conv_0(self.upsample(x), cd)
         return self.Conv_1(F.relu(self.BatchNorm_1(x, cd)), cd)
+
+
+def pad_channels(x, multiple: int, dim: int = -1):
+    """Zero-pad dimension ``dim`` (default the last, the JAX package's
+    channel axis) up to a multiple of ``multiple``; 0 or less leaves ``x``
+    as it is.  Feeding a conv, zero input channels add nothing to its
+    output, which is why the port's codecs run their convs unpadded."""
+    if multiple <= 0:
+        return x
+    rem = x.shape[dim] % multiple
+    if rem == 0:
+        return x
+    shape = list(x.shape)
+    shape[dim] = multiple - rem
+    return torch.cat([x, x.new_zeros(shape)], dim=dim)
+
+
+def softplus4(x):
+    """torch ``Softplus(beta=4)``."""
+    return F.softplus(x, beta=4.0)
+
+
+ACTIVATIONS = {
+    "tanh": torch.tanh,
+    "relu": F.relu,
+    "lrelu": F.leaky_relu,
+    "sigmoid": torch.sigmoid,
+    "softplus": softplus4,
+}
+
+
+class DenseED(nn.Module):
+    """The whole dense encoder-decoder: in-conv (7x7, stride 2) ->
+    [DenseBlock, TransitionDown] x enc -> [DenseBlock, (TransitionUp)] x
+    dec -> LastDecoding, the block list split in half (``blocks`` of odd
+    length, else ``ValueError``).  Images are NHWC in and out, the JAX
+    package's layout: (N, H, W, in_channels) -> (N, H, W, out_channels).
+    ``dtype`` is the conv compute dtype (None: full precision; the output
+    is cast back to the input's), ``out_activation`` one of
+    ``ACTIVATIONS`` or None.  ``pad_cin`` is kept for the JAX package's
+    signature: zero input channels add nothing to a conv, so the port runs
+    the convs unpadded (``convert.py`` drops a padded kernel's extra
+    rows).  In train mode (``module.train()``) BatchNorm uses the batch
+    statistics and channel dropout draws its masks from ``generator``."""
+
+    def __init__(self, out_channels: int, blocks, growth_rate: int = 16,
+                 init_features: int = 48, drop_rate: float = 0.0,
+                 bn_size: int = 8, bottleneck: bool = False,
+                 upsample: str = "nearest", out_activation=None,
+                 pad_cin: int = 0, dtype=None, in_channels: int = 1):
+        super().__init__()
+        blocks = list(blocks)
+        if len(blocks) > 1 and len(blocks) % 2 == 0:
+            raise ValueError("length of blocks must be odd")
+        if out_activation is not None and out_activation not in ACTIVATIONS:
+            raise ValueError(f"out_activation={out_activation!r}: one of "
+                             f"{sorted(ACTIVATIONS)}")
+        enc = blocks[:len(blocks) // 2]
+        dec = blocks[len(blocks) // 2:]
+        self.out_activation = out_activation
+        self.pad_cin = pad_cin
+        self.compute_dtype = dtype
+        # registered in the order forward runs them; Flax numbers each
+        # submodule type on its own: DenseBlock_0..n across encoder and
+        # decoder, TransitionDown_i, TransitionUp_i
+        self.Conv_0 = SameConv2d(in_channels, init_features, 7, stride=2)
+        nf = init_features
+        for i, nl in enumerate(enc):
+            self.add_module(f"DenseBlock_{i}", DenseBlock(
+                nf, nl, growth_rate, bn_size, bottleneck, drop_rate))
+            nf += nl * growth_rate
+            self.add_module(f"TransitionDown_{i}", TransitionDown(
+                nf, nf // 2, drop_rate=drop_rate))
+            nf //= 2
+        for i, nl in enumerate(dec):
+            self.add_module(f"DenseBlock_{len(enc) + i}", DenseBlock(
+                nf, nl, growth_rate, bn_size, bottleneck, drop_rate))
+            nf += nl * growth_rate
+            if i < len(dec) - 1:
+                self.add_module(f"TransitionUp_{i}", TransitionUp(
+                    nf, nf // 2, drop_rate, upsample))
+                nf //= 2
+        self.LastDecoding_0 = LastDecoding(nf, out_channels, drop_rate,
+                                           upsample=upsample)
+
+    def forward(self, x, generator=None, compute_dtype=None):
+        cd = compute_dtype or self.compute_dtype
+        in_dtype = x.dtype
+        x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
+        if cd is not None:
+            x = x.to(cd)
+        x = self.Conv_0(x, cd)
+        for block in list(self.children())[1:]:
+            x = block(x, generator, cd)
+        x = x.to(in_dtype).permute(0, 2, 3, 1)
+        if self.out_activation is not None:
+            x = ACTIVATIONS[self.out_activation](x)
+        return x

@@ -1,9 +1,9 @@
 """Effective-property map and the ROM operator with the embedded coarse
 FEM solve.
 
-Port of ``EffectivePropertyMap``, ``propagate_gp_samples``, ``ROM`` and
-``ReducedOrderModelOperator`` (``forward_mean``, ``__call__`` and
-``propagate_samples``) from
+Port of ``EffectivePropertyMap``, ``propagate_gp_samples``, ``ROM`` (with
+``get_stiffness``) and ``ReducedOrderModelOperator`` (``forward_mean``,
+``__call__`` and ``propagate_samples``) from
 ``generative_physics_informed_pde_tpu/models/components.py``.  The learnable
 vectors (``logsigmas_X``, ``logsigmas_y``) are module parameters here
 instead of entries of a separate parameter tree.
@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..fem.solvers import rom_solve
+from ..fem.solvers import rom_solve, stiffness_from_tensor
 from ..inference.likelihoods import reparametrize, standard_normal
 from .mlp import architecture_from_linear_decay
 
@@ -37,9 +37,14 @@ class EffectivePropertyMap(nn.Module):
             self.add_module(f"Dense_{i}",
                             nn.Linear(widths[i], widths[i + 1]))
         self.n_dense = len(widths) - 1
+        self.latent_dim = latent_dim
         if independent_X:
             self.logsigmas_X = nn.Parameter(
                 torch.ones(dim_effective_property))
+
+    @property
+    def dim_in(self) -> int:
+        return self.latent_dim
 
     def forward(self, z):
         x = z
@@ -85,10 +90,22 @@ class ROM(nn.Module):
     def Vc_dim(self) -> int:
         return self.M.shape[2]
 
+    dim_in = property(lambda self: self.Vc_dim)
+    dim_out = property(lambda self: self.V_dim)
+
     def forward(self, X, F_):
         """X (..., c) positive conductivities, F (..., d) forces with the
         BC values applied -> (..., d) solutions."""
         return rom_solve(self.M.to(X.dtype), X, F_, self.bc_dofs)
+
+    def get_stiffness(self, X, dirichlet_bc: bool = True):
+        """Dense stiffness ``K = M . X`` (..., d, d), with the Dirichlet
+        rows replaced by identity rows unless ``dirichlet_bc`` is
+        False."""
+        M = self.M.to(X.dtype)
+        if dirichlet_bc:
+            return stiffness_from_tensor(M, X, self.bc_dofs)
+        return torch.einsum("ijc,...c->...ij", M, X)
 
 
 class ReducedOrderModelOperator(nn.Module):
@@ -113,6 +130,8 @@ class ReducedOrderModelOperator(nn.Module):
     @property
     def dim_effective_property(self) -> int:
         return self.rom.Vc_dim
+
+    dim_in = property(lambda self: self.dim_effective_property)
 
     @property
     def dim_out(self) -> int:

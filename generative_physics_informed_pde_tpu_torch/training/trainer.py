@@ -159,6 +159,8 @@ class Trainer:
         self._vo_is_initialized = False
         self._config = None
         self.datasets = None
+        self._dl = None
+        self._dlu = None
         self._armortized_bs = None
         self._finalized = False
         self._global_runtime = 0.0
@@ -177,6 +179,8 @@ class Trainer:
         for key, val in (margs or {}).items():
             mf.set(key, val)
         return cls(mf=mf, **kwargs)
+
+    from_identifier = FromIdentifier
 
     # ------------------------------------------------------------ config
     def setup_config(self, **kwargs):
@@ -218,6 +222,25 @@ class Trainer:
         if N is not None:
             print(f"Will require (approx) {avg * N} for {N} iterations")
 
+    def reset(self):
+        raise NotImplementedError  # as the reference
+
+    @property
+    def mf(self) -> ModelFactory:
+        return self._mf
+
+    @property
+    def dl(self):
+        """The labeled loader the datasets were partitioned from (None
+        when the datasets came without it)."""
+        return self._dl
+
+    @property
+    def dlu(self):
+        """The unlabeled loader (None when the datasets came without
+        it)."""
+        return self._dlu
+
     def _monitor_generator(self, offset: int) -> torch.Generator:
         """A generator on the trainer's device for the draws of one monitor
         point or of the final refinement and analysis, seeded from
@@ -229,10 +252,13 @@ class Trainer:
 
     # --------------------------------------------------------------- data
     def set_data_from_datasets(self, datasets, Nu, Ns, Nvo, VO=None,
-                               vo_spec=None, armortized_bs=None):
+                               vo_spec=None, armortized_bs=None, dl=None,
+                               dlu=None):
         """Restrict the chunks to the requested sizes and, with ``Nvo >
         0``, build the virtual observables of ``vo_spec`` on the 'vo'
-        chunk (or take the ensemble ``VO``)."""
+        chunk (or take the ensemble ``VO``); ``dl`` / ``dlu``, the loaders
+        the chunks come from, are kept for ``Trainer.dl`` / ``dlu``."""
+        self._dl, self._dlu = dl, dlu
         if "validation" not in datasets or datasets["validation"].N == 0:
             raise ValueError("a non-empty validation chunk is required")
         if not all(v is not None and v >= 0 for v in (Nu, Ns, Nvo)):
@@ -676,7 +702,7 @@ def CreateTrainerFromPermutation(params: TrainerParameters, permutation=None,
         comment=params.comment, debug=params.debug, seed=params.seed,
         device=device)
     if datasets is None:
-        _, _, datasets = CreateDataSetsFromPermutation(
+        dl, dlu, datasets = CreateDataSetsFromPermutation(
             params.identifier, permutation, permutation_u,
             params.data["N_val"], params.data["N_u_max"],
             params.data["N_s_max"], params.data["N_vo_max"],
@@ -685,7 +711,7 @@ def CreateTrainerFromPermutation(params: TrainerParameters, permutation=None,
     trainer.set_data_from_datasets(
         datasets, params.data["N_u"], params.data["N_s"],
         params.data["N_vo"], vo_spec=params.data["vo_spec"],
-        armortized_bs=params.data["armortized_bs"])
+        armortized_bs=params.data["armortized_bs"], dl=dl, dlu=dlu)
     trainer.setup_config(**params.trainer)
     trainer.setup(scheduler_spec=params.scheduler or None)
     return trainer

@@ -664,3 +664,44 @@ def test_uncertainty_sweep_on_the_card_equals_the_cpu():
     for k, v in out["cpu"].items():
         assert torch.isfinite(out["cuda"][k]).all()
         assert ((out["cuda"][k] - v).abs() / v.abs()).max() <= 1e-10, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_single_system_solve_on_the_card_equals_the_cpu(dtype):
+    """``solve_full`` (K1 at (33,33,1)) with a source and its VJP, and
+    ``solve_batched_vmap`` on 16 systems (K1 at (33,33,16)), on the card
+    against the CPU's plain applies: f64 to 1e-12 relative (the same
+    iterates: equal PCG iteration counts, sums in another order), f32 to
+    its residual floor, 1e-4."""
+    _need_cuda()
+    tol = 1e-12 if dtype == torch.float64 else 1e-4
+    g = torch.Generator().manual_seed(14)
+    out = {}
+    for device in ("cuda", "cpu"):
+        phys = fem.LinearEllipticPhysics("fom", "NDP",
+                                         fem.StructuredTriGrid(32, 32),
+                                         device=device)
+        alphas = torch.exp(0.6 * torch.randn(16, phys.grid.n_cells,
+                                             generator=g.manual_seed(14),
+                                             dtype=dtype)).to(device)
+        vals = (torch.rand(16, phys.constrained_dofs.size, generator=g,
+                           dtype=dtype) - 0.5).to(device)
+        f = fem.volume_force(phys.grid, torch.ones(phys.grid.n_cells,
+                                                   dtype=dtype)).to(device)
+        a = alphas[0].clone().requires_grad_()
+        before = apply_stencil.launches
+        y = phys.solve_full(a, vals[0], f)
+        (ga,) = torch.autograd.grad(y.square().sum(), (a,))
+        it = (phys._solver.iterations, phys._solver.adjoint_iterations)
+        Y = phys.solve_batched_vmap(alphas, vals)
+        launched = apply_stencil.launches - before
+        assert (launched > 0) == (device == "cuda")
+        out[device] = (y, ga, Y, it, phys._solver.iterations)
+    card, cpu = out["cuda"], out["cpu"]
+    for got, ref in zip(card[:3], cpu[:3]):
+        assert ((got.cpu() - ref).abs().max() / ref.abs().max()).item() \
+            <= tol
+    if dtype == torch.float64:
+        assert card[3] == cpu[3]
+        assert torch.equal(card[4].cpu(), cpu[4])

@@ -50,6 +50,26 @@ def test_port_and_chip_smoke_import_no_jax():
     assert not bad, bad
 
 
+def test_matplotlib_is_imported_inside_functions_only():
+    """The card's machine has no matplotlib: no module of the port, no
+    runner and not chip_smoke.py imports it at module level (plotting
+    imports it inside its functions)."""
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] \
+        + sorted((ROOT / "examples").glob("torch_*.py"))
+    bad = []
+    for f in files:
+        tree = ast.parse(f.read_text(), filename=str(f))
+        for node in tree.body:
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module] if isinstance(node, ast.ImportFrom)
+                     and node.level == 0 else [])
+            bad += [(f.name, n) for n in names
+                    if n == "matplotlib" or n.startswith("matplotlib.")]
+    assert not bad, bad
+    assert "matplotlib" in (PKG / "utils" / "plotting.py").read_text()
+
+
 def test_constraints_are_covered_and_keep_their_own_flux_copy():
     """The port's constraints/ (virtual observables, flux) is among the
     files checked above and imports no JAX, not even the JAX package's
@@ -173,8 +193,9 @@ def _repo_files():
 
 
 def test_saves_write_only_under_the_given_path(tmp_path):
-    """A checkpoint, a surrogate bundle, a metrics file and a dataset file,
-    each saved under ``tmp_path``, write nothing in the repo tree."""
+    """A checkpoint, a surrogate bundle, a metrics file, a dataset file and
+    a data preset's dataset cache, each saved under ``tmp_path``, write
+    nothing in the repo tree."""
     from generative_physics_informed_pde_tpu_torch.data import DataLoader
     from generative_physics_informed_pde_tpu_torch.training import (
         CreateTrainer, TrainerParameters, save_encoder_decoder)
@@ -201,7 +222,20 @@ def test_saves_write_only_under_the_given_path(tmp_path):
     tr.export_surrogate(str(tmp_path / "surrogate.zip"), buckets=(4,))
     dl.save(str(tmp_path / "fields.npz"))
     tr.finalize()
+    DataFactory = importlib.import_module(
+        "generative_physics_informed_pde_tpu_torch.factories.data"
+    ).DataFactory
+
+    class Tiny(DataFactory):
+        _identifier = "tinycache"
+        _N, _N_unsupervised = 4, 3
+        _rfs = fem.GaussianRandomField.from_image(8, 8, 0.0, 1.0, 0.3)
+
+    for _ in range(2):  # a miss that writes, then a hit
+        Tiny(path=str(tmp_path / "cache") + "/").setup(device="cpu")
     assert _repo_files() == before
     assert {f.name for f in tmp_path.iterdir()} == {
-        "logs", "ckpt.pt", "codec.pt", "surrogate.zip", "fields.npz"}
+        "logs", "ckpt.pt", "codec.pt", "surrogate.zip", "fields.npz",
+        "cache"}
+    assert len(list((tmp_path / "cache").iterdir())) == 4
     assert (tmp_path / "logs" / "metrics.jsonl").stat().st_size > 0
