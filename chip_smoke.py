@@ -70,6 +70,14 @@ a source and a Neumann flux through ``solve_full``; the ROM calibration,
 card against CPU; ``DenseED`` at its class defaults; the highres32
 preset's dataset cache in a temporary directory; and
 ``Analysis.from_encoder`` + ``eval_all``, card against CPU.
+Then sharded training and the VO ablation (phase 16): the highres32
+recipe through ``setup(mesh=make_mesh(1))``, bit for bit against
+``setup()``; two processes started by this script on the one card (gloo,
+``--phase16-child``) running the checkpoint lifecycle of the JAX
+package's two-process test in f64, each labeling its own rows on K1, held
+to the same lifecycle in one process; and the three arms of
+``examples/torch_vo_ablation.py`` at their published 64^2 widths and
+pools, cut to 40 steps.
 Last, K1 and K2 run at every shape the main paths launched
 them at, each held bit for bit against its plain version and timed, with
 its launches derived from the paths' iteration counts (and checked against
@@ -294,6 +302,24 @@ P15_SINGLE_RTOL, P15_CAL_RTOL, P15_ROM_BOUND = 1e-12, 1e-8, 0.5
 P15_ED_BLOCKS, P15_ED_FIELDS, P15_ED_RTOL = (3, 6, 3), 64, 1e-10
 P15_STALE_N = 512
 P15_ANALYSIS_FIELDS, P15_ANALYSIS_MC, P15_ANALYSIS_RTOL = 64, 64, 1e-8
+# Phase 16, sharded training and the VO ablation.  (a) The highres32 recipe
+# (phase 4b's pools, f32) P16_STEPS steps through setup(mesh=make_mesh(1))
+# against setup(), deterministic cuDNN: bit-equal.  (b) tests/_dcn_child.py's
+# lifecycle in f64 (24 + 16 fields of 32^2 at correlation length 0.15, seed
+# 11) by two processes on the one card (gloo: one card, two processes; a
+# hybrid ("dcn", "dp") mesh of (1, 2)), each labeling its own supervised rows
+# on K1: P16_LIFE_STEPS steps with a monitor point, save, restore, 2 more,
+# finalize; held to the same lifecycle in one process on the card to
+# P16_RTOL, the children killed after P16_CHILD_TIMEOUT s.  (c)
+# examples/torch_vo_ablation.py's three arms through main / run_arm at the
+# published 64^2 widths and pools (N_s 64, N_u 1024, N_vo 64, N_val 64,
+# batch 64), cut from 4000 to P16_ABL_STEPS iterations (the milestones and
+# the energy arm's T_iterations scale with them in _params: [10, 25], 41),
+# the constrain arm's cadence from 250 to P16_ABL_HOLDOFF (--cadence) and
+# the energy arm's holdoff from 50 to P16_ABL_HOLDOFF, so that refreshes and
+# energy updates fall at P16_REFRESHES.
+P16_STEPS, P16_LIFE_STEPS, P16_RTOL, P16_CHILD_TIMEOUT = 10, 6, 1e-9, 300
+P16_ABL_STEPS, P16_ABL_HOLDOFF, P16_REFRESHES = 40, 10, [10, 20, 30]
 # Every shape (nodes a side, B, dtype) the main paths launch K1 and K2 at:
 # the highres32 label solve (f32), its VJP (f64) and training labels (f64,
 # B=256); the VO constraint assembly (f32, B=128) and the energy arm (f64,
@@ -2786,6 +2812,379 @@ def phase15_api(card, start_path, end_path, report_profile):
     return derived, rec
 
 
+def p16_pools():
+    """The lifecycle's 24 labeled and 16 unlabeled 32^2 fields (correlation
+    length 0.15, keys 2 and 3), drawn on the card."""
+    from generative_physics_informed_pde_tpu_torch import fem
+    from generative_physics_informed_pde_tpu_torch.data import DataLoader
+
+    rf = fem.GaussianRandomField.from_image(32, 32, 0.4, 0.8, 0.15)
+    return (DataLoader.from_sampler(rf, 24, key=2, device="cuda").X,
+            DataLoader.from_sampler(rf, 16, key=3, device="cuda").X)
+
+
+def p16_lifecycle(mesh, tmp, X, Xu):
+    """``tests/_dcn_child.py``'s lifecycle on the card in f64 on the
+    fields ``X`` (labeled) and ``Xu`` (``p16_pools``; every process gets
+    the same bits, whose hash seeds the boundary conditions), labels on
+    K1 -- with a mesh, only this process's
+    supervised rows and the validation rows, the others left NaN --
+    then P16_LIFE_STEPS steps (a monitor point at step 5), save, restore,
+    2 more steps, finalize.  ``mesh`` None: the same in one process,
+    unsharded.  Returns what phase 16b compares and reports."""
+    import os
+
+    import numpy as np
+    import torch
+    from generative_physics_informed_pde_tpu_torch import fem, parallel
+    from generative_physics_informed_pde_tpu_torch.data import DataLoader
+    from generative_physics_informed_pde_tpu_torch.ops import apply_stencil
+    from generative_physics_informed_pde_tpu_torch.training import (
+        CreateTrainerFromPermutation, TrainerParameters)
+
+    dl, dlu = DataLoader(X), DataLoader(Xu)
+    dlu.lock_physics_assembly()
+    rows = None
+    if mesh is not None:
+        sup = np.arange(16)[parallel.local_shard_slice(16)]
+        rows = np.r_[sup, np.arange(16, dl.N)]
+    launches = apply_stencil.launches
+    dl.assemble(fem.make_fom_rom_pair("NDP", 4, 4, 3, device="cuda"),
+                rows=rows)
+    torch.cuda.synchronize()
+    launches = apply_stencil.launches - launches
+    if rows is not None:
+        other = np.setdiff1d(np.arange(dl.N), rows)
+        if not (np.isnan(dl.Y[other]).all()
+                and np.isfinite(dl.Y[rows]).all()):
+            raise AssertionError("the labels were not solved per process")
+    p = TrainerParameters()
+    p.identifier = "highres32"
+    p.margs["dtype"] = "float64"
+    p.debug = True
+    p.seed = 11
+    p.trainer["lr_init"] = 1e-2
+    p.scheduler = {"milestones": [50], "factor": 0.5}
+    p.data.update(N_u=16, N_s=16, N_u_max=16, N_s_max=16, N_vo_max=0,
+                  N_vo=0, N_val=8, armortized_bs=8, vo_spec={})
+    tr = CreateTrainerFromPermutation(
+        p, permutation=np.arange(dl.N), permutation_u=np.arange(dlu.N),
+        dl=dl, dlu=dlu, device="cuda")
+    if mesh is not None:
+        tr.setup(scheduler_spec=p.scheduler, mesh=mesh)
+
+    def whole(x):
+        x = x.detach()
+        return x if mesh is None else parallel.gather_batch(x, mesh)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr.run(P16_LIFE_STEPS, verbose=False)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    q_saved = whole(tr.model.q_z["supervised"]["mean"])
+    t0 = time.perf_counter()
+    path = tr.save_checkpoint(os.path.join(tmp, "lifecycle.pt"))
+    tr.restore_checkpoint(path)
+    ckpt_s = time.perf_counter() - t0
+    if not torch.equal(whole(tr.model.q_z["supervised"]["mean"]), q_saved):
+        raise AssertionError("the restored q_z block differs")
+    t0 = time.perf_counter()
+    tr.run(2, verbose=False)
+    tr.finalize()
+    torch.cuda.synchronize()
+    run_s += time.perf_counter() - t0
+    return dict(
+        q=whole(tr.model.q_z["supervised"]["mean"]).cpu().numpy().tolist(),
+        q_rows=int(tr.model.q_z["supervised"]["mean"].shape[0]),
+        elbo=list(tr._monitor["elbo"]),
+        r2=list(tr._analysis.series["r2_y"].value),
+        generator=tr.generator.get_state().tolist(),
+        steps_per_s=(P16_LIFE_STEPS + 2) / run_s, checkpoint_s=ckpt_s,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        label_iterations=list(dl.label_iterations),
+        label_batch=dl.label_batch, launches=launches,
+        launches_after=apply_stencil.launches)
+
+
+def phase16_child(rank: int, world: int, init: str, out: str) -> int:
+    """One of phase 16b's processes (``python3 chip_smoke.py
+    --phase16-child RANK WORLD INIT_FILE OUT_DIR``): joins the group on
+    the card (two processes on one card: gloo), runs ``p16_lifecycle`` on
+    a hybrid ("dcn", "dp") mesh and writes its record to
+    ``OUT_DIR/rank{RANK}.json``."""
+    import numpy as np
+    import torch
+    from generative_physics_informed_pde_tpu_torch import parallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    parallel.initialize(f"file://{init}", world, rank, device="cuda")
+    import torch.distributed as dist
+
+    mesh = parallel.make_hybrid_mesh(("dp",), device="cuda")
+    with np.load(Path(out) / "pools.npz") as f:
+        X, Xu = f["X"], f["Xu"]
+    rec = p16_lifecycle(mesh, out, X, Xu)
+    rec.update(backend=dist.get_backend(), mesh=[list(mesh.mesh_dim_names),
+                                                 list(mesh.shape)])
+    with open(Path(out) / f"rank{rank}.json", "w") as fh:
+        json.dump(rec, fh)
+    dist.destroy_process_group()
+    print(f"[phase 16b process {rank}] ok", flush=True)
+    return 0
+
+
+def phase16_sharded(card, dl, dlu, start_path, end_path, add_path):
+    """Phase 16: sharded training and the VO ablation on the card.  (a)
+    The highres32 recipe (phase 4b's pools) P16_STEPS steps through
+    ``setup(mesh=make_mesh(1))`` against ``setup()``, deterministic cuDNN:
+    bit-equal.  (b) Two processes on the one card, started from this
+    script, run ``tests/_dcn_child.py``'s lifecycle in f64 on a hybrid
+    mesh (``p16_lifecycle``), each labeling its own rows on K1; their
+    q_z block, monitor ELBO and R^2 held to the same lifecycle in one
+    process on the card to P16_RTOL; a child that fails or outlives
+    P16_CHILD_TIMEOUT fails the phase.  (c) The three arms of
+    ``examples/torch_vo_ablation.py`` through its ``main`` and
+    ``run_arm`` at the published 64^2 widths and pools, cut (see the
+    constants), results written to a temporary directory.  Returns
+    (derived launches [(path, kernel, nodes, B, dtype, launches)],
+    records)."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from generative_physics_informed_pde_tpu_torch import parallel
+    from generative_physics_informed_pde_tpu_torch.constraints import (
+        FluxConstrainSampler)
+    from generative_physics_informed_pde_tpu_torch.training import (
+        CreateTrainer, Trainer)
+
+    t_phase = time.perf_counter()
+    say("phase 16: sharded training (one-device mesh, two processes on "
+        f"the card) and the VO ablation; card: {card}")
+    derived, rec = [], {}
+
+    # ------------------------------------------- (a) a one-device mesh
+    start_path()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        states, rates = {}, {}
+        for name, mesh in (("setup()", None),
+                           ("setup(mesh=make_mesh(1))",
+                            parallel.make_mesh(1, device="cuda"))):
+            p = recipe_params()
+            tr = CreateTrainer(p, *labeled_copies(dl, dlu), device="cuda")
+            if mesh is not None:
+                tr.setup(scheduler_spec=p.scheduler or None, mesh=mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(P16_STEPS):
+                tr.step()
+            torch.cuda.synchronize()
+            rates[name] = P16_STEPS / (time.perf_counter() - t0)
+            states[name] = [t.detach().clone() for t in (
+                *tr.model.parameters(), *tr.model.buffers(),
+                *tr._PE.q.values(), tr.elbos(),
+                tr.generator.get_state())]
+            del tr
+    finally:
+        torch.backends.cudnn.deterministic = False
+    end_path("16a one-device mesh")
+    a, b = states.values()
+    equal = len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+    say(f"  (a) highres32 recipe, {P16_STEPS} steps f32: one-device mesh "
+        f"bit-equal to setup() over {len(a)} tensors (parameters, "
+        f"statistics, posteriors, ELBOs, generator): {equal}; steps/s "
+        f"{ {k: round(v, 3) for k, v in rates.items()} }")
+    if not equal:
+        raise AssertionError("the one-device mesh differs from setup()")
+    rec["one_device"] = dict(steps_per_s=rates, tensors=len(a))
+
+    # ------------------------------- (b) two processes on the one card
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p16_")
+    try:
+        env = dict(os.environ)
+        for k in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT",
+                  "LOCAL_WORLD_SIZE", "LOCAL_RANK"):
+            env.pop(k, None)
+        env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+        init = os.path.join(tmp, "init")
+        X16, Xu16 = p16_pools()
+        np.savez(os.path.join(tmp, "pools.npz"), X=X16, Xu=Xu16)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--phase16-child", str(r), "2", init, tmp], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        outs, late = [], False
+        for pr in procs:
+            try:
+                o, _ = pr.communicate(
+                    timeout=max(1.0, P16_CHILD_TIMEOUT
+                                - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                late = True
+                for q in procs:
+                    q.kill()
+                o, _ = pr.communicate()
+            outs.append(o)
+        children_s = time.perf_counter() - t0
+        for r, pr in enumerate(procs):
+            if late or pr.returncode != 0:
+                raise AssertionError(
+                    f"phase 16b process {r} {'timed out' if late else 'failed'}"
+                    f" (rc {pr.returncode}):\n{outs[r][-3000:]}")
+        kids = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                for r in range(2)]
+        start_path()
+        one = p16_lifecycle(None, tmp, X16, Xu16)
+        end_path("16b one process")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for path, r in [("16b one process", one)] + [
+            (f"16b process {i}", k) for i, k in enumerate(kids)]:
+        derived += [(path, "apply_stencil", 33, r["label_batch"], "float64",
+                     k + 1) for k in r["label_iterations"]]
+    for i, k in enumerate(kids):
+        if k["launches"] != k["launches_after"] or k["launches"] != sum(
+                n + 1 for n in k["label_iterations"]):
+            raise AssertionError(f"process {i} launched K1 "
+                                 f"{k['launches_after']} times")
+        add_path(f"16b process {i}", {"apply_stencil": k["launches"]})
+    errs = {}
+    for key in ("q", "elbo", "r2"):
+        ref = np.asarray(one[key])
+        scale = max(np.abs(ref).max(), 1e-300)
+        errs[key] = max(float(np.abs(np.asarray(k[key]) - ref).max() / scale)
+                        for k in kids)
+    same_gen = all(k["generator"] == one["generator"] for k in kids)
+    say(f"  (b) two processes on the card ({kids[0]['backend']}, mesh "
+        f"{kids[0]['mesh']}, {kids[0]['q_rows']} of 16 q_z rows each), "
+        f"{children_s:.1f} s with start-up: labels per process "
+        f"{[k['label_iterations'] for k in kids]} PCG iterations "
+        f"({[k['launches'] for k in kids]} K1 launches, the one process "
+        f"{one['launches']}); steps/s (with the monitor point, checkpoint "
+        f"and finalize) processes {[round(k['steps_per_s'], 3) for k in kids]}"
+        f", one process {one['steps_per_s']:.3f}; peak memory GB "
+        f"{[round(k['peak_gb'], 4) for k in kids]} vs "
+        f"{one['peak_gb']:.4f}; checkpoint save + restore "
+        f"{[round(k['checkpoint_s'], 3) for k in kids]} s")
+    say(f"      against one process: max rel q_z {errs['q']:.3e}, monitor "
+        f"ELBO {errs['elbo']:.3e}, R^2 {errs['r2']:.3e} (bound "
+        f"{P16_RTOL:g}); generators equal: {same_gen}")
+    if not (max(errs.values()) <= P16_RTOL and same_gen
+            and all(k["q_rows"] == 8 for k in kids)
+            and len(one["elbo"]) == 1 and len(one["r2"]) == 3):
+        raise AssertionError("two processes on the card differ from one")
+    rec["two_processes"] = dict(
+        errors=errs, steps_per_s=[k["steps_per_s"] for k in kids],
+        one_process_steps_per_s=one["steps_per_s"],
+        peak_gb=[k["peak_gb"] for k in kids], one_peak_gb=one["peak_gb"],
+        launches=[k["launches"] for k in kids], seconds=children_s)
+
+    # -------------------------------------------- (c) the VO ablation
+    sys.path.insert(0, str(ROOT / "examples"))
+    import torch_vo_ablation as abl
+
+    params, create, run_arm = (abl._params, abl.CreateTrainerFromPermutation,
+                               abl.run_arm)
+    refresh = Trainer.update_virtual_observables
+    made, refreshes, arms = [], [], {}
+
+    def cut_params(iterations, arm, n_s, vo_cadence=None, temper=1.0):
+        p = params(iterations, arm, n_s, vo_cadence, temper)
+        if arm == "energy":
+            p.trainer["N_vo_holdoff"] = P16_ABL_HOLDOFF
+        return p
+
+    def capture(*a, **k):
+        made.append(create(*a, **k))
+        return made[-1]
+
+    def counted_refresh(self, step, resample=True):
+        refreshes.append(step)
+        return refresh(self, step, resample)
+
+    def counted_arm(arm, *a, **k):
+        made.clear()
+        refreshes.clear()
+        start_path()
+        out = run_arm(arm, *a, **k)
+        counts = end_path(f"16c {arm}")
+        arms[arm] = dict(out=out, counts=counts, tr=made[-1],
+                         refreshes=list(refreshes))
+        return out
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p16_")
+    abl._params, abl.CreateTrainerFromPermutation = cut_params, capture
+    abl.run_arm = counted_arm
+    Trainer.update_virtual_observables = counted_refresh
+    try:
+        rows = abl.main([str(P16_ABL_STEPS), "--cadence",
+                         str(P16_ABL_HOLDOFF)], device="cuda",
+                        path=os.path.join(tmp, "torch_vo_ablation.json"))
+        written = json.loads(Path(tmp, "torch_vo_ablation.json").read_text())
+    finally:
+        abl._params, abl.CreateTrainerFromPermutation = params, create
+        abl.run_arm = run_arm
+        Trainer.update_virtual_observables = refresh
+        shutil.rmtree(tmp, ignore_errors=True)
+    if written != rows or sorted(arms) != ["constrain", "energy", "labels"]:
+        raise AssertionError("the ablation did not run its three arms")
+    rec["ablation"] = {}
+    for arm, r in arms.items():
+        tr, out = r["tr"], r["out"]
+        mg = tr.physics["fom"]._batched_solver.mg
+        path = f"16c {arm}"
+        label_rows = [(path, "apply_stencil", n, tr.dl.label_batch,
+                       "float64", c) for k in tr.dl.label_iterations
+                      for n, c in zip(MG_NODES, mg_by_level(mg, k))]
+        vo = 0
+        if arm == "constrain":
+            per = sum(smp.m + 1 for smp in tr.VO.sampler.samplers
+                      if not isinstance(smp, FluxConstrainSampler))
+            vo = per * (1 + len(r["refreshes"]))
+        elif arm == "energy":
+            spec = tr.VO.sampler
+            per = tr.VO.num_iterations_per_update * (spec.N_aux + 1) + 1
+            vo = per * len(r["refreshes"])
+        if vo:
+            label_rows.append((path, "apply_stencil", MG_NODES[0], C2_VO,
+                               "float32", vo))
+        derived += label_rows
+        elbos = tr.elbos()
+        finite = bool(torch.isfinite(elbos).all()) and all(
+            np.isfinite(out[k]) for k in ("relerr_y", "r2_y", "logscore_y"))
+        say(f"  (c) {out['arm']}: rel-L2 {out['relerr_y']:.4f}, R^2 "
+            f"{out['r2_y']:.4f}, logscore {out['logscore_y']:.4f}, "
+            f"{out['steps_per_sec']:.3f} steps/s ({P16_ABL_STEPS} steps, the "
+            f"final refinement and analysis included); refreshes at "
+            f"{r['refreshes']}; K1 launches {r['counts']['apply_stencil']} "
+            f"(labels {tr.dl.label_iterations} PCG iterations, VO {vo}); "
+            f"every ELBO finite: {finite}")
+        if not finite or elbos.shape != (P16_ABL_STEPS,):
+            raise AssertionError(f"the {arm} arm is not finite")
+        if arm != "labels" and r["refreshes"] != P16_REFRESHES:
+            raise AssertionError(f"the {arm} arm refreshed at "
+                                 f"{r['refreshes']}")
+        rec["ablation"][arm] = dict(
+            {k: out[k] for k in ("arm", "relerr_y", "r2_y", "logscore_y",
+                                 "steps_per_sec")},
+            refreshes=r["refreshes"], launches=r["counts"]["apply_stencil"])
+    del arms, made
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    say(f"  phase 16 took {phase_s:.1f} s; card: {card}")
+    rec["seconds"] = phase_s
+    return derived, rec
+
+
 def main() -> int:
     import torch
 
@@ -2832,6 +3231,14 @@ def main() -> int:
         for k in kernels_:
             main_launches[k.__name__] += k.launches
         return path_launches[name]
+
+    def add_path(name, counts):
+        """Counts of a main path that another process ran (its wrappers
+        counted its launches)."""
+        path_launches[name] = {k.__name__: counts.get(k.__name__, 0)
+                               for k in kernels_}
+        for k in kernels_:
+            main_launches[k.__name__] += path_launches[name][k.__name__]
 
     # cuDNN convolutions default to TF32, which keeps ~3 decimal digits and
     # would loosen the encoder; matmuls are full f32 by default.  Both off.
@@ -3844,6 +4251,7 @@ def main() -> int:
                                        c["k1_worst_abs"]),
                                    errors["apply_stencil"][1])
     d15, c15 = phase15_api(card, start_path, end_path, report_profile)
+    d16, c16 = phase16_sharded(card, dl, dlu, start_path, end_path, add_path)
 
     # ------------------------------ 8. K1 and K2 at every main-path shape
     say("phase 8: K1 and K2 at every shape of the main paths: launches, "
@@ -3926,6 +4334,9 @@ def main() -> int:
     # phase 15: one rhs apply and one matvec per PCG iteration of each
     # single-system forward, adjoint and vmap solve
     derived += d15
+    # phase 16: the lifecycle's label dispatches (each process's and the
+    # one process's), the ablation's MG labels and VO applies
+    derived += d16
     # K3: phase 6's chain at its first shape (padded nodes), no other path
     k3 = apply_stencil_sym_blocked.__name__
     derived.append((K3_CHAIN_PATH, k3, *K3_SHAPES[0], K3_CHAIN))
@@ -4060,6 +4471,14 @@ def main() -> int:
               "refresh_ms": cfg["refresh_ms"],
               "propagation_ms": cfg["propagation_ms"],
               "update_ms": cfg["update_ms"]} for c, cfg in c14.items()},
+          "phase16": {
+              "launches_by_path": {
+                  p: sum(r[5] for r in d16 if r[0] == p)
+                  for p in sorted({r[0] for r in d16})},
+              "launches_by_shape": {
+                  f"{n},{n},{B} {d}": sum(r[5] for r in d16
+                                         if r[2:5] == (n, B, d))
+                  for n, B, d in sorted({r[2:5] for r in d16})}},
           "phase15": {
               "launches_by_shape": {
                   f"{n},{n},{B} {d}": sum(r[5] for r in d15
@@ -4121,6 +4540,7 @@ def main() -> int:
             "persistence": {**c10["resume"], **c10["export"]},
             "api_phase15": {k: c15[k] for k in (
                 "calibration", "dense_ed", "cache", "analysis", "seconds")},
+            "sharded_phase16": c16,
             "predict_ms": {str(b): t for b, t in predict_ms.items()}}}
     ends = [t for _, t in PHASE_STARTS[1:]] + [time.perf_counter() - _T0]
     say("seconds per phase: " + ", ".join(
@@ -4134,4 +4554,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase16-child"]:
+        sys.exit(phase16_child(int(sys.argv[2]), int(sys.argv[3]),
+                               sys.argv[4], sys.argv[5]))
     sys.exit(main())

@@ -8,7 +8,8 @@ first use into ``build/torch_kernels/``.  Every entry point takes
 ``device=`` and defaults to ``"cuda"``; without a card it raises unless
 the caller asks for ``device="cpu"``.
 
-Ported so far (the highres32 and 'highres' 64^2 recipes): the
+Ported, everything the JAX package does (its TPU and JAX-transform
+specifics aside, as ``tests/test_torch_api_coverage.py`` lists them): the
 structured-grid FEM, the batched PCG solve on the stencil kernels (7-grid
 and symmetric 4-grid forms) with its implicit-function VJP, Jacobi or the
 multigrid V-cycle, the halo-padded symmetric apply, the Cholesky,
@@ -19,14 +20,14 @@ arms, their stiffness applies on the stencil kernel), the prediction
 ensemble, the analysis metrics, the SVI trainer with checkpoint and
 resume, the metrics file, dataset files and pad-to-bucket serving with its
 on-disk bundle of ``torch.export`` programs; probes and quantities of
-interest, the study database and timers, and the sweep half of the
-parallel layer (``torch.distributed``: process sweeps, one-device and
-process meshes, batch sharding) that the uncertainty sweep
+interest, the study database and timers, and the parallel layer
+(``torch.distributed``: process sweeps, one-device and process meshes,
+batch sharding) that the uncertainty sweep
 (``examples/torch_uncertainty_study.py``) runs on; the single-system
 differentiable solve and ``cg``, force vectors, the ROM calibration, the
 DenseED codec, the data presets' dataset cache, the samplers, the
-parameter utilities, sparse conversions and plots.  Sharded training is
-not ported yet.
+parameter utilities, sparse conversions and plots; and training sharded
+across processes (``Trainer.setup(mesh=...)``, ``parallel``'s shardings).
 """
 
 __version__ = "0.1.0"

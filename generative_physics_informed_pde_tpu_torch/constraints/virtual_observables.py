@@ -28,6 +28,12 @@ All random draws come from an explicit ``torch.Generator`` through the
 module functions :func:`sketch_normals` (Gaussian sketches) and
 :func:`rbf_uniforms` (RBF centres, also the energy arm's test functions),
 which tests replace to inject draws.
+
+In sharded training the ensemble is whole on every process, like the
+network weights: the trainer feeds every refresh and energy update the
+gathered posterior, every process runs it on all the VO fields with the
+same generator (the temperature schedule advances alike), and each
+process's ELBO term reads its own rows of the result.
 """
 
 from __future__ import annotations

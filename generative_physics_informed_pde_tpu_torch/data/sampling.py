@@ -4,7 +4,10 @@ Port of ``BatchedOverSampler``, ``TensorDataset`` and
 ``minibatch_indices`` from
 ``generative_physics_informed_pde_tpu/data/sampling.py``: samplers draw
 index tensors from an explicit ``torch.Generator`` on the generator's
-device; the dataset is a tuple of aligned arrays indexed by them.
+device; the dataset is a tuple of aligned arrays indexed by them.  In a
+sharded run every process draws the whole minibatch from the same
+generator, and :func:`gather_rows` brings it the rows it computes with
+from the processes that hold them.
 """
 
 from __future__ import annotations
@@ -61,3 +64,19 @@ def minibatch_indices(generator: Optional[torch.Generator], num_data: int,
     idx = torch.randperm(num_data, generator=generator,
                          device=gen_device)[:batch_size]
     return idx if device is None else idx.to(device)
+
+
+def gather_rows(X_local: torch.Tensor, idx: torch.Tensor, lo: int,
+                group) -> torch.Tensor:
+    """Rows ``idx`` of a batch split over the processes of ``group``, of
+    which this process holds rows ``[lo, lo + len(X_local))``, on every
+    process: each process writes the rows it holds, zeros elsewhere, and
+    the sum over the group keeps each row as its holder wrote it."""
+    from ..parallel.distributed import all_reduce_sum
+
+    n = X_local.shape[0]
+    mine = (idx >= lo) & (idx < lo + n)
+    rows = X_local[(idx - lo).clamp(0, n - 1)]
+    keep = mine.reshape((-1,) + (1,) * (rows.ndim - 1))
+    return all_reduce_sum(torch.where(keep, rows, torch.zeros_like(rows)),
+                          group)

@@ -32,6 +32,15 @@ def reparametrize(generator, mean, logsigma):
                                                         mean, generator)
 
 
+def reparametrize_rows(generator, mean, logsigma, split):
+    """:func:`reparametrize` of this process's rows ``split`` (a
+    ``parallel.layout.RowSplit``) of a sharded batch: the normals drawn
+    for the whole batch, this process's rows kept."""
+    shape = (split.n,) + tuple(logsigma.shape[1:])
+    return mean + torch.exp(logsigma) * split.take(
+        standard_normal(shape, mean, generator))
+
+
 def diagonal_gaussian_log_likelihood(target, mean, logvars, reduce=torch.sum):
     """Sum of elementwise Gaussian log-densities; ``logvars = 2 logsigma``."""
     part2 = (target - mean) ** 2 * torch.exp(-logvars)

@@ -11,6 +11,12 @@ is the hot loop's decode precision: the updates with ``final=True`` and a
 decoder without a compute dtype (the linear and MLP ones) run at full
 precision.  Only ``q`` is optimised, so a reduced-precision decode here
 never touches the training trajectory.
+
+In a sharded run (``split``, a ``parallel.layout.RowSplit`` set by the
+trainer) ``q`` and its Adam's moments hold this process's rows of the
+validation fields, which stay whole on every process: the draws are made
+for all of them and cut, the decodes take their BatchNorm statistics over
+all of them, and ``update`` returns the ELBO summed over the processes.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ class PredictionEnsemble:
         self.optimizer = torch.optim.Adam(self.q.parameters(),
                                           lr=schedule(0))
         self.count = 0
+        self.split = None
 
     def state_dict(self) -> dict:
         """``q``, its Adam's state and the update count."""
@@ -61,16 +68,21 @@ class PredictionEnsemble:
         return self.compute_dtype
 
     def elbo(self, q, generator=None, final: bool = False):
-        """Reconstruction-only ELBO -> (elbo, logL)."""
-        Z = va.sample(q, generator)
+        """Reconstruction-only ELBO -> (elbo, logL) (this process's share
+        when sharded)."""
+        split = self.split
+        if split is None:
+            Z, X = va.sample(q, generator), self.X
+        else:
+            Z, X = va.sample_rows(q, generator, split), split.take(self.X)
         saved = [b.clone() for b in self._bn_buffers()]
         predict_x = self.model.apply_decoder(
             Z, train=True, generator=generator,
-            compute_dtype=self._decode_dtype(final))
+            compute_dtype=self._decode_dtype(final), split=split)
         with torch.no_grad():  # the reference discards the stats update
             for b, s in zip(self._bn_buffers(), saved):
                 b.copy_(s)
-        logL = self.model.random_field_likelihood(predict_x, self.X)
+        logL = self.model.random_field_likelihood(predict_x, X)
         return logL - va.kld(q), logL
 
     def update(self, num_iter: int, generator=None, final: bool = False):
@@ -90,4 +102,6 @@ class PredictionEnsemble:
             self.optimizer.step()
             self.count += 1
             elbo, logL = elbo.detach(), logL.detach()
+        if self.split is not None and self.split.group is not None:
+            elbo, logL = self.split.sum(torch.stack([elbo, logL]))
         return elbo, logL

@@ -4,7 +4,11 @@ Port of ``generative_physics_informed_pde_tpu/inference/variational.py``.
 A posterior is a mapping with ``"mean"`` and ``"logsigma"`` tensors of
 shape (N, dim): an ``nn.ParameterDict`` where it is optimised (the model's
 ``q_z``/``q_X``, the prediction ensemble's ``q``), a plain dict elsewhere.
-Draws come from an explicit ``torch.Generator``.
+Draws come from an explicit ``torch.Generator``.  The ``*_rows`` draws
+serve a posterior that holds this process's rows of a sharded batch
+(``parallel.layout.RowSplit``): the normals are drawn for the whole batch
+and the process keeps its rows, so that the draw and the generator's
+state equal the unsharded draw's on every process.
 """
 
 from __future__ import annotations
@@ -35,6 +39,13 @@ def sample(params, generator=None) -> torch.Tensor:
     return params["mean"] + torch.exp(params["logsigma"]) * eps
 
 
+def sample_rows(params, generator, split) -> torch.Tensor:
+    """:func:`sample` of a block of rows ``split`` of the whole batch."""
+    shape = (split.n,) + tuple(params["logsigma"].shape[1:])
+    eps = split.take(standard_normal(shape, params["mean"], generator))
+    return params["mean"] + torch.exp(params["logsigma"]) * eps
+
+
 def sample_component(params, index: int, generator,
                      batch_size: int) -> torch.Tensor:
     """(batch_size, dim) samples of datapoint ``index``."""
@@ -51,6 +62,17 @@ def sample_all_components(params, generator,
     logsigma = params["logsigma"][:, None, :]
     eps = standard_normal((mean.shape[0], batch_size, mean.shape[-1]),
                           params["mean"], generator)
+    return mean + torch.exp(logsigma) * eps
+
+
+def sample_all_components_rows(params, generator, batch_size: int,
+                               split) -> torch.Tensor:
+    """:func:`sample_all_components` of a block of rows ``split`` of the
+    whole batch."""
+    mean = params["mean"][:, None, :]
+    logsigma = params["logsigma"][:, None, :]
+    eps = split.take(standard_normal((split.n, batch_size, mean.shape[-1]),
+                                     params["mean"], generator))
     return mean + torch.exp(logsigma) * eps
 
 

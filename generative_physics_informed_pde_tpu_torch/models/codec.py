@@ -33,10 +33,19 @@ f32 output) is another function.
 ``torch.utils.checkpoint`` (the JAX package's ``remat_codec``): the
 recompute in the backward pass replays the first run's dropout masks and
 leaves the BatchNorm running statistics alone, so it is the same math.
+
+Sharded training (:func:`row_split`): when a process holds some rows of
+a batch whose other rows other processes hold, a train-mode apply inside
+``row_split(split)`` takes the BatchNorm statistics over the whole batch
+(differentiable sums over ``split.group`` divided by the whole batch's
+count) and draws every dropout mask for the whole batch, keeping its own
+rows; so the running statistics and the generator's state stay equal on
+every process and equal to the unsharded run's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
@@ -58,6 +67,30 @@ class _RematState(threading.local):
 _REMAT = _RematState()
 
 
+class _SplitState(threading.local):
+    """The ``row_split`` in force on this thread (None: the plain
+    apply)."""
+
+    split = None
+
+
+_SPLIT = _SplitState()
+
+
+@contextlib.contextmanager
+def row_split(split):
+    """Within: train-mode BatchNorm statistics over the whole batch that
+    ``split`` (a ``parallel.layout.RowSplit``, or None for the plain
+    apply) describes, and dropout masks drawn for the whole batch, this
+    process's rows kept."""
+    saved = _SPLIT.split
+    _SPLIT.split = split
+    try:
+        yield
+    finally:
+        _SPLIT.split = saved
+
+
 def checkpointed(fn, *args):
     """``fn(*args)`` with its activations recomputed in the backward pass
     instead of kept; the recompute draws no dropout mask and updates no
@@ -65,6 +98,7 @@ def checkpointed(fn, *args):
     generator's state are those of the plain call."""
     masks = []
     runs = [0]
+    split = _SPLIT.split
 
     def run(*a):
         saved = (_REMAT.masks, _REMAT.replay)
@@ -73,7 +107,8 @@ def checkpointed(fn, *args):
         _REMAT.masks, _REMAT.replay = (list(masks) if replay else masks,
                                        replay)
         try:
-            return fn(*a)
+            with row_split(split):
+                return fn(*a)
         finally:
             _REMAT.masks, _REMAT.replay = saved
 
@@ -130,9 +165,18 @@ class BatchNorm(nn.BatchNorm2d):
         out_dtype = x.dtype if compute_dtype is None else compute_dtype
         x = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
-            mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean,
-                              min=0)
+            split = _SPLIT.split
+            if split is None:
+                mean = x.mean(dim=(0, 2, 3))
+                var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean,
+                                  min=0)
+            else:
+                # the whole batch's sums over the processes holding it
+                count = split.n * x.shape[2] * x.shape[3]
+                sums = split.sum(torch.stack([x.sum(dim=(0, 2, 3)),
+                                              (x * x).sum(dim=(0, 2, 3))]))
+                mean = sums[0] / count
+                var = torch.clamp(sums[1] / count - mean * mean, min=0)
             if not _REMAT.replay:
                 with torch.no_grad():
                     m = self.MOMENTUM
@@ -172,8 +216,13 @@ def dropout(x, rate: float, training: bool, generator=None, shape=None):
     if _REMAT.replay:
         mask = _REMAT.masks.pop(0)
     else:
-        mask = dropout_mask(x.shape if shape is None else shape, keep,
-                            generator, x.device)
+        shape = tuple(x.shape if shape is None else shape)
+        split = _SPLIT.split
+        if split is None:
+            mask = dropout_mask(shape, keep, generator, x.device)
+        else:  # the whole batch's mask, this process's rows
+            mask = split.take(dropout_mask((split.n,) + shape[1:], keep,
+                                           generator, x.device))
         if _REMAT.masks is not None:
             _REMAT.masks.append(mask)
     return torch.where(mask, x / keep, torch.zeros_like(x))

@@ -26,9 +26,18 @@ Options of the JAX package's model, as it defines them:
   active terms keep the unfused semantics.
 * ``remat_codec``: train-mode codec applies under ``codec.checkpointed``
   (activations recomputed in the backward pass, the same math).
-
-The JAX package's ``mc_sharding`` (its multi-device Monte-Carlo batch) is
-not ported.
+* ``layout`` / ``mc_sharding`` (set by ``Trainer.setup(mesh=...)``): the
+  per-datapoint posteriors and the data hold this process's rows of a
+  sharded run (``parallel.layout.TrainLayout``).  Every draw is made for
+  the whole batch and cut to the local rows, every train-mode codec
+  apply takes its BatchNorm statistics over the whole batch
+  (``codec.row_split``), and the ELBO is this process's share: the sum
+  over the processes of their shares is the unsharded ELBO (a batch that
+  repeats on a mesh's replicas is counted by the first replica, the l2
+  penalty by process 0).  With ``mc_sharding`` (a ``Sharding`` from
+  ``parallel.mc_batch_sharding``) the supervised (N * n_mc) Monte-Carlo
+  batch is split over all mesh axes, and ``fuse_decodes`` is ignored, as
+  in the JAX package.
 """
 
 from __future__ import annotations
@@ -41,8 +50,10 @@ from torch import nn
 from ..inference import variational as va
 from ..inference.likelihoods import (bernoulli_log_likelihood,
                                      diagonal_gaussian_log_likelihood,
-                                     reparametrize, unit_gaussian_kld)
-from .codec import checkpointed
+                                     reparametrize, reparametrize_rows,
+                                     unit_gaussian_kld)
+from ..parallel.layout import RowSplit
+from .codec import checkpointed, row_split
 from .components import (EffectivePropertyMap, ReducedOrderModelOperator,
                          propagate_gp_samples)
 
@@ -85,6 +96,8 @@ class GenerativeModel(nn.Module):
         self.disable_elbo_supervised = False
         self.disable_elbo_unsupervised = False
         self.disable_elbo_vo = False
+        self.layout = None
+        self.mc_sharding = None
 
     # ------------------------------------------------------------- shapes
     @property
@@ -123,25 +136,76 @@ class GenerativeModel(nn.Module):
         return self
 
     # ------------------------------------------------------- applications
-    def _run_codec(self, module, x, train, generator, compute_dtype):
+    def _run_codec(self, module, x, train, generator, compute_dtype,
+                   split=None):
         module.train(train)
         kw = {} if compute_dtype is None else {"compute_dtype": compute_dtype}
-        if train and self.remat_codec:
-            return checkpointed(lambda x: module(x, generator, **kw), x)
-        return module(x, generator, **kw)
+        # a batch no other process holds part of runs the plain apply
+        with row_split(split if train and split is not None
+                       and split.group is not None else None):
+            if train and self.remat_codec:
+                return checkpointed(lambda x: module(x, generator, **kw), x)
+            return module(x, generator, **kw)
 
     def apply_decoder(self, z, *, train: bool, generator=None,
-                      compute_dtype=None):
+                      compute_dtype=None, split=None):
         """Decode in train mode (batch statistics, running-stat update,
         dropout masks from ``generator``) or eval mode (running
         statistics, no dropout); ``compute_dtype`` overrides the
-        decoder's."""
-        return self._run_codec(self.f, z, train, generator, compute_dtype)
+        decoder's.  ``split``: the rows of a sharded batch ``z`` holds
+        (``parallel.layout.RowSplit``)."""
+        return self._run_codec(self.f, z, train, generator, compute_dtype,
+                               split)
 
     def apply_encoder(self, x, *, train: bool = False, generator=None,
-                      compute_dtype=None):
+                      compute_dtype=None, split=None):
         return self._run_codec(self.encoder, x, train, generator,
-                               compute_dtype)
+                               compute_dtype, split)
+
+    # ------------------------------------------------------ sharded rows
+    def _rows(self, n_local: int):
+        """The split of a batch of ``n_local`` rows a process over the
+        batch axes (None unsharded)."""
+        return None if self.layout is None else self.layout.rows(n_local)
+
+    def _mc_split(self, n_local: int):
+        """The split of the supervised decode's ``n_local`` rows: over all
+        axes under ``mc_sharding``, else over the batch axes."""
+        if self.layout is None:
+            return None
+        if self.mc_sharding is not None:
+            return self.layout.joint(n_local)
+        return self.layout.rows(n_local)
+
+    def _sample(self, q, generator):
+        split = self._rows(q["mean"].shape[0])
+        if split is None:
+            return va.sample(q, generator)
+        return va.sample_rows(q, generator, split)
+
+    def _reparametrize(self, generator, mean, logsigma):
+        split = self._rows(mean.shape[0])
+        if split is None:
+            return reparametrize(generator, mean, logsigma)
+        return reparametrize_rows(generator, mean, logsigma, split)
+
+    def _n_global(self, n_local: int) -> int:
+        return n_local if self.layout is None \
+            else self.layout.global_rows(n_local)
+
+    def _once(self, x):
+        """``x``, a sum over a per-datapoint block, where this process
+        counts it: zero on a replica other than the first (no gradient)."""
+        if self.layout is None or self.layout.first_replica:
+            return x
+        return torch.zeros_like(torch.as_tensor(x)).detach()
+
+    @staticmethod
+    def _dropped(logs):
+        """A term this process computed but does not count: zero, with the
+        same logs, all zero."""
+        return 0.0, {k: torch.zeros_like(torch.as_tensor(v)).detach()
+                     for k, v in logs.items()}
 
     def _unsup_dtypes(self, train: bool):
         """(decoder, encoder) compute dtypes of the unsupervised terms:
@@ -170,11 +234,20 @@ class GenerativeModel(nn.Module):
     # ------------------------------------------------------- ELBO pieces
     def _mc_sample(self, q, generator):
         """``n_mc`` draws per datapoint of ``q``, N-major (N * n_mc, dim),
-        or one draw per datapoint."""
+        or one draw per datapoint; under ``mc_sharding`` this process's
+        block of the rows of its datapoints."""
         if self.n_mc > 1:
-            return va.sample_all_components(q, generator, self.n_mc).reshape(
-                -1, q["mean"].shape[-1])
-        return va.sample(q, generator)
+            split = self._rows(q["mean"].shape[0])
+            if split is None:
+                return va.sample_all_components(
+                    q, generator, self.n_mc).reshape(-1, q["mean"].shape[-1])
+            Z = va.sample_all_components_rows(
+                q, generator, self.n_mc, split).reshape(
+                    -1, q["mean"].shape[-1])
+            if self.mc_sharding is not None:
+                Z = self.layout.replica_block(Z)
+            return Z
+        return self._sample(q, generator)
 
     def elbo_supervised(self, data, generator=None, *, train: bool = True,
                         normalize: bool = False, fused=None):
@@ -188,13 +261,16 @@ class GenerativeModel(nn.Module):
         if fused is None:
             Z = self._mc_sample(qz, generator)
             predict_x = self.apply_decoder(Z, train=train,
-                                           generator=generator)
+                                           generator=generator,
+                                           split=self._mc_split(Z.shape[0]))
         else:
             Z, predict_x = fused["Z"], fused["predict_x"]
         if S > 1:
             X, Y, F_ = (t.repeat_interleave(S, 0) for t in (X, Y, F_))
+            if self.mc_sharding is not None:
+                X, Y, F_ = (self.layout.replica_block(t) for t in (X, Y, F_))
         logL_x = self.random_field_likelihood(predict_x, X) / S
-        DKL = va.kld(qz)
+        DKL = self._once(va.kld(qz))
         if self.independent_X:
             qX = self.q_X["supervised"]
             X_sample = fused["X"] if fused else self._mc_sample(qX,
@@ -202,7 +278,7 @@ class GenerativeModel(nn.Module):
             mu_X, logsigmas_X = self.apply_gp(Z)
             logL_X = diagonal_gaussian_log_likelihood(
                 X_sample, mu_X, 2 * logsigmas_X) / S
-            ent = va.entropy(qX)
+            ent = self._once(va.entropy(qX))
         else:
             X_sample = self.apply_gp(Z)
             logL_X = 0.0
@@ -211,7 +287,7 @@ class GenerativeModel(nn.Module):
         logL_y = diagonal_gaussian_log_likelihood(Y, mu_y,
                                                   2 * logsigmas_y) / S
         if normalize:
-            bs = data["X"].shape[0]
+            bs = self._n_global(data["X"].shape[0])
             logL_x, logL_y, logL_X, ent, DKL = (
                 v / bs for v in (logL_x, logL_y, logL_X, ent, DKL))
         elbo = logL_x + logL_y + logL_X + ent - DKL
@@ -232,19 +308,20 @@ class GenerativeModel(nn.Module):
             return 0.0, {}
         if fused is None:
             dec_dt, enc_dt = self._unsup_dtypes(train)
+            split = self._rows(X_batch.shape[0])
             mean, logsigma = self.apply_encoder(
                 X_batch, train=train, generator=generator,
-                compute_dtype=enc_dt)
-            Z = reparametrize(generator, mean, logsigma)
+                compute_dtype=enc_dt, split=split)
+            Z = self._reparametrize(generator, mean, logsigma)
             predict_x = self.apply_decoder(Z, train=train,
                                            generator=generator,
-                                           compute_dtype=dec_dt)
+                                           compute_dtype=dec_dt, split=split)
         else:
             (mean, logsigma), predict_x = fused["Z"], fused["predict_x"]
         logL_x = self.random_field_likelihood(predict_x, X_batch)
         DKL = unit_gaussian_kld(mean, 2 * logsigma)
         if normalize:
-            bs = X_batch.shape[0]
+            bs = self._n_global(X_batch.shape[0])
             logL_x, DKL = logL_x / bs, DKL / bs
         elbo = logL_x - DKL
         return elbo, {"ARM_unsupervised_logL_x": logL_x,
@@ -260,14 +337,16 @@ class GenerativeModel(nn.Module):
         if self.disable_elbo_unsupervised:
             return 0.0, {}
         qz = self.q_z["unsupervised"]
-        Z = va.sample(qz, generator)
+        Z = self._sample(qz, generator)
         predict_x = self.apply_decoder(
             Z, train=train, generator=generator,
-            compute_dtype=self._unsup_dtypes(train)[0])
+            compute_dtype=self._unsup_dtypes(train)[0],
+            split=self._rows(Z.shape[0]))
         logL_x = self.random_field_likelihood(predict_x, X)
         DKL = va.kld(qz)
         if normalize:
-            logL_x, DKL = logL_x / X.shape[0], DKL / X.shape[0]
+            bs = self._n_global(X.shape[0])
+            logL_x, DKL = logL_x / bs, DKL / bs
         elbo = logL_x - DKL
         return elbo, {"unsupervised_logL_x": logL_x,
                       "unsupervised_DKL_z": DKL,
@@ -288,9 +367,10 @@ class GenerativeModel(nn.Module):
         X, F_ = data["X"], data["F_ROM_BC"]
         qz = self.q_z["vo"]
         if fused is None:
-            Z = va.sample(qz, generator)
+            Z = self._sample(qz, generator)
             predict_x = self.apply_decoder(Z, train=train,
-                                           generator=generator)
+                                           generator=generator,
+                                           split=self._rows(Z.shape[0]))
         else:
             Z, predict_x = fused["Z"], fused["predict_x"]
         DKL = va.kld(qz)
@@ -300,7 +380,8 @@ class GenerativeModel(nn.Module):
         else:
             if self.independent_X:
                 qX = self.q_X["vo"]
-                X_sample = fused["X"] if fused else va.sample(qX, generator)
+                X_sample = fused["X"] if fused else self._sample(qX,
+                                                                 generator)
                 mu_X, logsigmas_X = self.apply_gp(Z)
                 logL_X = diagonal_gaussian_log_likelihood(
                     X_sample, mu_X, 2 * logsigmas_X)
@@ -314,7 +395,7 @@ class GenerativeModel(nn.Module):
             logL_y = diagonal_gaussian_log_likelihood(y_sample, mu_y,
                                                       2 * logsigmas_y)
         if normalize:
-            bs = X.shape[0]
+            bs = self._n_global(X.shape[0])
             logL_x, logL_y, logL_X, ent, DKL = (
                 v / bs for v in (logL_x, logL_y, logL_X, ent, DKL))
         elbo = logL_x + logL_y + logL_X + ent - DKL
@@ -332,15 +413,19 @@ class GenerativeModel(nn.Module):
         tensors; 'unsupervised' is already the minibatch.  The terms run
         unlabeled, labeled, virtual observables (when ``data`` has 'vo' and
         ``vo_state`` = (vo_mean, vo_logsigma) is given), so the decodes
-        update the BatchNorm statistics in the reference's order."""
+        update the BatchNorm statistics in the reference's order.  With a
+        ``layout``, this process's share of the ELBO and of each log."""
         total = 0.0
         logs = {}
         vo_active = data.get("vo") is not None and vo_state is not None
+        # a batch repeated on the replicas counts on the first one only
+        once = self.layout is None or self.layout.first_replica
         fused = {}
         # without the encoder the unsupervised decode is not part of the
         # fused batch, and its BatchNorm update must not be dropped
-        if self.fuse_decodes and (self.encoder is not None
-                                  or data.get("unsupervised") is None):
+        if self.fuse_decodes and self.mc_sharding is None \
+                and (self.encoder is not None
+                     or data.get("unsupervised") is None):
             fused = self._fused_decode(data, generator, vo_state=vo_state,
                                        vo_holdoff=vo_holdoff, train=train)
         if data.get("unsupervised") is not None:
@@ -352,12 +437,16 @@ class GenerativeModel(nn.Module):
             else:
                 e, lg = self.elbo_unsupervised(X_u, generator, train=train,
                                                normalize=normalize)
+            if not once:
+                e, lg = self._dropped(lg)
             total += e
             logs.update(lg)
         if data.get("supervised") is not None:
             e, lg = self.elbo_supervised(data["supervised"], generator,
                                          train=train, normalize=normalize,
                                          fused=fused.get("s"))
+            if not once and self.mc_sharding is None:
+                e, lg = self._dropped(lg)
             total += e
             logs.update(lg)
         if vo_active:
@@ -366,20 +455,29 @@ class GenerativeModel(nn.Module):
                 data["vo"], generator, vo_mean=vo_mean,
                 vo_logsigma=vo_logsigma, holdoff=vo_holdoff, train=train,
                 normalize=normalize, fused=fused.get("v"))
+            if not once:
+                e, lg = self._dropped(lg)
             total += e
             logs.update(lg)
         if l2_penalty is not None:
             pen = _l2_norm_sum(self.f)
             if self.encoder is not None:
                 pen = pen + _l2_norm_sum(self.encoder)
+            if self.layout is not None and not self.layout.lead:
+                pen = torch.zeros_like(pen).detach()  # counted once
             total = total - l2_penalty * pen
             logs["elbo_l2_penalty"] = pen
         logs["elbo"] = total
         return total, logs
 
     def _vo_y_sample(self, vo_mean, vo_logsigma, generator):
+        """One draw of y per VO datapoint from the VO posterior, whose
+        moments every process holds whole: drawn whole, this process's
+        rows kept."""
         dt = self.q_z["vo"]["mean"].dtype
-        return reparametrize(generator, vo_mean.to(dt), vo_logsigma.to(dt))
+        y = reparametrize(generator, vo_mean.to(dt), vo_logsigma.to(dt))
+        split = self._rows(self.q_z["vo"]["mean"].shape[0])
+        return y if split is None else split.take(y)
 
     def _fused_decode(self, data, generator, *, vo_state, vo_holdoff: bool,
                       train: bool) -> dict:
@@ -404,9 +502,11 @@ class GenerativeModel(nn.Module):
         fused, parts = {}, []
         for name in names:
             if name == "u":
-                head = self.apply_encoder(data["unsupervised"]["X"],
-                                          train=train, generator=generator)
-                parts.append(reparametrize(generator, *head))
+                X_u = data["unsupervised"]["X"]
+                head = self.apply_encoder(X_u, train=train,
+                                          generator=generator,
+                                          split=self._rows(X_u.shape[0]))
+                parts.append(self._reparametrize(generator, *head))
                 fused["u"] = {"Z": head}
             elif name == "s":
                 parts.append(self._mc_sample(self.q_z["supervised"],
@@ -416,16 +516,19 @@ class GenerativeModel(nn.Module):
                     fused["s"]["X"] = self._mc_sample(
                         self.q_X["supervised"], generator)
             else:
-                parts.append(va.sample(self.q_z["vo"], generator))
+                parts.append(self._sample(self.q_z["vo"], generator))
                 fused["v"] = {"Z": parts[-1]}
                 if not vo_holdoff:
                     if self.independent_X:
-                        fused["v"]["X"] = va.sample(self.q_X["vo"],
-                                                    generator)
+                        fused["v"]["X"] = self._sample(self.q_X["vo"],
+                                                       generator)
                     fused["v"]["y"] = self._vo_y_sample(*vo_state,
                                                         generator)
+        split = None
+        if self.layout is not None:
+            split = RowSplit.concat([self._rows(Z.shape[0]) for Z in parts])
         out = self.apply_decoder(torch.cat(parts), train=train,
-                                 generator=generator)
+                                 generator=generator, split=split)
         lo = 0
         for name, Z in zip(names, parts):
             hi = lo + Z.shape[0]
@@ -435,9 +538,12 @@ class GenerativeModel(nn.Module):
         return fused
 
     # ------------------------------------------------ VO moment propagation
-    def propagate_vo_moments(self, data_vo, generator, n_monte_carlo: int):
+    def propagate_vo_moments(self, data_vo, generator, n_monte_carlo: int,
+                             q=None):
         """Monte-Carlo push of q through gp o g for every VO sample at once
-        -> (Y_mean, Y_std), each (N_vo, dim_y)."""
+        -> (Y_mean, Y_std), each (N_vo, dim_y).  ``q``: the VO posterior
+        to push (default the model's ``q_X['vo']``, or ``q_z['vo']``
+        without ``independent_X``), whole over ``data_vo``."""
         if n_monte_carlo < 2:
             # std with one degree of freedom over one sample is NaN, which
             # would poison the VO precision downstream
@@ -445,11 +551,13 @@ class GenerativeModel(nn.Module):
                              f"(got {n_monte_carlo})")
         F_ = data_vo["F_ROM_BC"]
         N = F_.shape[0]
+        if q is None:
+            q = self.q_X["vo"] if self.independent_X else self.q_z["vo"]
         if self.independent_X:
-            Xs = va.sample_all_components(self.q_X["vo"], generator,
+            Xs = va.sample_all_components(q, generator,
                                           n_monte_carlo)  # (N, S, c)
         else:
-            Zs = va.sample_all_components(self.q_z["vo"], generator,
+            Zs = va.sample_all_components(q, generator,
                                           n_monte_carlo)  # (N, S, dz)
             gp_out = self.apply_gp(Zs.reshape(-1, Zs.shape[-1]))
             Xs = propagate_gp_samples(gp_out, generator).reshape(

@@ -3,10 +3,19 @@
 The port's counterpart of ``generative_physics_informed_pde_tpu/parallel/
 distributed.py``.  JAX runs one SPMD program over one global mesh; PyTorch
 runs one process per device, joined in a process group: every process
-runs the same script, ``initialize`` wires the group (gloo on the CPU,
-nccl on CUDA), each process works on its contiguous share of a batch
-(``local_shard_slice``) and collectives bring the shares together
-(``fetch``, ``all_gather_rows``, ``sweep_over_processes``).
+runs the same script, ``initialize`` wires the group, each process works
+on its contiguous share of a batch (``local_shard_slice``) and collectives
+bring the shares together (``fetch``, ``all_gather_rows``,
+``all_reduce_sum``, ``sweep_over_processes``).  Where JAX has hosts (DCN)
+and each host's devices (ICI), PyTorch has nodes and each node's
+processes: ``make_hybrid_mesh`` puts its leading ``dcn`` axis over the
+nodes and its trailing axes over a node's processes.
+
+Backends: gloo on the CPU; on CUDA nccl, unless a node runs more
+processes than it has cards, where nccl refuses two ranks on one card and
+gloo is used instead (``backend_for``).  Gloo carries all-reduce and
+broadcast of CUDA tensors; its other collectives take host tensors, so the
+helpers here stage CUDA tensors through the host for them.
 
 Typical use (the same script in every process, under ``torchrun`` or
 with explicit wiring):
@@ -14,6 +23,7 @@ with explicit wiring):
     from generative_physics_informed_pde_tpu_torch import parallel
     parallel.initialize(device="cpu")      # env-driven under torchrun
     mesh = parallel.make_mesh(device="cpu")
+    trainer.setup(scheduler_spec=..., mesh=mesh)
 
 For explicit wiring (tests, custom launchers) pass
 ``coordinator_address`` (an init method such as ``tcp://host:port`` or
@@ -46,10 +56,12 @@ def initialize(coordinator_address: Optional[str] = None,
     (torchrun's ``WORLD_SIZE`` / ``RANK`` / ``MASTER_ADDR`` /
     ``MASTER_PORT``) whenever any of those signals is set; with none set
     it returns False WITHOUT touching ``torch.distributed``, so a later
-    call with explicit arguments still works.  The backend follows
-    ``device``: gloo on the CPU, nccl on CUDA (whose process then uses
-    card ``LOCAL_RANK``, or ``process_id`` modulo the card count).
-    Returns True if the group spans more than one process.
+    call with explicit arguments still works.  The backend is
+    ``backend_for(device, processes a node)``: gloo on the CPU, nccl on
+    CUDA, gloo on CUDA when a node runs more processes than it has cards
+    (the processes of a node: ``LOCAL_WORLD_SIZE``, else all of them).  A
+    CUDA process uses card ``LOCAL_RANK``, else its rank, modulo the card
+    count.  Returns True if the group spans more than one process.
 
     A half-initialised job raises, never falls back to one process: an
     environment with some of the signals but not all of what ``env://``
@@ -86,13 +98,26 @@ def initialize(coordinator_address: Optional[str] = None,
         kw = dict(init_method="env://")
         rank = int(os.environ["RANK"])
     dev = resolve_device(device)
-    backend = "gloo"
+    world = int(kw.get("world_size") or os.environ["WORLD_SIZE"])
+    backend = backend_for(dev, int(os.environ.get("LOCAL_WORLD_SIZE",
+                                                  world)))
     if dev.type == "cuda":
-        backend = "nccl"
-        torch.cuda.set_device(int(os.environ.get(
-            "LOCAL_RANK", rank % torch.cuda.device_count())))
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank))
+                              % torch.cuda.device_count())
     dist.init_process_group(backend, **kw)
     return dist.get_world_size() > 1
+
+
+def backend_for(device, processes_per_node: int) -> str:
+    """The process group's backend: gloo on the CPU; on CUDA nccl, or gloo
+    when a node runs more processes than it has cards (nccl refuses two
+    ranks on one card).  The rule is fixed up front, never a fallback
+    after a failure."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return "gloo"
+    return "gloo" if processes_per_node > torch.cuda.device_count() \
+        else "nccl"
 
 
 def process_count() -> int:
@@ -114,17 +139,125 @@ def local_shard_slice(n: int) -> slice:
     return slice(p * per, (p + 1) * per)
 
 
+def _staged(x: torch.Tensor, group) -> bool:
+    """Whether a collective other than all-reduce and broadcast must take
+    ``x`` through the host: a CUDA tensor under gloo."""
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
 def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
     """Every process's ``x`` (equal shapes) of ``group`` (default: all),
-    concatenated along the first axis in rank order, on every process;
-    ``x`` itself with one process.  ``x`` lies on the backend's device
-    (the CPU for gloo, the process's card for nccl)."""
-    if process_count() == 1:
+    concatenated along the first axis in rank order, on every process, on
+    ``x``'s device; ``x`` itself with one process."""
+    if process_count() == 1 or group is not None \
+            and dist.get_world_size(group) == 1:
         return x
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x, group=group)
-    return torch.cat(parts)
+    src = x.contiguous()
+    if _staged(x, group):
+        src = src.cpu()
+    parts = [torch.empty_like(src)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, src, group=group)
+    return torch.cat(parts).to(x.device)
+
+
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of every process's ``x`` over ``group`` (default: all), in
+    place, on every process; ``x`` itself with one process.  Gloo and nccl
+    both reduce CUDA tensors, and every process gets the same bits."""
+    if process_count() > 1 and (group is None
+                                or dist.get_world_size(group) > 1):
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Differentiable sum over a group: the gradient of every process's
+    input is the sum of the gradients of every process's output."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_sum(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_sum(grad.contiguous().clone(), ctx.group), None
+
+
+def differentiable_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``all_reduce_sum`` that autograd differentiates (every process of
+    ``group`` must run the backward pass through it)."""
+    return _AllReduceSum.apply(x, group)
+
+
+def barrier() -> None:
+    """Wait for every process of the group (nothing with one)."""
+    if process_count() > 1:
+        dist.barrier()
+
+
+def make_hybrid_mesh(local_axis_names: Sequence[str] = ("dp",),
+                     local_shape: Optional[Sequence[int]] = None,
+                     dcn_axis: str = "dcn", device="cuda"):
+    """Explicit (nodes x a node's processes) mesh: a leading ``dcn_axis``
+    over the nodes, trailing axes ``local_axis_names`` of ``local_shape``
+    over each node's processes (default: all of them on the first
+    trailing axis).  A node's processes are ``LOCAL_WORLD_SIZE`` (set by
+    ``torchrun``; without it, every process of the group runs on one
+    node).  Ranks are node-major, so the batch split over ('dcn', axis)
+    is process-major and contiguous, as ``local_shard_slice``.  A
+    ``local_shape`` that does not hold a node's processes raises
+    ValueError."""
+    from .mesh import ProcessMesh, make_mesh
+
+    n_proc = process_count()
+    n_local = int(os.environ.get("LOCAL_WORLD_SIZE", n_proc))
+    if n_local < 1 or n_proc % n_local:
+        raise ValueError(f"{n_proc} processes do not split into nodes of "
+                         f"{n_local}")
+    if local_shape is None:
+        local_shape = (n_local,) + (1,) * (len(local_axis_names) - 1)
+    if int(np.prod(local_shape)) != n_local:
+        raise ValueError(f"local_shape {tuple(local_shape)} != "
+                         f"{n_local} processes per node")
+    names = (dcn_axis,) + tuple(local_axis_names)
+    shape = (n_proc // n_local,) + tuple(local_shape)
+    if n_proc == 1:
+        return make_mesh(1, names, shape, device=device)
+    return ProcessMesh(resolve_device(device), names, shape)
+
+
+def global_array_from_local(mesh, local_data, axis: str = "dp",
+                            global_shape=None):
+    """This process's contiguous block of a global batch (rows
+    ``batch_sharding(mesh, axis).rows(N)``; process-local loading), as the
+    port's sharded tensor: checked against the global shape and put on
+    the mesh's device.  The global shape defaults to the local rows times
+    the shard count of the batch axes.  Trees map leaf-wise;
+    ``global_shape`` therefore only makes sense for a single-leaf input
+    (call per leaf otherwise)."""
+    from torch.utils import _pytree
+
+    from .mesh import batch_sharding
+
+    if global_shape is not None and \
+            len(_pytree.tree_leaves(local_data)) > 1:
+        raise ValueError(
+            "global_shape applies to every leaf; with a multi-leaf pytree "
+            "call per leaf (or omit it to infer per-leaf shapes)")
+    k = batch_sharding(mesh, axis).num_shards
+
+    def put(x):
+        x = torch.as_tensor(x, device=mesh.device)
+        want = (x.shape[0] * k,) + tuple(x.shape[1:])
+        if global_shape is not None and tuple(global_shape) != want:
+            raise ValueError(f"a local block of {tuple(x.shape)} over "
+                             f"{k} shards is a global {want}, not "
+                             f"{tuple(global_shape)}")
+        return x
+
+    return _pytree.tree_map(put, local_data)
 
 
 def fetch(x) -> np.ndarray:

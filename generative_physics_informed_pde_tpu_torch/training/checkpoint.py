@@ -4,8 +4,10 @@ Port of ``generative_physics_informed_pde_tpu/training/checkpoint.py``.
 The JAX package writes its ``TrainState`` pytree with orbax; here one file
 holds plain containers of tensors, numbers and strings, read back with
 ``torch.load(weights_only=True)`` (no pickled code).  What a trainer
-writes is assembled by ``Trainer.save_checkpoint``.  Left out: the
-multi-process gather of sharded state (the port runs on one device).
+writes is assembled by ``Trainer.save_checkpoint``; a sharded trainer
+gathers its per-datapoint blocks first and process 0 writes the unsharded
+layout, which ``Trainer.restore_checkpoint`` cuts again for its own mesh
+(``parallel.shard_train_state``).
 """
 
 from __future__ import annotations

@@ -28,14 +28,33 @@ the ELBO at the monitor points; without ``armortized_bs`` the unlabeled
 term is the non-amortized one over the whole unlabeled chunk (the model
 drops its encoder).
 
+``setup(mesh=...)`` trains sharded over the processes of a mesh
+(``parallel.make_mesh`` / ``make_hybrid_mesh``), with the JAX package's
+layout: the data and the per-datapoint posteriors (with their Adam
+moments, and the prediction ensemble's) hold each process's rows of the
+mesh's batch axes, the network weights are whole on every process.  The
+step computes on local tensors with explicit collectives: every draw is
+made whole and cut to the local rows (the generators stay equal on every
+process and equal to the unsharded run's), the BatchNorm statistics and
+the logged ELBO terms are sums over the processes, the gradients of the
+whole parameters are summed over all processes before Adam (those of the
+per-datapoint blocks over the processes holding the same rows), and the
+unlabeled minibatch is drawn whole and its rows gathered from the
+processes that hold them.  The virtual observables, the analyses and the
+monitor run whole on every process on gathered posteriors.  Only process
+0 writes metrics, checkpoints and exports; a checkpoint holds the whole
+state, the layout of an unsharded one, and restores on any mesh.  Every
+batch split over the batch axes must divide by their shard count.
+
 Left out: the ``lax.scan`` chunking and its ``_SCAN_BUCKETS`` (a dispatch
-device of the reference's jitted step; PyTorch runs eagerly), buffer
-donation and mesh sharding.
+device of the reference's jitted step; PyTorch runs eagerly) and buffer
+donation.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import time
 from typing import Dict, Optional
 
@@ -43,11 +62,15 @@ import numpy as np
 import torch
 
 from ..constraints import build_virtual_observables_ensemble
-from ..data.sampling import minibatch_indices
+from ..data.sampling import gather_rows, minibatch_indices
 from ..factories.data import DataFactory
 from ..factories.model import ModelFactory
 from ..inference.analysis import Analysis
 from ..inference.prediction import PredictionEnsemble
+from ..parallel.distributed import all_reduce_sum, barrier, process_index
+from ..parallel.layout import TrainLayout, mc_rows
+from ..parallel.mesh import (mc_batch_sharding, map_state_blocks,
+                             shard_data_dict, shard_train_state)
 from ..utils.device import resolve_device
 from .metrics import MetricsWriter
 from .schedules import PlateauController, make_schedule
@@ -147,6 +170,9 @@ class Trainer:
         self._dtype = dtype
         self.debug = debug
         self.comment = comment
+        # in a group of processes only process 0 writes the metrics file
+        if folder is not None and process_index() != 0:
+            folder = None
         self.writer = MetricsWriter(folder, comment=comment)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         # the virtual observables' own draws (the reference folds its
@@ -172,6 +198,8 @@ class Trainer:
         self._monitor = dict(elbo=[], elbo_iter=[], lr=[], lr_iter=[])
         self.optimizer = None
         self._plateau = None
+        self._mesh = None
+        self._layout = None
 
     @classmethod
     def FromIdentifier(cls, identifier: str, margs=None, **kwargs):
@@ -299,8 +327,17 @@ class Trainer:
         self.datasets = datasets
 
     # -------------------------------------------------------------- setup
-    def setup(self, scheduler_spec: Optional[dict] = None):
-        """Create the posteriors, the optimisers and the analyses."""
+    def setup(self, scheduler_spec: Optional[dict] = None, mesh=None):
+        """Create the posteriors, the optimisers and the analyses.
+
+        ``mesh``: train sharded over the mesh's batch axes
+        (``parallel.batch_pspec``; the module docstring has the layout).
+        The posteriors are built whole, as without a mesh, then cut to
+        this process's rows (``parallel.shard_train_state``) before the
+        optimiser is made.  With ``N_monte_carlo_elbo > 1`` and an 'mc'
+        axis the supervised Monte-Carlo batch is split over all axes
+        (``parallel.mc_batch_sharding``).  A one-device mesh runs this
+        path and equals ``setup()`` bit for bit."""
         if self._config is None:
             raise RuntimeError("Config has not yet been setup")
         if self.get("l1_penalty") is not None:
@@ -322,6 +359,10 @@ class Trainer:
             spec = None
         self._schedule = make_schedule(spec, lr)
         self.model.n_mc = self.get("N_monte_carlo_elbo")
+        self._mesh = mesh
+        layout = self._layout = None if mesh is None else TrainLayout(mesh)
+        self.model.layout = self.model.mc_sharding = None
+        self.optimizer = None
 
         ds = self.datasets
         keys = ("X", "Y", "F_ROM_BC")
@@ -333,21 +374,32 @@ class Trainer:
         X_unsup = None
         if "unsupervised" in ds and ds["unsupervised"].N > 0:
             X_unsup = ds["unsupervised"].get("X")
-        self._data_sup, self._X_unsup = data_sup, X_unsup
-        self._data_vo = None
+        data_vo = None
         if self.VO is not None:
-            self._data_vo = {k: ds["vo"].get(k) for k in ("X", "F_ROM_BC")}
-
+            data_vo = {k: ds["vo"].get(k) for k in ("X", "F_ROM_BC")}
+        X_val = ds["validation"].get("X")
         init_sets = {"supervised": {"X": data_sup["X"]}}
         if X_unsup is not None:
             init_sets["unsupervised"] = {"X": X_unsup}
-        if self._data_vo is not None:
-            init_sets["vo"] = {"X": self._data_vo["X"]}
-        self.model.init_params(init_sets)
-        self._params = list(self.model.parameters())
-        self.optimizer = torch.optim.Adam(self._params, lr=self._schedule(0))
+        if data_vo is not None:
+            init_sets["vo"] = {"X": data_vo["X"]}
+        self._N_u = 0 if X_unsup is None else X_unsup.shape[0]
+        if layout is not None:
+            self._check_splits(layout, data_sup, data_vo, X_unsup, X_val)
+            data_sup = shard_data_dict(data_sup, mesh)
+            if data_vo is not None:
+                data_vo = shard_data_dict(data_vo, mesh)
+            if X_unsup is not None:
+                X_unsup = shard_data_dict({"X": X_unsup}, mesh)["X"]
+        self._data_sup, self._X_unsup, self._data_vo = (data_sup, X_unsup,
+                                                        data_vo)
+        # whole copies, gathered from the processes' rows (a process may
+        # have labeled its own rows only), for the analyses and the VO
+        self._data_sup_whole = self._gathered(data_sup)
+        self._data_vo_whole = None if data_vo is None \
+            else self._gathered(data_vo)
 
-        X_val = ds["validation"].get("X")
+        self.model.init_params(init_sets)
         # the PE's Adam advances N_PE_updates counts per active iteration,
         # N_PE_updates / N_PE_interval per iteration on average
         pe_sched = make_schedule(
@@ -358,13 +410,22 @@ class Trainer:
             self.model, X_val, pe_sched,
             compute_dtype=resolve_pe_compute_dtype(
                 self.get("PE_compute_dtype"), X_val.shape))
+        if layout is not None:
+            shard_train_state(self, mesh)
+            self._PE.split = layout.rows(self._PE.q["mean"].shape[0])
+            if self.model.n_mc > 1 and "mc" in mesh.mesh_dim_names:
+                mc_rows(layout, data_sup["X"].shape[0], self.model.n_mc)
+                self.model.mc_sharding = mc_batch_sharding(mesh)
+            self.model.layout = layout
+        self._params = list(self.model.parameters())
+        self.optimizer = torch.optim.Adam(self._params, lr=self._schedule(0))
 
         data_val = {k: ds["validation"].get(k) for k in keys}
         self._data_val = data_val
         self._analysis = Analysis(self.model, data_val, "validation",
                                   self.writer)
-        self._analysis_training = Analysis(self.model, data_sup, "training",
-                                           self.writer)
+        self._analysis_training = Analysis(self.model, self._data_sup_whole,
+                                           "training", self.writer)
         self._analysis_encoder = None
         if self.model.encoder is not None:
             self._analysis_encoder = Analysis(
@@ -372,12 +433,33 @@ class Trainer:
         self.writer.logging_interval = self.get(
             "N_tensorboard_logging_interval")
 
+    def _check_splits(self, layout, data_sup, data_vo, X_unsup, X_val):
+        """Every batch split over the batch axes divides by their shard
+        count (the JAX package would keep such a batch whole)."""
+        layout.check_rows("N_s", data_sup["X"].shape[0])
+        layout.check_rows("N_val", X_val.shape[0])
+        if data_vo is not None:
+            layout.check_rows("N_vo", data_vo["X"].shape[0])
+        if X_unsup is not None:
+            layout.check_rows("N_u", X_unsup.shape[0])
+            if self.model.encoder is not None:
+                layout.check_rows("armortized_bs", self._armortized_bs)
+
+    def _gathered(self, tree):
+        """Every process's rows of the sharded tensors of ``tree`` (a
+        dict of tensors or a posterior), whole and detached; ``tree``
+        itself unsharded."""
+        if self._layout is None:
+            return tree
+        return {k: self._layout.gather(v.detach()) for k, v in tree.items()}
+
     # --------------------------------------------------------------- step
     def step(self) -> Dict[str, torch.Tensor]:
         """One SVI iteration -> its logs (device tensors): the VO refresh
         when due, then the gradient step on the ELBO, whose VO term is held
         off (``logL_x - DKL`` only) before ``N_vo_holdoff`` iterations and
-        until the first refresh."""
+        until the first refresh.  Sharded, the logs are the sums over the
+        processes."""
         model = self.model
         if self.update_vo():
             self.update_virtual_observables(self.gn)
@@ -385,10 +467,9 @@ class Trainer:
         if self._X_unsup is not None and model.encoder is None:
             data["unsupervised"] = {"X": self._X_unsup}
         elif self._X_unsup is not None:
-            idx = minibatch_indices(self.generator, self._X_unsup.shape[0],
-                                    self._armortized_bs,
-                                    device=self.device)
-            data["unsupervised"] = {"X": self._X_unsup[idx]}
+            idx = minibatch_indices(self.generator, self._N_u,
+                                    self._armortized_bs, device=self.device)
+            data["unsupervised"] = {"X": self._minibatch(idx)}
         vo_state, holdoff = None, False
         if self.use_vo():
             data["vo"] = self._data_vo
@@ -400,10 +481,12 @@ class Trainer:
                                 vo_holdoff=holdoff,
                                 normalize=self.get("normalize"),
                                 l2_penalty=self.get("l2_penalty"))
-        (-elbo).backward()
+        if torch.is_tensor(elbo) and elbo.requires_grad:
+            (-elbo).backward()  # a mesh's replica may count no term
         for p in self._params:
             if p.grad is None:  # optax updates moments on zero gradients
                 p.grad = torch.zeros_like(p)
+        self._reduce_grads()
         for group in self.optimizer.param_groups:
             group["lr"] = self.lr(self.gn)
         self.optimizer.step()
@@ -416,12 +499,59 @@ class Trainer:
             # skipped iterations log NaN; the monitor burst refreshes them
             pe_elbo = pe_logL = torch.full((), math.nan, dtype=self._dtype,
                                            device=self.device)
-        logs = {k: (v.detach() if isinstance(v, torch.Tensor) else v)
-                for k, v in logs.items()}
+        logs = self._global_logs(
+            {k: (v.detach() if isinstance(v, torch.Tensor) else v)
+             for k, v in logs.items()})
         logs.update(self._pe_logs(pe_elbo, pe_logL))
         self._global_iteration_counter += 1
         self.elbo_history.append(logs["elbo"])
         return logs
+
+    def _minibatch(self, idx: torch.Tensor) -> torch.Tensor:
+        """The unlabeled rows ``idx`` (drawn whole) this process computes
+        with: all of them unsharded, else its share of the minibatch,
+        gathered from the processes that hold those rows."""
+        L = self._layout
+        if L is None or L.k_rows == 1:
+            return self._X_unsup[idx]
+        lo = L.r * self._X_unsup.shape[0]
+        share = L.rows(idx.shape[0] // L.k_rows)
+        return share.take(gather_rows(self._X_unsup, idx, lo, L.rows_group))
+
+    def _reduce_grads(self) -> None:
+        """Sharded: the gradients of the whole parameters summed over all
+        processes, those of the per-datapoint blocks over the processes
+        that hold the same rows (the replicas)."""
+        L = self._layout
+        if L is None or L.world == 1:
+            return
+        blocks, whole = [], []
+        for name, p in self.model.named_parameters():
+            (blocks if name.split(".", 1)[0] in ("q_z", "q_X")
+             else whole).append(p.grad)
+        for grads, group in ((whole, L.world_group),
+                             (blocks, L.replica_group)):
+            if group is None or not grads:
+                continue
+            flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]),
+                                  group)
+            off = 0
+            for g in grads:
+                g.copy_(flat[off:off + g.numel()].view_as(g))
+                off += g.numel()
+
+    def _global_logs(self, logs: dict) -> dict:
+        """Sharded: each log summed over the processes (each holds its
+        share of every ELBO term)."""
+        L = self._layout
+        if L is None or L.world == 1:
+            return logs
+        keys = sorted(logs)
+        vals = all_reduce_sum(torch.stack([
+            torch.as_tensor(logs[k], dtype=self._dtype,
+                            device=self.device).reshape(()) for k in keys]),
+            L.world_group)
+        return dict(zip(keys, vals.unbind()))
 
     def lr(self, step: int) -> float:
         """The learning rate of update ``step``: the schedule's, or
@@ -435,7 +565,11 @@ class Trainer:
                 "PredictionEnsemble/logL": pe_logL,
                 "PredictionEnsemble/KLD": pe_logL - pe_elbo,
                 "PredictionEnsemble/AvgLatentStddev": torch.mean(
-                    torch.exp(self._PE.q["logsigma"].detach()))}
+                    torch.exp(self._pe_q()["logsigma"].detach()))}
+
+    def _pe_q(self):
+        """The prediction ensemble's posterior, whole."""
+        return self._gathered(self._PE.q)
 
     # ---------------------------------------------------------------- VO
     def use_vo(self) -> bool:
@@ -454,9 +588,16 @@ class Trainer:
     def update_virtual_observables(self, step: int, resample: bool = True):
         """Monte-Carlo propagate q through gp o g, redraw the test
         functions, then condition the VO posterior; the propagation and the
-        test functions draw from ``vo_generator``."""
+        test functions draw from ``vo_generator``.  Sharded, every process
+        runs the update whole on the gathered posterior."""
+        q = None
+        if self._layout is not None:  # the VO ensemble is whole
+            m = self.model
+            q = self._gathered(m.q_X["vo"] if m.independent_X
+                               else m.q_z["vo"])
         Y_mean, Y_std = self.model.propagate_vo_moments(
-            self._data_vo, self.vo_generator, self.get("N_monte_carlo_vo"))
+            self._data_vo_whole, self.vo_generator,
+            self.get("N_monte_carlo_vo"), q=q)
         if resample:
             self.VO.resample(self.vo_generator)
         self.VO.update(Y_mean, 1.0 / (Y_std ** 2), step, writer=self.writer)
@@ -503,7 +644,7 @@ class Trainer:
         if n_final > 0:
             self._PE.update(n_final, self._monitor_generator(13), final=True)
         self._analysis.eval_all_y(
-            self._PE.q, self._monitor_generator(17),
+            self._pe_q(), self._monitor_generator(17),
             self.get("N_monte_carlo_analysis_final"),
             iteration=self.gn + self.get("N_PE_updates_final"))
 
@@ -532,7 +673,7 @@ class Trainer:
         params_q_X = self.model.q_X
         if self.model.independent_X and "supervised" in params_q_X \
                 and params_q_X["supervised"]["mean"].numel():
-            qX = params_q_X["supervised"]
+            qX = self._gathered(params_q_X["supervised"])
             self.writer.add_scalar("Monitoring/logEffProp_sup_mean",
                                    qX["mean"].mean(), gn)
             self.writer.add_scalar("Monitoring/logEffProp_sup_sigma",
@@ -549,11 +690,12 @@ class Trainer:
 
         n_mc = self.get("N_monte_carlo_analysis")
         generator = self._monitor_generator(23)
-        self._analysis.eval_all_y(self._PE.q, generator, n_mc, iteration=gn)
+        self._analysis.eval_all_y(self._pe_q(), generator, n_mc,
+                                  iteration=gn)
         if self.get("MonitorTraining") and self._data_sup["X"].shape[0] > 0:
             self._analysis_training.eval_all_y(
-                self.model.q_z["supervised"], generator, n_mc,
-                iteration=gn)
+                self._gathered(self.model.q_z["supervised"]), generator,
+                n_mc, iteration=gn)
             if self._analysis_encoder is not None:
                 with torch.no_grad():
                     mean, logsigma = self.model.apply_encoder(
@@ -598,7 +740,10 @@ class Trainer:
         its absolute path): the model's parameters, BatchNorm statistics
         and posteriors, Adam's state, the prediction ensemble (``q``, its
         Adam, its count), ``gn``, the runtime, the monitor series, the
-        plateau controller and the states of both generators.
+        plateau controller, the states of both generators and the names
+        of the optimised parameters in Adam's order.  Sharded, the
+        per-datapoint blocks are gathered and process 0 writes the
+        unsharded layout; every process returns after the write.
 
         The VO posterior is not written: the first step after a restore
         reconditions it, as in the reference."""
@@ -609,6 +754,8 @@ class Trainer:
         state = {"device_type": self.device.type,
                  "model": self.model.state_dict(),
                  "optimizer": self.optimizer.state_dict(),
+                 "param_names": [n for n, _ in
+                                 self.model.named_parameters()],
                  "prediction_ensemble": self._PE.state_dict(),
                  "gn": self._global_iteration_counter,
                  "runtime": self._global_runtime,
@@ -617,11 +764,18 @@ class Trainer:
                  "vo_generator": self.vo_generator.get_state()}
         if self._plateau is not None:
             state["plateau"] = self._plateau.state_dict()
-        return save_train_state(path, state)
+        if self._layout is None:
+            return save_train_state(path, state)
+        state = map_state_blocks(state, self._layout.gather)
+        if process_index() == 0:
+            save_train_state(path, state)
+        barrier()
+        return os.path.abspath(path)
 
     def restore_checkpoint(self, path: str):
         """Load a :meth:`save_checkpoint` file into this trainer, built
-        as the one that wrote it.  A checkpoint written before the plateau
+        as the one that wrote it, on any mesh (the blocks are cut for
+        this trainer's).  A checkpoint written before the plateau
         state was kept leaves the controller as it is.  A generator's
         state is only valid on its device type, so a checkpoint from
         another device type is refused (``checkpoint.
@@ -639,6 +793,10 @@ class Trainer:
                 f"{self.device.type!r}: its random generators' states do "
                 "not carry over; restore on the device type that wrote it "
                 "(restore_encoder_decoder loads the parameters alone)")
+        if self._layout is not None:  # this process's rows of the blocks
+            state.setdefault("param_names", [
+                n for n, _ in self.model.named_parameters()])
+            state = shard_train_state(state, self._mesh)
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         self._PE.load_state_dict(state["prediction_ensemble"])
@@ -657,7 +815,8 @@ class Trainer:
         over a frozen copy of the current weights, in the trainer's dtype
         on its device; with ``path`` also written there (one
         ``torch.export`` program per bucket, see
-        ``SurrogateBundle.save``)."""
+        ``SurrogateBundle.save``; in a group of processes process 0 writes
+        it, the weights being whole on every process)."""
         from ..serving import DEFAULT_BUCKETS, SurrogateBundle
 
         if self.optimizer is None:
@@ -669,7 +828,10 @@ class Trainer:
             buckets=DEFAULT_BUCKETS if buckets is None else buckets,
             dtype=self._dtype, device=self.device)
         if path is not None:
-            bundle.save(path)
+            if process_index() == 0:
+                bundle.save(path)
+            if self._layout is not None:
+                barrier()
         return bundle
 
     def info(self):  # pragma: no cover

@@ -25,13 +25,6 @@ EXCEPTIONS = {
     "LANES": "the TPU's 128-lane vector width",
     "TrainState": "the port's trainer keeps its state in modules and a "
                   "torch optimizer, not a functional pytree",
-    # sharded training, ported with Trainer.setup(mesh=)
-    "replicated": "sharded training, not ported yet",
-    "batch_sharding": "sharded training, not ported yet",
-    "mc_batch_sharding": "sharded training, not ported yet",
-    "shard_train_state": "sharded training, not ported yet",
-    "make_hybrid_mesh": "sharded training, not ported yet",
-    "global_array_from_local": "sharded training, not ported yet",
     # functional-state and JAX-transform hooks
     "Analysis.eval_all_x_fn": "builds the function the JAX package jits",
     "Analysis.eval_all_y_fn": "builds the function the JAX package jits",
@@ -130,8 +123,9 @@ def test_every_public_jax_name_has_a_port_counterpart():
     assert sorted({m[2] for m in missing}) == sorted(EXCEPTIONS)
 
 
-# the methods and properties of the last API slice (single-system solve,
-# FEM and model extras, inference, training and factory accessors)
+# the methods and properties of the last API slices (single-system solve,
+# FEM and model extras, inference, training and factory accessors; sharded
+# training)
 METHODS = [
     ("fem.physics", "LinearEllipticPhysics",
      ["solve_full", "solve", "solve_batched_vmap", "dim_in", "dim_out_all"]),
@@ -153,6 +147,15 @@ METHODS = [
     ("factories.data", "DataFactory",
      ["path", "_cache_meta", "_create_dataloader", "setup", "force_setup"]),
     ("data.loader", "DataSet", ["get"]),
+    # sharded training: Trainer.setup(mesh=) and the six sharding names
+    ("training.trainer", "Trainer", ["setup"]),
+    ("parallel.mesh", None, ["replicated", "batch_sharding",
+                             "mc_batch_sharding", "shard_train_state"]),
+    ("parallel.distributed", None, ["make_hybrid_mesh",
+                                    "global_array_from_local"]),
+    ("parallel", None, ["replicated", "batch_sharding", "mc_batch_sharding",
+                        "shard_train_state", "make_hybrid_mesh",
+                        "global_array_from_local"]),
 ]
 
 
@@ -163,3 +166,13 @@ def test_api_slice_names_exist(module, cls, names):
     owner = getattr(mod, cls) if cls else mod
     for name in names:
         assert hasattr(owner, name), f"{module}.{cls}.{name}"
+
+
+def test_trainer_setup_takes_a_mesh():
+    """``Trainer.setup(scheduler_spec, mesh=None)``, as the JAX package's."""
+    import inspect
+
+    mod = importlib.import_module(f"{PORT}.training.trainer")
+    params = inspect.signature(mod.Trainer.setup).parameters
+    assert list(params) == ["self", "scheduler_spec", "mesh"]
+    assert params["mesh"].default is None

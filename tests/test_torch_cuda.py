@@ -705,3 +705,103 @@ def test_single_system_solve_on_the_card_equals_the_cpu(dtype):
     if dtype == torch.float64:
         assert card[3] == cpu[3]
         assert torch.equal(card[4].cpu(), cpu[4])
+
+
+def _card_trainer(mesh=None):
+    """The highres32 recipe on the card at a small size: 24 labeled (16
+    supervised, 8 validation) and 16 unlabeled fields, batch 8."""
+    from generative_physics_informed_pde_tpu_torch.data import DataLoader
+    from generative_physics_informed_pde_tpu_torch.training import (
+        CreateTrainer, TrainerParameters)
+
+    X = np.random.default_rng(15).normal(size=(40, 32, 32))
+    p = TrainerParameters()
+    p.identifier = "highres32"
+    p.trainer.update(lr_init=1e-2, N_PE_interval=1)
+    p.data.update(N_u=16, N_s=16, N_u_max=16, N_s_max=16, N_val=8,
+                  armortized_bs=8)
+    dlu = DataLoader(X[24:])
+    dlu.lock_physics_assembly()
+    tr = CreateTrainer(p, DataLoader(X[:24]), dlu, device="cuda")
+    if mesh is not None:
+        tr.setup(mesh=mesh)
+    return tr
+
+
+@pytest.mark.cuda
+def test_one_device_mesh_step_equals_setup_on_the_card():
+    """``setup(mesh=make_mesh(1))`` runs the sharded path: 3 steps equal
+    ``setup()``'s bit for bit on the card (deterministic cuDNN)."""
+    _need_cuda()
+    from generative_physics_informed_pde_tpu_torch import parallel
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for mesh in (None, parallel.make_mesh(1, device="cuda")):
+            tr = _card_trainer(mesh)
+            for _ in range(3):
+                tr.step()
+            runs.append([t.detach().clone() for t in (
+                *tr.model.parameters(), *tr.model.buffers(),
+                *tr._PE.q.values(), tr.elbos())])
+    finally:
+        torch.backends.cudnn.deterministic = det
+    assert len(runs[0]) == len(runs[1])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_batchnorm_sharded_statistics_equal_the_plain_ones(dtype):
+    """BatchNorm's statistics path of a sharded batch (sums over the
+    processes holding it, divided by its whole count) on one process
+    (k = 1) equals the plain path on the card: output, running statistics
+    and input gradient, to 1e-12 (f64) / 1e-5 (f32) relative."""
+    _need_cuda()
+    from generative_physics_informed_pde_tpu_torch.models.codec import (
+        BatchNorm, row_split)
+    from generative_physics_informed_pde_tpu_torch.parallel.layout import (
+        RowSplit)
+
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    g = torch.Generator().manual_seed(16)
+    x0 = torch.randn(16, 8, 9, 9, generator=g, dtype=dtype).cuda()
+    out = []
+    for split in (None, RowSplit(16, ((0, 16),))):
+        bn = BatchNorm(8).to(device="cuda", dtype=dtype).train()
+        x = x0.clone().requires_grad_()
+        with row_split(split):
+            y = bn(x)
+        (gx,) = torch.autograd.grad(y.square().sum(), (x,))
+        out.append((y.detach(), bn.running_mean, bn.running_var, gx))
+    for a, b in zip(*out):
+        assert ((a - b).abs().max() / b.abs().max()).item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dp", "dp_mc"])
+def test_sharded_training_across_cards_equals_one_card(case, tmp_path):
+    """Sharded training with one process on every card of the machine
+    (nccl): ``tests/test_torch_sharded_training.py``'s ``dp`` case (a dp
+    mesh of all cards) and ``dp_mc`` (a (cards / 2, 2) ("dp", "mc")
+    mesh, four Monte-Carlo samples), f64, each process's record held to
+    the same run in one process on the first card to 1e-9 of the scale.
+    Needs two or more cards."""
+    _need_cuda()
+    import test_torch_sharded_training as sharded
+
+    n = torch.cuda.device_count()
+    if n < 2 or (case == "dp_mc" and n % 2):
+        pytest.skip("needs two or more cards (an even count for dp_mc)")
+    X, Xu = sharded._draw_pools()
+    np.savez(tmp_path / "drawn.npz", X=X, Xu=Xu)
+    pools = (X, Xu, tmp_path / "drawn.npz")
+    recs = sharded._run_children(case, pools, tmp_path, world=n,
+                                 device="cuda")
+    ref = sharded.one_process_record(case, pools, device="cuda")
+    for r, rec in enumerate(recs):
+        assert str(rec.pop("backend")) == "nccl"
+        sharded._assert_close(rec, ref, f"{case} card {r}")
