@@ -56,8 +56,9 @@ Then the remaining BASELINE configs through the runner, at their published
 widths with their steps cut (phases 12-14): config 4 (an 8^2 ROM against
 a 256^2 FOM, 10,240 unlabeled fields, the 7-level V-cycle's f64 labels on
 K1, three f64 steps card vs CPU), config 512 (a 512^2 FOM, the 8-level
-V-cycle, two checkpointed segments, the second resumed, and the final
-analysis's memory streamed and in one shot), and the virtual-observable
+V-cycle, two checkpointed segments, the second resumed, the final
+analysis's memory streamed and in one shot, and three f64 steps card vs
+CPU), and the virtual-observable
 configs 2e, 2h and 2he (energy at 64^2, constrain and energy at 128^2, their
 refreshes and energy updates on K1, each checked card vs CPU in f64); every
 validation analysis samples the JAX package's Monte-Carlo plan.
@@ -75,7 +76,10 @@ recipe through ``setup(mesh=make_mesh(1))``, bit for bit against
 ``setup()``; two processes started by this script on the one card (gloo,
 ``--phase16-child``) running the checkpoint lifecycle of the JAX
 package's two-process test in f64, each labeling its own rows on K1, held
-to the same lifecycle in one process; and the three arms of
+to the same lifecycle in one process, then training the batches that do
+not divide by the shard count (an amortized unlabeled set and minibatch,
+Monte-Carlo rows over the replicas), each held to one process; and the
+three arms of
 ``examples/torch_vo_ablation.py`` at their published 64^2 widths and
 pools, cut to 40 steps.
 Last, K1 and K2 run at every shape the main paths launched
@@ -105,6 +109,7 @@ K3's ``ms`` is one unchained apply, timed after the warm and clean runs
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -259,10 +264,13 @@ MG256_NODES = (257, 129, 65, 33, 17, 9, 5)
 # (from 500: one monitor point a segment), the final refinement 1 x 3 PE
 # updates a run call.  Labels: the 8-level
 # V-cycle in dispatches of 8.  Plans: 32 x (4^9 - 1) elements a sample,
-# so chunks of 16 (S = 64 in 4, S = 128 in 8).  No card-vs-CPU f64 steps
-# here: a 512^2 f64 step on the host's CPU costs minutes.
+# so chunks of 16 (S = 64 in 4, S = 128 in 8).  Three f64 steps card vs
+# CPU as config 4's, on C512_CPU_FIELDS + C512_CPU_FIELDS labeled and
+# C512_CPU_FIELDS unlabeled fields (batch C512_CPU_FIELDS): the fewest
+# that keep more than one sample in every batch statistic, since every
+# 512^2 field costs the host's CPU seconds a step.
 C512_POOLS, C512_SEG, C512_MONITOR = (96, 1024, 0), 10, 5
-C512_LABEL_BATCH = 8
+C512_LABEL_BATCH, C512_CPU_FIELDS = 8, 2
 C512_MC_PLANS = {64: (16, 4), 128: (16, 8)}
 MG512_NODES = (513, 257, 129, 65, 33, 17, 9, 5)
 # Phase 14, the VO configs through the runner on 64 VO fields: 2e
@@ -279,6 +287,16 @@ VO_POOLS, VO_HOLDOFF, VO_PE_FINAL = (192, 1024, 0), 10, 10
 VO_STEPS = {"2e": 40, "2h": 60, "2he": 40}
 VO_REFRESHES = {"2e": [10, 20, 30], "2h": [10, 50], "2he": [10, 20, 30]}
 VO_MC_PLAN = (128, 1)
+# Every VO config's conditioning failures are read over its run and its
+# timing block and reported, not refused: in f32 a Cholesky of a Schur
+# matrix whose equilibrated condition number nears 1e7 completes or fails
+# by rounding alone, in both packages, and a failed sample falls back to
+# its prior moments as in the JAX package
+# (tests/test_torch_vo_conditioning_breakdown.py).  The stored moments
+# must stay finite.  Config 2h's failing update's inputs are dumped
+# (GPIPDE_VO_DUMP) to VO_DUMP.
+VO_DUMP_CONFIG = "2h"
+VO_DUMP = ROOT / "build" / "vo_dump_2h.npz"
 # Phase 15, the rest of the API on the card.  (a) P15_SINGLE f64 single
 # solves of the labeled highres32 fields (K1 at (33,33,1)) and their VJPs,
 # held to the batched solve and its VJP to P15_BATCHED_RTOL (both PCGs stop
@@ -320,6 +338,26 @@ P15_ANALYSIS_FIELDS, P15_ANALYSIS_MC, P15_ANALYSIS_RTOL = 64, 64, 1e-8
 # energy updates fall at P16_REFRESHES.
 P16_STEPS, P16_LIFE_STEPS, P16_RTOL, P16_CHILD_TIMEOUT = 10, 6, 1e-9, 300
 P16_ABL_STEPS, P16_ABL_HOLDOFF, P16_REFRESHES = 40, 10, [10, 20, 30]
+# (d) Batches that do not divide by the shard count, in the same two
+# processes after the lifecycle (tests/test_torch_uneven_sharding.py's
+# runs): the lifecycle's pools, labeled once on K1 by this process, f64,
+# P16_UNEVEN_STEPS steps each (the last P16_UNEVEN_STEPS - 1 timed), held
+# to one process on the card to P16_RTOL.  Name -> (mesh: "dp" a dp=2 mesh,
+# "mc" a ("dp", "mc") mesh of (1, 2); the recipe's seed and changes).
+P16_UNEVEN_STEPS = 4
+P16_UNEVEN = {
+    # 15 unlabeled fields: the set stays whole on both processes
+    "N_u_amortized": ("dp", dict(seed=11, data=dict(N_u=15))),
+    # a minibatch of 1: the second process holds none of it
+    "empty_share": ("dp", dict(seed=11, data=dict(armortized_bs=1))),
+    # a minibatch of 7 lies 4 / 3, with dropout, fused decodes, normalize
+    "armortized_bs": ("dp", dict(seed=11, data=dict(armortized_bs=7),
+                                 margs=dict(droprate=0.2, fuse_decodes=True),
+                                 trainer=dict(normalize=True))),
+    # 5 labeled fields x 3 samples: 15 Monte-Carlo rows lie 8 / 7
+    "mc_rows": ("mc", dict(seed=13, n_mc=3, data=dict(N_s=5),
+                           margs=dict(droprate=0.2))),
+}
 # Every shape (nodes a side, B, dtype) the main paths launch K1 and K2 at:
 # the highres32 label solve (f32), its VJP (f64) and training labels (f64,
 # B=256); the VO constraint assembly (f32, B=128) and the energy arm (f64,
@@ -1969,6 +2007,39 @@ def check_run(what, tr, steps, plans):
     return res
 
 
+@contextlib.contextmanager
+def vo_failures_watched(dump=None):
+    """Within: the virtual observables' containment warnings recorded, not
+    shown, in the list yielded as (failed samples, iteration) per failing
+    update when the block ends (other warnings shown then); ``dump``: each
+    failing update's inputs written there (``GPIPDE_VO_DUMP``)."""
+    import os
+    import re
+    import warnings
+
+    saved = os.environ.get("GPIPDE_VO_DUMP")
+    if dump is not None:
+        os.environ["GPIPDE_VO_DUMP"] = str(dump)
+    failed = []
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield failed
+    finally:
+        if saved is None:
+            os.environ.pop("GPIPDE_VO_DUMP", None)
+        else:
+            os.environ["GPIPDE_VO_DUMP"] = saved
+        for w in caught:
+            m = re.search(r"non-finite moments for (\d+)/\d+ samples at "
+                          r"iteration (\d+)", str(w.message))
+            if m:
+                failed.append((int(m[1]), int(m[2])))
+            else:
+                warnings.warn_explicit(w.message, w.category, w.filename,
+                                       w.lineno)
+
+
 def timed_steps(tr, n, warm=3):
     """ms a step of ``n`` steps after ``warm`` (CUDA events)."""
     import torch
@@ -2074,7 +2145,8 @@ def phase13_config512(card, gen, start_path, end_path, report_profile):
     8-level V-cycle on K1, two checkpointed segments (the second resumes
     from the first's checkpoint in a temporary directory), steps/s, and
     the final analysis's peak memory streamed (as the run does) and in one
-    shot.  Returns what phase 8 and the records read."""
+    shot, then three f64 steps card vs CPU on C512_CPU_FIELDS fields.
+    Returns what phase 8 and the records read."""
     import os
     import shutil
     import tempfile
@@ -2189,9 +2261,18 @@ def phase13_config512(card, gen, start_path, end_path, report_profile):
                                          "finite")
         finally:
             analysis._EVAL_ELEMENT_BUDGET = budget
-        say("  no f64 card-vs-CPU steps at 512^2 (left out for the "
-            "script's time: phase 12 checks the same method at 256^2)")
-        del tr, dl, dlu
+        del tr
+        say(f"  3 f64 SVI steps at config 512's widths (the 513^2 FOM and "
+            f"its {len(MG512_NODES)}-level V-cycle built on each side), card "
+            f"vs CPU (plain path), {C512_CPU_FIELDS} + {C512_CPU_FIELDS} "
+            "fields, bf16 gates off, same draws")
+        t0 = time.perf_counter()
+        err, perr = f64_steps_card_vs_cpu("config 512", runner_recipe(
+            drv, "512")["params"], dl, dlu, C512_CPU_FIELDS)
+        cpu_check_s = time.perf_counter() - t0
+        say(f"  the f64 check took {cpu_check_s:.1f} s (card and CPU); "
+            f"card: {card}")
+        del dl, dlu
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2205,7 +2286,8 @@ def phase13_config512(card, gen, start_path, end_path, report_profile):
             "peak_gb_above_start": peak_above_gb,
             "final_analysis_gb": analysis_gb,
             "final_analysis_ms": analysis_ms, "results": results,
-            "phase_s": phase_s}
+            "card_vs_cpu_elbo_rel": err, "card_vs_cpu_param_rel": perr,
+            "card_vs_cpu_s": cpu_check_s, "phase_s": phase_s}
 
 
 def phase14_vo_configs(card, start_path, end_path, report_profile):
@@ -2214,7 +2296,11 @@ def phase14_vo_configs(card, start_path, end_path, report_profile):
     labels under the V-cycle on K1, the cut run with its refreshes or
     energy updates on K1, the checks (K1 against the plain path at the VO
     shapes; 2h's constraints at the labels; one refresh or energy update
-    card vs CPU in f64) and the times of a step, a refresh and its parts.
+    card vs CPU in f64) and the times of a step, a refresh and its parts;
+    the VO conditioning failures over the run and the timing block (the
+    ``Monitor/VO_conditioning_failures`` series and the containment
+    warning; config 2h's failing inputs dumped if one occurs) reported,
+    and the stored moments finite after them.
     Returns {config: what phase 8 and the records read}."""
     import numpy as np
     import torch
@@ -2253,6 +2339,11 @@ def phase14_vo_configs(card, start_path, end_path, report_profile):
             refreshes.append(step)
             return refresh(self, step, resample)
 
+        dump = None
+        if c == VO_DUMP_CONFIG:
+            dump = VO_DUMP
+            dump.parent.mkdir(parents=True, exist_ok=True)
+            dump.unlink(missing_ok=True)
         start_path()
         t0 = time.perf_counter()
         dl, dlu = drv._loaders(rec["rf"], *rec["pools"][:2],
@@ -2262,8 +2353,9 @@ def phase14_vo_configs(card, start_path, end_path, report_profile):
         Trainer.update_virtual_observables = counted_refresh
         t0 = time.perf_counter()
         try:
-            tr = drv._run(p, dl, dlu, steps, device="cuda")
-            torch.cuda.synchronize()
+            with vo_failures_watched(dump) as run_failed:
+                tr = drv._run(p, dl, dlu, steps, device="cuda")
+                torch.cuda.synchronize()
         finally:
             Trainer.update_virtual_observables = refresh
         run_s = time.perf_counter() - t0
@@ -2305,11 +2397,6 @@ def phase14_vo_configs(card, start_path, end_path, report_profile):
         if not res <= C3_RESIDUAL:
             raise AssertionError(f"config {c} labels exceed their residual "
                                  "bound")
-        failures = tr.writer.scalars.get("Monitor/VO_conditioning_failures",
-                                         [])
-        if failures:
-            raise AssertionError(f"config {c} conditioning failures "
-                                 f"{failures}")
         results = check_run(f"config {c}", tr, steps,
                             {tr.get("N_monte_carlo_analysis_final"):
                              VO_MC_PLAN})
@@ -2334,26 +2421,43 @@ def phase14_vo_configs(card, start_path, end_path, report_profile):
                                      "card differs from the CPU")
         else:
             worst, _ = vo_path_checks(tr, dl, spec, phys_cpu, n_mc)
-        step_ms = timed_steps(tr, 10)
-        with torch.no_grad():
-            prop_ms = event_ms(lambda: tr.model.propagate_vo_moments(
-                tr._data_vo, tr.vo_generator, n_mc))
-            Y_mean, Y_std = tr.model.propagate_vo_moments(
-                tr._data_vo, tr.vo_generator, n_mc)
-            before = apply_stencil.launches
-            torch.cuda.synchronize()
-            t_s, t_e = (torch.cuda.Event(enable_timing=True)
-                        for _ in range(2))
-            t_s.record()
-            tr.VO.resample(tr.vo_generator)
-            tr.VO.update(Y_mean, 1.0 / Y_std ** 2, tr.gn)
-            t_e.record()
-            torch.cuda.synchronize()
-            update_launches = apply_stencil.launches - before
-            update_ms = event_ms(lambda: (
-                tr.VO.resample(tr.vo_generator),
-                tr.VO.update(Y_mean, 1.0 / Y_std ** 2, tr.gn)))
-        refresh_ms = event_ms(lambda: tr.update_virtual_observables(tr.gn))
+        with vo_failures_watched(dump) as timing_failed:
+            step_ms = timed_steps(tr, 10)
+            with torch.no_grad():
+                prop_ms = event_ms(lambda: tr.model.propagate_vo_moments(
+                    tr._data_vo, tr.vo_generator, n_mc))
+                Y_mean, Y_std = tr.model.propagate_vo_moments(
+                    tr._data_vo, tr.vo_generator, n_mc)
+                before = apply_stencil.launches
+                torch.cuda.synchronize()
+                t_s, t_e = (torch.cuda.Event(enable_timing=True)
+                            for _ in range(2))
+                t_s.record()
+                tr.VO.resample(tr.vo_generator)
+                tr.VO.update(Y_mean, 1.0 / Y_std ** 2, tr.gn,
+                             writer=tr.writer)
+                t_e.record()
+                torch.cuda.synchronize()
+                update_launches = apply_stencil.launches - before
+                update_ms = event_ms(lambda: (
+                    tr.VO.resample(tr.vo_generator),
+                    tr.VO.update(Y_mean, 1.0 / Y_std ** 2, tr.gn,
+                                 writer=tr.writer)))
+            refresh_ms = event_ms(
+                lambda: tr.update_virtual_observables(tr.gn))
+        series = [(int(it), int(n)) for it, n in tr.writer.scalars.get(
+            "Monitor/VO_conditioning_failures", [])]
+        finite = bool(torch.isfinite(tr.VO.mean).all()
+                      and torch.isfinite(tr.VO.vars).all())
+        say(f"    VO conditioning failures ((failed samples, iteration) an "
+            f"update, of {tr.VO.N}): the run {run_failed}, its timing block "
+            f"{timing_failed}; the writer's series (iteration, failed) "
+            f"{series}; stored moments finite: {finite}"
+            + (f"; inputs dumped to {dump.relative_to(ROOT)}"
+               if dump is not None and dump.is_file() else ""))
+        if not finite:
+            raise AssertionError(f"config {c}: the VO moments are not "
+                                 "finite after the containment")
         say(f"    {1e3 / step_ms:.3f} SVI steps/s over 10 steps (CUDA "
             f"events); refresh {refresh_ms:.2f} ms: propagation ({C2_VO} x "
             f"{n_mc} ROM solves) {prop_ms:.2f} ms, "
@@ -2373,7 +2477,8 @@ def phase14_vo_configs(card, start_path, end_path, report_profile):
                       vo_card_vs_cpu_rel=err if energy else None,
                       steps_per_s=1e3 / step_ms, busy_share=busy,
                       refresh_ms=refresh_ms, propagation_ms=prop_ms,
-                      update_ms=update_ms, results=results)
+                      update_ms=update_ms, results=results,
+                      vo_failures=run_failed + timing_failed)
         del tr, dl, dlu
         torch.cuda.empty_cache()
     phase_s = time.perf_counter() - t_phase
@@ -2823,6 +2928,78 @@ def p16_pools():
             DataLoader.from_sampler(rf, 16, key=3, device="cuda").X)
 
 
+def p16_trainer(dl, dlu, mesh, seed, n_mc=1, data=None, margs=None,
+                trainer=None):
+    """``tests/test_parallel.py``'s ``_make_trainer`` recipe on the card
+    in f64 (24 labeled fields: 16 supervised, 8 validation; 16 unlabeled,
+    batch 8) with the changes ``data``, ``margs`` and ``trainer``, set up
+    on ``mesh`` (None: unsharded)."""
+    import numpy as np
+    from generative_physics_informed_pde_tpu_torch.training import (
+        CreateTrainerFromPermutation, TrainerParameters)
+
+    p = TrainerParameters()
+    p.identifier = "highres32"
+    p.margs.update(dtype="float64", **(margs or {}))
+    p.debug = True
+    p.seed = seed
+    p.trainer.update(lr_init=1e-2, N_monte_carlo_elbo=n_mc,
+                     **(trainer or {}))
+    p.scheduler = {"milestones": [50], "factor": 0.5}
+    p.data.update(N_u=16, N_s=16, N_u_max=16, N_s_max=16, N_vo_max=0,
+                  N_vo=0, N_val=8, armortized_bs=8, vo_spec={})
+    p.data.update(data or {})
+    tr = CreateTrainerFromPermutation(
+        p, permutation=np.arange(dl.N), permutation_u=np.arange(dlu.N),
+        dl=dl, dlu=dlu, device="cuda")
+    if mesh is not None:
+        tr.setup(scheduler_spec=p.scheduler, mesh=mesh)
+    return tr
+
+
+def p16_uneven(meshes, X, Y, F, Xu):
+    """Phase 16d's runs (``P16_UNEVEN``) on the labeled fields ``X`` (labels
+    ``Y``, ROM forces ``F``) and the unlabeled ``Xu``; ``meshes`` maps
+    "dp" and "mc" to meshes (None: unsharded, one process).  Returns
+    {name/key: array} of what phase 16d compares and reports."""
+    import numpy as np
+    import torch
+    from generative_physics_informed_pde_tpu_torch import parallel
+    from generative_physics_informed_pde_tpu_torch.data import DataLoader
+
+    out = {}
+    for name, (kind, recipe) in P16_UNEVEN.items():
+        mesh = None if meshes is None else meshes[kind]
+        dlu = DataLoader(Xu)
+        dlu.lock_physics_assembly()
+        tr = p16_trainer(DataLoader(X, Y=Y, F_ROM_BC=F), dlu, mesh,
+                         **recipe)
+        if mesh is not None and (tr.model.mc_sharding is None) == (
+                kind == "mc"):
+            raise AssertionError(f"{name}: the Monte-Carlo batch is not "
+                                 "split as its mesh says")
+        tr.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(P16_UNEVEN_STEPS - 1):
+            tr.step()
+        torch.cuda.synchronize()
+        rate = (P16_UNEVEN_STEPS - 1) / (time.perf_counter() - t0)
+        q = tr.model.q_z["supervised"]["mean"].detach()
+        if mesh is not None:
+            q = parallel.gather_batch(q, mesh)
+        params = torch.cat([t.detach().reshape(-1) for n, t in
+                            tr.model.named_parameters()
+                            if n.split(".", 1)[0] not in ("q_z", "q_X")])
+        out.update({f"{name}/q": q.cpu().numpy(),
+                    f"{name}/params": params.cpu().numpy(),
+                    f"{name}/elbo": tr.elbos().numpy(),
+                    f"{name}/generator": tr.generator.get_state().numpy(),
+                    f"{name}/steps_per_s": np.asarray(rate)})
+        del tr
+    return out
+
+
 def p16_lifecycle(mesh, tmp, X, Xu):
     """``tests/_dcn_child.py``'s lifecycle on the card in f64 on the
     fields ``X`` (labeled) and ``Xu`` (``p16_pools``; every process gets
@@ -2839,8 +3016,6 @@ def p16_lifecycle(mesh, tmp, X, Xu):
     from generative_physics_informed_pde_tpu_torch import fem, parallel
     from generative_physics_informed_pde_tpu_torch.data import DataLoader
     from generative_physics_informed_pde_tpu_torch.ops import apply_stencil
-    from generative_physics_informed_pde_tpu_torch.training import (
-        CreateTrainerFromPermutation, TrainerParameters)
 
     dl, dlu = DataLoader(X), DataLoader(Xu)
     dlu.lock_physics_assembly()
@@ -2858,20 +3033,7 @@ def p16_lifecycle(mesh, tmp, X, Xu):
         if not (np.isnan(dl.Y[other]).all()
                 and np.isfinite(dl.Y[rows]).all()):
             raise AssertionError("the labels were not solved per process")
-    p = TrainerParameters()
-    p.identifier = "highres32"
-    p.margs["dtype"] = "float64"
-    p.debug = True
-    p.seed = 11
-    p.trainer["lr_init"] = 1e-2
-    p.scheduler = {"milestones": [50], "factor": 0.5}
-    p.data.update(N_u=16, N_s=16, N_u_max=16, N_s_max=16, N_vo_max=0,
-                  N_vo=0, N_val=8, armortized_bs=8, vo_spec={})
-    tr = CreateTrainerFromPermutation(
-        p, permutation=np.arange(dl.N), permutation_u=np.arange(dlu.N),
-        dl=dl, dlu=dlu, device="cuda")
-    if mesh is not None:
-        tr.setup(scheduler_spec=p.scheduler, mesh=mesh)
+    tr = p16_trainer(dl, dlu, mesh, seed=11)
 
     def whole(x):
         x = x.detach()
@@ -2913,7 +3075,8 @@ def phase16_child(rank: int, world: int, init: str, out: str) -> int:
     --phase16-child RANK WORLD INIT_FILE OUT_DIR``): joins the group on
     the card (two processes on one card: gloo), runs ``p16_lifecycle`` on
     a hybrid ("dcn", "dp") mesh and writes its record to
-    ``OUT_DIR/rank{RANK}.json``."""
+    ``OUT_DIR/rank{RANK}.json``, then phase 16d's ``p16_uneven`` on
+    ``OUT_DIR/uneven.npz``, written to ``OUT_DIR/uneven_rank{RANK}.npz``."""
     import numpy as np
     import torch
     from generative_physics_informed_pde_tpu_torch import parallel
@@ -2931,6 +3094,13 @@ def phase16_child(rank: int, world: int, init: str, out: str) -> int:
                                                  list(mesh.shape)])
     with open(Path(out) / f"rank{rank}.json", "w") as fh:
         json.dump(rec, fh)
+    # (d): the batches that do not divide by the shard count
+    meshes = {"dp": parallel.make_mesh(device="cuda"),
+              "mc": parallel.make_mesh(2, ("dp", "mc"), (1, 2),
+                                       device="cuda")}
+    with np.load(Path(out) / "uneven.npz") as f:
+        uneven = p16_uneven(meshes, f["X"], f["Y"], f["F"], f["Xu"])
+    np.savez(Path(out) / f"uneven_rank{rank}.npz", **uneven)
     dist.destroy_process_group()
     print(f"[phase 16b process {rank}] ok", flush=True)
     return 0
@@ -2945,7 +3115,10 @@ def phase16_sharded(card, dl, dlu, start_path, end_path, add_path):
     mesh (``p16_lifecycle``), each labeling its own rows on K1; their
     q_z block, monitor ELBO and R^2 held to the same lifecycle in one
     process on the card to P16_RTOL; a child that fails or outlives
-    P16_CHILD_TIMEOUT fails the phase.  (c) The three arms of
+    P16_CHILD_TIMEOUT fails the phase.  (d) The same two processes then
+    train the batches that do not divide by the shard count
+    (``P16_UNEVEN``, ``p16_uneven``) on labels solved once here on K1,
+    each held to one process on the card to P16_RTOL.  (c) The three arms of
     ``examples/torch_vo_ablation.py`` through its ``main`` and
     ``run_arm`` at the published 64^2 widths and pools, cut (see the
     constants), results written to a temporary directory.  Returns
@@ -2957,9 +3130,10 @@ def phase16_sharded(card, dl, dlu, start_path, end_path, add_path):
 
     import numpy as np
     import torch
-    from generative_physics_informed_pde_tpu_torch import parallel
+    from generative_physics_informed_pde_tpu_torch import fem, parallel
     from generative_physics_informed_pde_tpu_torch.constraints import (
         FluxConstrainSampler)
+    from generative_physics_informed_pde_tpu_torch.data import DataLoader
     from generative_physics_informed_pde_tpu_torch.training import (
         CreateTrainer, Trainer)
 
@@ -3016,6 +3190,16 @@ def phase16_sharded(card, dl, dlu, start_path, end_path, add_path):
         init = os.path.join(tmp, "init")
         X16, Xu16 = p16_pools()
         np.savez(os.path.join(tmp, "pools.npz"), X=X16, Xu=Xu16)
+        # (d)'s labels, solved once here on K1 and handed to every run
+        start_path()
+        dl_u = DataLoader(X16)
+        dl_u.assemble(fem.make_fom_rom_pair("NDP", 4, 4, 3, device="cuda"))
+        end_path("16d uneven labels")
+        derived += [("16d uneven labels", "apply_stencil", 33,
+                     dl_u.label_batch, "float64", k + 1)
+                    for k in dl_u.label_iterations]
+        uneven_data = dict(X=X16, Y=dl_u.Y, F=dl_u.F_ROM_BC, Xu=Xu16)
+        np.savez(os.path.join(tmp, "uneven.npz"), **uneven_data)
         t0 = time.perf_counter()
         procs = [subprocess.Popen(
             [sys.executable, str(Path(__file__).resolve()),
@@ -3042,9 +3226,12 @@ def phase16_sharded(card, dl, dlu, start_path, end_path, add_path):
                     f" (rc {pr.returncode}):\n{outs[r][-3000:]}")
         kids = [json.loads(Path(tmp, f"rank{r}.json").read_text())
                 for r in range(2)]
+        kids_uneven = [dict(np.load(Path(tmp, f"uneven_rank{r}.npz")))
+                       for r in range(2)]
         start_path()
         one = p16_lifecycle(None, tmp, X16, Xu16)
         end_path("16b one process")
+        one_uneven = p16_uneven(None, **uneven_data)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for path, r in [("16b one process", one)] + [
@@ -3087,6 +3274,34 @@ def phase16_sharded(card, dl, dlu, start_path, end_path, add_path):
         one_process_steps_per_s=one["steps_per_s"],
         peak_gb=[k["peak_gb"] for k in kids], one_peak_gb=one["peak_gb"],
         launches=[k["launches"] for k in kids], seconds=children_s)
+
+    # --------------------------- (d) batches that do not divide, 2 processes
+    rec["uneven"], worst = {}, 0.0
+    for name, (kind, _) in P16_UNEVEN.items():
+        e = {}
+        for key in ("q", "params", "elbo"):
+            ref = one_uneven[f"{name}/{key}"]
+            scale = max(np.abs(ref).max(), 1e-300)
+            e[key] = max(float(np.abs(k[f"{name}/{key}"] - ref).max()
+                               / scale) for k in kids_uneven)
+        gen = all(np.array_equal(k[f"{name}/generator"],
+                                 one_uneven[f"{name}/generator"])
+                  for k in kids_uneven)
+        rates = [float(k[f"{name}/steps_per_s"]) for k in kids_uneven]
+        one_rate = float(one_uneven[f"{name}/steps_per_s"])
+        say(f"  (d) {name} on the {kind} mesh, f64, {P16_UNEVEN_STEPS} "
+            f"steps: against one process max rel q_z {e['q']:.3e}, "
+            f"parameters {e['params']:.3e}, ELBOs {e['elbo']:.3e} (bound "
+            f"{P16_RTOL:g}); generators equal: {gen}; steps/s over the "
+            f"last {P16_UNEVEN_STEPS - 1} processes "
+            f"{[round(r, 3) for r in rates]}, one process {one_rate:.3f}")
+        if not (max(e.values()) <= P16_RTOL and gen):
+            raise AssertionError(f"the uneven run {name} on two processes "
+                                 "differs from one")
+        worst = max(worst, *e.values())
+        rec["uneven"][name] = dict(errors=e, steps_per_s=rates,
+                                   one_process_steps_per_s=one_rate)
+    say(f"  (d) the uneven runs' largest difference {worst:.3e}")
 
     # -------------------------------------------- (c) the VO ablation
     sys.path.insert(0, str(ROOT / "examples"))

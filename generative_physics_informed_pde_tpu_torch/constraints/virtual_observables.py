@@ -21,7 +21,12 @@ Where the JAX package returns NaN from a failed Cholesky or solve,
 nonzero ``info`` turns that sample's result non-finite (constrain arm) or
 keeps its previous iterate (energy arm), so the reference's per-sample
 containment runs unchanged, on the device, without a host sync per
-sample.  The einsums run in full precision on a card as long as TF32 stays
+sample.  In f32 both packages share one limit: once the equilibrated
+Schur matrix's condition number nears 1e7, its rounding error exceeds the
+1e-6 jitter and a Cholesky completes or fails by rounding alone, so a
+batched factorisation on a card can fail on a sample that a CPU replay
+conditions; such a sample falls back to its prior moments, as in the JAX
+package.  The einsums run in full precision on a card as long as TF32 stays
 off for matmuls (PyTorch's default).
 
 All random draws come from an explicit ``torch.Generator`` through the

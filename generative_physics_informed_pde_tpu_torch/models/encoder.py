@@ -88,7 +88,7 @@ class CNNEncoder(nn.Module):
         if x.shape[-2:] != (self.imsize_out, self.imsize_out):
             raise ValueError(f"encoder trunk produced {tuple(x.shape)}, "
                              f"expected {self.imsize_out}^2")
-        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # Flax HWC order
+        x = x.permute(0, 2, 3, 1).flatten(1)  # Flax HWC order
         x = F.relu(self.Dense_0(x))
         return self.SplitHeads_0(x)
 
@@ -109,7 +109,7 @@ class LinearEncoder(nn.Module):
         return self.Dense_0(x)
 
     def forward(self, x, generator=None):
-        mean = self._head(x.reshape(x.shape[0], -1))
+        mean = self._head(x.flatten(1))
         if self.binary:
             return mean
         return mean, self.logsigma.expand_as(mean)

@@ -34,9 +34,11 @@ Options of the JAX package's model, as it defines them:
   (``codec.row_split``), and the ELBO is this process's share: the sum
   over the processes of their shares is the unsharded ELBO (a batch that
   repeats on a mesh's replicas is counted by the first replica, the l2
-  penalty by process 0).  With ``mc_sharding`` (a ``Sharding`` from
-  ``parallel.mc_batch_sharding``) the supervised (N * n_mc) Monte-Carlo
-  batch is split over all mesh axes, and ``fuse_decodes`` is ignored, as
+  penalty by process 0).  The amortized minibatch comes with its split
+  (``data['unsupervised']['split']``), which may be uneven.  With
+  ``mc_sharding`` (a ``Sharding`` from ``parallel.mc_batch_sharding``) the
+  supervised (N * n_mc) Monte-Carlo batch is split over all mesh axes,
+  unevenly where it does not divide, and ``fuse_decodes`` is ignored, as
   in the JAX package.
 """
 
@@ -163,35 +165,38 @@ class GenerativeModel(nn.Module):
                                compute_dtype, split)
 
     # ------------------------------------------------------ sharded rows
-    def _rows(self, n_local: int):
-        """The split of a batch of ``n_local`` rows a process over the
-        batch axes (None unsharded)."""
-        return None if self.layout is None else self.layout.rows(n_local)
+    def _block(self, n_local: int):
+        """The split of a per-datapoint block (a posterior or its data) of
+        ``n_local`` rows a process (None unsharded)."""
+        return None if self.layout is None else self.layout.block(n_local)
 
-    def _mc_split(self, n_local: int):
-        """The split of the supervised decode's ``n_local`` rows: over all
-        axes under ``mc_sharding``, else over the batch axes."""
+    def _mc_split(self):
+        """The split of the supervised decode's rows: the Monte-Carlo rows
+        over all axes under ``mc_sharding``, else over the batch axes."""
         if self.layout is None:
             return None
+        n = self._n_global(self.q_z["supervised"]["mean"].shape[0])
         if self.mc_sharding is not None:
-            return self.layout.joint(n_local)
-        return self.layout.rows(n_local)
+            return self.layout.joint(n, self.n_mc)
+        return self.layout.rows(n * self.n_mc)
 
     def _sample(self, q, generator):
-        split = self._rows(q["mean"].shape[0])
+        split = self._block(q["mean"].shape[0])
         if split is None:
             return va.sample(q, generator)
         return va.sample_rows(q, generator, split)
 
-    def _reparametrize(self, generator, mean, logsigma):
-        split = self._rows(mean.shape[0])
+    @staticmethod
+    def _reparametrize(generator, mean, logsigma, split):
         if split is None:
             return reparametrize(generator, mean, logsigma)
         return reparametrize_rows(generator, mean, logsigma, split)
 
     def _n_global(self, n_local: int) -> int:
+        """The rows of a per-datapoint block of ``n_local`` rows a
+        process."""
         return n_local if self.layout is None \
-            else self.layout.global_rows(n_local)
+            else self.layout.block(n_local).n
 
     def _once(self, x):
         """``x``, a sum over a per-datapoint block, where this process
@@ -237,7 +242,7 @@ class GenerativeModel(nn.Module):
         or one draw per datapoint; under ``mc_sharding`` this process's
         block of the rows of its datapoints."""
         if self.n_mc > 1:
-            split = self._rows(q["mean"].shape[0])
+            split = self._block(q["mean"].shape[0])
             if split is None:
                 return va.sample_all_components(
                     q, generator, self.n_mc).reshape(-1, q["mean"].shape[-1])
@@ -262,7 +267,7 @@ class GenerativeModel(nn.Module):
             Z = self._mc_sample(qz, generator)
             predict_x = self.apply_decoder(Z, train=train,
                                            generator=generator,
-                                           split=self._mc_split(Z.shape[0]))
+                                           split=self._mc_split())
         else:
             Z, predict_x = fused["Z"], fused["predict_x"]
         if S > 1:
@@ -300,19 +305,22 @@ class GenerativeModel(nn.Module):
 
     def elbo_unsupervised_amortized(self, X_batch, generator=None, *,
                                     train: bool = True,
-                                    normalize: bool = False, fused=None):
+                                    normalize: bool = False, fused=None,
+                                    split=None):
         """Amortized unlabeled term on a minibatch -> (elbo, logs).
         ``fused``: the encoder's ('Z' = (mean, logsigma)) and the decode
-        ('predict_x') of the fused decode."""
+        ('predict_x') of the fused decode.  ``split``: sharded, the rows
+        of the minibatch that ``X_batch`` holds (a ``RowSplit``)."""
         if self.disable_elbo_unsupervised:
             return 0.0, {}
+        if self.layout is not None and split is None:
+            raise ValueError("a sharded minibatch needs its split")
         if fused is None:
             dec_dt, enc_dt = self._unsup_dtypes(train)
-            split = self._rows(X_batch.shape[0])
             mean, logsigma = self.apply_encoder(
                 X_batch, train=train, generator=generator,
                 compute_dtype=enc_dt, split=split)
-            Z = self._reparametrize(generator, mean, logsigma)
+            Z = self._reparametrize(generator, mean, logsigma, split)
             predict_x = self.apply_decoder(Z, train=train,
                                            generator=generator,
                                            compute_dtype=dec_dt, split=split)
@@ -321,7 +329,7 @@ class GenerativeModel(nn.Module):
         logL_x = self.random_field_likelihood(predict_x, X_batch)
         DKL = unit_gaussian_kld(mean, 2 * logsigma)
         if normalize:
-            bs = self._n_global(X_batch.shape[0])
+            bs = X_batch.shape[0] if split is None else split.n
             logL_x, DKL = logL_x / bs, DKL / bs
         elbo = logL_x - DKL
         return elbo, {"ARM_unsupervised_logL_x": logL_x,
@@ -341,7 +349,7 @@ class GenerativeModel(nn.Module):
         predict_x = self.apply_decoder(
             Z, train=train, generator=generator,
             compute_dtype=self._unsup_dtypes(train)[0],
-            split=self._rows(Z.shape[0]))
+            split=self._block(Z.shape[0]))
         logL_x = self.random_field_likelihood(predict_x, X)
         DKL = va.kld(qz)
         if normalize:
@@ -370,7 +378,7 @@ class GenerativeModel(nn.Module):
             Z = self._sample(qz, generator)
             predict_x = self.apply_decoder(Z, train=train,
                                            generator=generator,
-                                           split=self._rows(Z.shape[0]))
+                                           split=self._block(Z.shape[0]))
         else:
             Z, predict_x = fused["Z"], fused["predict_x"]
         DKL = va.kld(qz)
@@ -433,7 +441,8 @@ class GenerativeModel(nn.Module):
             if self.encoder is not None:
                 e, lg = self.elbo_unsupervised_amortized(
                     X_u, generator, train=train, normalize=normalize,
-                    fused=fused.get("u"))
+                    fused=fused.get("u"),
+                    split=data["unsupervised"].get("split"))
             else:
                 e, lg = self.elbo_unsupervised(X_u, generator, train=train,
                                                normalize=normalize)
@@ -476,7 +485,7 @@ class GenerativeModel(nn.Module):
         rows kept."""
         dt = self.q_z["vo"]["mean"].dtype
         y = reparametrize(generator, vo_mean.to(dt), vo_logsigma.to(dt))
-        split = self._rows(self.q_z["vo"]["mean"].shape[0])
+        split = self._block(self.q_z["vo"]["mean"].shape[0])
         return y if split is None else split.take(y)
 
     def _fused_decode(self, data, generator, *, vo_state, vo_holdoff: bool,
@@ -499,16 +508,19 @@ class GenerativeModel(nn.Module):
             names.append("v")
         if len(names) < 2:
             return {}
-        fused, parts = {}, []
+        fused, parts, splits = {}, [], []
         for name in names:
             if name == "u":
                 X_u = data["unsupervised"]["X"]
+                splits.append(data["unsupervised"].get("split"))
                 head = self.apply_encoder(X_u, train=train,
                                           generator=generator,
-                                          split=self._rows(X_u.shape[0]))
-                parts.append(self._reparametrize(generator, *head))
+                                          split=splits[-1])
+                parts.append(self._reparametrize(generator, *head,
+                                                 splits[-1]))
                 fused["u"] = {"Z": head}
             elif name == "s":
+                splits.append(self._mc_split())
                 parts.append(self._mc_sample(self.q_z["supervised"],
                                              generator))
                 fused["s"] = {"Z": parts[-1]}
@@ -517,6 +529,7 @@ class GenerativeModel(nn.Module):
                         self.q_X["supervised"], generator)
             else:
                 parts.append(self._sample(self.q_z["vo"], generator))
+                splits.append(self._block(parts[-1].shape[0]))
                 fused["v"] = {"Z": parts[-1]}
                 if not vo_holdoff:
                     if self.independent_X:
@@ -526,7 +539,7 @@ class GenerativeModel(nn.Module):
                                                         generator)
         split = None
         if self.layout is not None:
-            split = RowSplit.concat([self._rows(Z.shape[0]) for Z in parts])
+            split = RowSplit.concat(splits)
         out = self.apply_decoder(torch.cat(parts), train=train,
                                  generator=generator, split=split)
         lo = 0

@@ -8,6 +8,15 @@ of the other axes (its replicas), except the Monte-Carlo batch under
 which rows of one batch this process holds and over which processes its
 sums run; ``TrainLayout`` makes them for a mesh.
 
+A batch of ``n`` rows over ``k`` shards lies as GSPMD lays out a
+dimension that does not divide: ``ceil(n / k)`` rows a shard, in shard
+order, the last shards short or empty (``share``).  Only batches that
+have no per-datapoint state may be uneven: the amortized unlabeled
+minibatch and the Monte-Carlo rows of a batch-axes block, which are split
+over that block's replicas.  The per-datapoint blocks (the posteriors and
+their data) always divide; the trainer refuses them otherwise, as the JAX
+package does.
+
 Sums over a batch that repeats on the replicas are counted by the first
 replica only (``first_replica``), and terms that depend on no rows (the
 l2 penalty) by process 0 only (``lead``), so that the sum over all
@@ -23,6 +32,14 @@ import torch
 
 from .distributed import differentiable_sum, process_index
 from .mesh import Sharding, batch_sharding
+
+
+def share(n: int, k: int, i: int) -> Tuple[int, int]:
+    """The rows ``[lo, hi)`` that shard ``i`` of ``k`` holds of a
+    dimension of ``n`` rows: ``ceil(n / k)`` a shard, the last ones short
+    or empty (GSPMD's layout; equal blocks when ``k`` divides ``n``)."""
+    c = -(-n // k)
+    return min(i * c, n), min((i + 1) * c, n)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,11 +81,13 @@ class RowSplit:
 
 
 class TrainLayout:
-    """The batches of a training step on ``mesh``: ``rows(n_local)``, a
-    batch of ``n_local`` rows a process split over the batch axes of
-    ``axis`` (``batch_sharding``), and ``joint(n_local)``, one split over
-    all axes, batch axes major (``mc_batch_sharding`` on a mesh whose
-    batch axes come first)."""
+    """The batches of a training step on ``mesh``: ``rows(n)``, a batch
+    of ``n`` rows split over the batch axes of ``axis``
+    (``batch_sharding``); ``block(n_local)``, a per-datapoint block of
+    ``n_local`` rows a process; and ``joint(n, n_mc)``, the ``n * n_mc``
+    Monte-Carlo rows of a batch of ``n`` split over all axes, batch axes
+    major (``mc_batch_sharding`` on a mesh whose batch axes come
+    first)."""
 
     def __init__(self, mesh, axis: str = "dp"):
         self.mesh = mesh
@@ -88,45 +107,46 @@ class TrainLayout:
         self.first_replica = self.m == 0
         self.lead = self.world == 1 or process_index() == 0
 
-    def global_rows(self, n_local: int) -> int:
-        return n_local * self.k_rows
-
-    def rows(self, n_local: int) -> RowSplit:
-        lo = self.r * n_local
-        return RowSplit(self.global_rows(n_local), ((lo, lo + n_local),),
+    def rows(self, n: int) -> RowSplit:
+        """This process's share of a batch of ``n`` rows over the batch
+        axes."""
+        return RowSplit(n, (share(n, self.k_rows, self.r),),
                         self.rows_group)
 
-    def joint(self, n_local: int) -> RowSplit:
-        j = self.r * self.k_other + self.m
-        return RowSplit(n_local * self.world,
-                        ((j * n_local, (j + 1) * n_local),),
+    def block(self, n_local: int) -> RowSplit:
+        """The split of a per-datapoint block of which every process of
+        the batch axes holds ``n_local`` rows (such a block always
+        divides: ``Trainer.setup`` refuses any other)."""
+        return self.rows(n_local * self.k_rows)
+
+    def joint(self, n: int, n_mc: int) -> RowSplit:
+        """The ``n * n_mc`` Monte-Carlo rows (N-major) of a batch of ``n``
+        rows: each batch-axes block's rows split over its replicas
+        (``replica_block``), so that a process decodes rows of its own
+        data only."""
+        lo, hi = share(n, self.k_rows, self.r)
+        a, b = share((hi - lo) * n_mc, self.k_other, self.m)
+        return RowSplit(n * n_mc, ((lo * n_mc + a, lo * n_mc + b),),
                         self.world_group)
 
     def replica_block(self, x: torch.Tensor) -> torch.Tensor:
         """This process's block of ``x`` split over the replica axes: the
         local share, in ``joint``'s order, of a batch whose rows this
         process's replicas all hold."""
-        per = x.shape[0] // self.k_other
-        return x[self.m * per:(self.m + 1) * per]
+        lo, hi = share(x.shape[0], self.k_other, self.m)
+        return x[lo:hi]
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
-        """All rows of a batch split over the batch axes."""
+        """All rows of a per-datapoint block split over the batch axes
+        (equal blocks; an uneven batch is never gathered)."""
         return self.rows_sharding.gather(x)
 
     def check_rows(self, what: str, n: int) -> None:
+        """Refuse a per-datapoint block of ``n`` rows that does not divide
+        by the batch axes' shard count."""
         if n % self.k_rows:
-            raise ValueError(f"{what} ({n}) does not split over the "
-                             f"{self.k_rows} shards of the batch axes "
-                             f"{self.rows_sharding.axes}")
-
-
-def mc_rows(layout: TrainLayout, n_local: int, n_mc: int) -> int:
-    """The Monte-Carlo rows a process decodes under
-    ``mc_batch_sharding``: its data rows' ``n_local * n_mc`` over the
-    replicas (which must split them)."""
-    total = n_local * n_mc
-    if total % layout.k_other:
-        raise ValueError(f"{total} Monte-Carlo rows do not split over the "
-                         f"{layout.k_other} replicas")
-    return total // layout.k_other
-
+            raise ValueError(
+                f"{what} ({n}) does not split over the {self.k_rows} "
+                f"shards of the batch axes {self.rows_sharding.axes}: its "
+                "per-datapoint blocks cannot be split unevenly (the JAX "
+                "package refuses it too)")

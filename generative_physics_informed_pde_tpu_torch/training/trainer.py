@@ -39,12 +39,19 @@ process and equal to the unsharded run's), the BatchNorm statistics and
 the logged ELBO terms are sums over the processes, the gradients of the
 whole parameters are summed over all processes before Adam (those of the
 per-datapoint blocks over the processes holding the same rows), and the
-unlabeled minibatch is drawn whole and its rows gathered from the
-processes that hold them.  The virtual observables, the analyses and the
-monitor run whole on every process on gathered posteriors.  Only process
-0 writes metrics, checkpoints and exports; a checkpoint holds the whole
-state, the layout of an unsharded one, and restores on any mesh.  Every
-batch split over the batch axes must divide by their shard count.
+unlabeled minibatch is drawn whole and each process takes its share of
+its rows, gathered from the processes that hold them, or from a whole
+unlabeled set.  The virtual observables, the analyses and the monitor run
+whole on every process on gathered posteriors.  Only process 0 writes
+metrics, checkpoints and exports; a checkpoint holds the whole state, the
+layout of an unsharded one, and restores on any mesh.  Batches without
+per-datapoint state may split unevenly over the batch axes' shards, as
+GSPMD lays them out (``parallel.layout``): the amortized minibatch
+(``armortized_bs``), the unlabeled set of the amortized term (kept whole
+on every process) and the Monte-Carlo rows under ``mc_batch_sharding``.
+``N_s``, ``N_val``, ``N_vo`` and the non-amortized ``N_u`` size
+per-datapoint blocks, which must divide by the shard count: setup
+refuses them otherwise, as the JAX package does.
 
 Left out: the ``lax.scan`` chunking and its ``_SCAN_BUCKETS`` (a dispatch
 device of the reference's jitted step; PyTorch runs eagerly) and buffer
@@ -68,7 +75,7 @@ from ..factories.model import ModelFactory
 from ..inference.analysis import Analysis
 from ..inference.prediction import PredictionEnsemble
 from ..parallel.distributed import all_reduce_sum, barrier, process_index
-from ..parallel.layout import TrainLayout, mc_rows
+from ..parallel.layout import TrainLayout
 from ..parallel.mesh import (mc_batch_sharding, map_state_blocks,
                              shard_data_dict, shard_train_state)
 from ..utils.device import resolve_device
@@ -412,9 +419,8 @@ class Trainer:
                 self.get("PE_compute_dtype"), X_val.shape))
         if layout is not None:
             shard_train_state(self, mesh)
-            self._PE.split = layout.rows(self._PE.q["mean"].shape[0])
+            self._PE.split = layout.block(self._PE.q["mean"].shape[0])
             if self.model.n_mc > 1 and "mc" in mesh.mesh_dim_names:
-                mc_rows(layout, data_sup["X"].shape[0], self.model.n_mc)
                 self.model.mc_sharding = mc_batch_sharding(mesh)
             self.model.layout = layout
         self._params = list(self.model.parameters())
@@ -434,16 +440,16 @@ class Trainer:
             "N_tensorboard_logging_interval")
 
     def _check_splits(self, layout, data_sup, data_vo, X_unsup, X_val):
-        """Every batch split over the batch axes divides by their shard
-        count (the JAX package would keep such a batch whole)."""
+        """Every per-datapoint block divides by the batch axes' shard
+        count: the posteriors of ``N_s``, ``N_val`` (the prediction
+        ensemble's), ``N_vo`` and the non-amortized ``N_u``, where the
+        JAX package refuses too."""
         layout.check_rows("N_s", data_sup["X"].shape[0])
         layout.check_rows("N_val", X_val.shape[0])
         if data_vo is not None:
             layout.check_rows("N_vo", data_vo["X"].shape[0])
-        if X_unsup is not None:
+        if X_unsup is not None and self.model.encoder is None:
             layout.check_rows("N_u", X_unsup.shape[0])
-            if self.model.encoder is not None:
-                layout.check_rows("armortized_bs", self._armortized_bs)
 
     def _gathered(self, tree):
         """Every process's rows of the sharded tensors of ``tree`` (a
@@ -469,7 +475,8 @@ class Trainer:
         elif self._X_unsup is not None:
             idx = minibatch_indices(self.generator, self._N_u,
                                     self._armortized_bs, device=self.device)
-            data["unsupervised"] = {"X": self._minibatch(idx)}
+            X_u, split = self._minibatch(idx)
+            data["unsupervised"] = {"X": X_u, "split": split}
         vo_state, holdoff = None, False
         if self.use_vo():
             data["vo"] = self._data_vo
@@ -507,16 +514,20 @@ class Trainer:
         self.elbo_history.append(logs["elbo"])
         return logs
 
-    def _minibatch(self, idx: torch.Tensor) -> torch.Tensor:
+    def _minibatch(self, idx: torch.Tensor):
         """The unlabeled rows ``idx`` (drawn whole) this process computes
-        with: all of them unsharded, else its share of the minibatch,
-        gathered from the processes that hold those rows."""
+        with, and their split (None unsharded): all of them unsharded,
+        else its share of the minibatch, taken from a whole unlabeled set
+        or gathered from the processes that hold those rows."""
         L = self._layout
-        if L is None or L.k_rows == 1:
-            return self._X_unsup[idx]
+        if L is None:
+            return self._X_unsup[idx], None
+        share = L.rows(idx.shape[0])
+        if self._X_unsup.shape[0] == self._N_u:  # whole on every process
+            return self._X_unsup[share.take(idx)], share
         lo = L.r * self._X_unsup.shape[0]
-        share = L.rows(idx.shape[0] // L.k_rows)
-        return share.take(gather_rows(self._X_unsup, idx, lo, L.rows_group))
+        return share.take(gather_rows(self._X_unsup, idx, lo,
+                                      L.rows_group)), share
 
     def _reduce_grads(self) -> None:
         """Sharded: the gradients of the whole parameters summed over all

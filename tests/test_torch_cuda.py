@@ -805,3 +805,34 @@ def test_sharded_training_across_cards_equals_one_card(case, tmp_path):
     for r, rec in enumerate(recs):
         assert str(rec.pop("backend")) == "nccl"
         sharded._assert_close(rec, ref, f"{case} card {r}")
+
+
+@pytest.mark.cuda
+def test_uneven_training_across_cards_equals_one_card(tmp_path):
+    """``tests/test_torch_uneven_sharding.py``'s batches that do not
+    divide by the shard count with one process on every card (nccl): an
+    amortized unlabeled set kept whole, a minibatch of 7 over the cards
+    and 3 Monte-Carlo samples of 5 labeled fields a dp block over a
+    (cards / 2, 2) ("dp", "mc") mesh, f64, each process's record held to
+    the same run in one process on the first card to 1e-9 of the scale.
+    Needs two or four cards."""
+    _need_cuda()
+    import test_torch_sharded_training as sharded
+    import test_torch_uneven_sharding as uneven
+
+    n = torch.cuda.device_count()
+    if n not in (2, 4):
+        pytest.skip("needs two or four cards")
+    X, Xu = sharded._draw_pools()
+    np.savez(tmp_path / "drawn.npz", X=X, Xu=Xu)
+    pools = (X, Xu, tmp_path / "drawn.npz")
+    out = tmp_path / "children"
+    out.mkdir()
+    recs = uneven._Children(pools[2], out, device="cuda", world=n).records()
+    ref = uneven.one_process_runs(pools, n, device="cuda")
+    for r, rec in enumerate(recs):
+        assert str(rec["backend"]) == "nccl"
+        for name, (_, want) in ref.items():
+            got = {k.split("/", 1)[1]: v for k, v in rec.items()
+                   if k.startswith(name + "/")}
+            sharded._assert_close(got, want, f"{name} card {r}")

@@ -117,11 +117,11 @@ def _loaders(pools, rows=None):
 
 def _make_trainer(pools, seed, n_mc=1, margs=None, energy=False,
                   mesh=None, loaders=None, iters=8, device="cpu",
-                  trainer=None, amortized=True):
+                  trainer=None, amortized=True, data=None):
     """``tests/test_parallel.py``'s ``_make_trainer`` (or, with
     ``energy``, its ``_make_energy_vo_trainer``) on the port, in f64;
     ``trainer``: more trainer config, ``amortized=False``: the
-    non-amortized unlabeled term."""
+    non-amortized unlabeled term, ``data``: other data sizes."""
     from generative_physics_informed_pde_tpu_torch.constraints import (
         vo_spec_preset)
 
@@ -147,6 +147,7 @@ def _make_trainer(pools, seed, n_mc=1, margs=None, energy=False,
         p.data.update(N_u=16, N_s=16, N_u_max=16, N_s_max=16, N_vo_max=0,
                       N_vo=0, N_val=8, armortized_bs=8 if amortized else None,
                       vo_spec={})
+    p.data.update(data or {})
     tr = CreateTrainerFromPermutation(
         p, permutation=np.arange(dl.N), permutation_u=np.arange(dlu.N),
         dl=dl, dlu=dlu, device=device)
