@@ -82,6 +82,14 @@ Monte-Carlo rows over the replicas), each held to one process; and the
 three arms of
 ``examples/torch_vo_ablation.py`` at their published 64^2 widths and
 pools, cut to 40 steps.
+Then the options the port took over last (phase 17): K1 in bf16 held bit
+for bit against its plain version at config 5's V-cycle levels; config
+5's 16,384 64^2 fields solved under the bf16 V-cycle
+(``precond_dtype="bfloat16"``) beside the f32 V-cycle, every system's
+true residual checked; the JAX package's high-contrast 128^2 bf16 case;
+phase 10's resumed config 3 surrogate exported for ``("cuda", "cpu")``
+and served from both; highres32 steps under ``run(profile_dir=)``; and
+three f64 steps on labels solved with given BC encodings.
 Last, K1 and K2 run at every shape the main paths launched
 them at, each held bit for bit against its plain version and timed, with
 its launches derived from the paths' iteration counts (and checked against
@@ -372,10 +380,23 @@ P16_UNEVEN = {
 # levels, B=128; f64) and their VO applies (2e at (65,65,64) f32, 2h and
 # 2he at (129,129,64) f32); phase 15's single-system solves ((33,33,1)
 # f64 and f32, (65,65,1) f64) and its vmap solves ((33,33,1024) f64 and
-# f32).  Phase 8
+# f32); phase 17's bf16 V-cycle on config 5's pool (its five levels in
+# bf16 at B=16,384, the outer matvec at (65,65,16384) f32) and its
+# BCE-encoded labels ((33,33,256) f64).  Phase 8
 # derives each shape's launches from the paths' iteration counts and holds
 # this list to them.
 MG_NODES = (65, 33, 17, 9, 5)
+# Phase 17: the JAX package's high-contrast bf16 V-cycle case
+# (tests/test_multigrid.py: 128^2, B = 4, lognormal sigma 1.3, left/right
+# values 0/1), whose true residual must stay under 10 x its PCG tol; the
+# two-platform bundle's CPU program against the card's module (TF32 off:
+# the convolutions differ in summation order only); the profiled highres32
+# run; and three f64 steps on labels solved with given BC encodings (one
+# dispatch of 256 fields).
+P17_HC_N, P17_HC_B, P17_HC_SIGMA, P17_HC_TOL = 128, 4, 1.3, 2e-6
+P17_CPU_RTOL = 1e-5
+P17_PROFILED_STEPS = 10
+P17_BCE_LABELED, P17_BCE_UNLABELED, P17_BCE_STEPS = 256, 64, 3
 # BASELINE config 3 (phase 9): the six V-cycle levels of the 128^2 f64
 # label solve, in the loader's dispatches of 128 fields.
 MG128_NODES = (129, 65, 33, 17, 9, 5)
@@ -400,7 +421,9 @@ STENCIL_SHAPES = {
                                for n in MG512_NODES}
                             | {(MG128_NODES[0], C2_VO, "float32")}
                             | {(33, 1, "float64"), (33, 1, "float32"),
-                               (65, 1, "float64")},
+                               (65, 1, "float64")}
+                            | {(n, C5_SYSTEMS, "bfloat16")
+                               for n in MG_NODES},
                             key=lambda s: (-s[0], -s[1], s[2])),
     "apply_stencil_sym": [(33, 1024, "float32"), (33, 1024, "float64")]}
 STENCIL_GRIDS = {"apply_stencil": 7, "apply_stencil_sym": 4}
@@ -504,10 +527,14 @@ def stencil_cost(name, Ny, Nx, B, item):
 def shape_inputs(name, n, B, dtype, gen):
     """Random K1 (``apply_stencil``) or K2 inputs at (n, n, B) on the
     card: coefficients of log-normal conductivities, normal v, the 'ND'
-    free mask; ``gen`` is a CUDA generator."""
+    free mask; ``gen`` is a CUDA generator.  bf16 inputs are drawn in f32
+    and rounded."""
     import torch
     from generative_physics_informed_pde_tpu_torch import fem
 
+    if dtype == "bfloat16":
+        return tuple(t.to(torch.bfloat16).contiguous() for t in
+                     shape_inputs(name, n, B, "float32", gen))
     grid = fem.StructuredTriGrid(n - 1, n - 1)
     op = fem.StencilOperator(grid)
     dt = getattr(torch, dtype)
@@ -527,7 +554,8 @@ def bits(x):
     compare as bits)."""
     import torch
 
-    return x.view(torch.int32 if x.element_size() == 4 else torch.int64)
+    return x.view({2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[x.element_size()])
 
 
 def stencil_inputs(op, profile, B, dtype, gen, sym=False):
@@ -1615,6 +1643,8 @@ def phase10_persistence(card, c3, start_path, end_path, report_profile):
         if got != want or not got or "hparams" not in lines[-1]:
             raise AssertionError("the metrics file differs from the "
                                  "in-memory scalars")
+        # phase 17 exports the resumed trainer's surrogate for two platforms
+        out["resumed"] = tr_b
         del tr_b
 
         # ---------------------------------------- (d) config 2, the runner
@@ -3400,6 +3430,255 @@ def phase16_sharded(card, dl, dlu, start_path, end_path, add_path):
     return derived, rec
 
 
+def phase17_options(card, resumed, dl, dlu, start_path, end_path):
+    """Phase 17: the options the port took over last.  (a) K1 in bf16
+    against its plain version, bit for bit, at every V-cycle level of
+    config 5's pool, (65..5)^2 x 16,384; (b) config 5's 16,384 64^2 f32
+    fields (the warm sweep's, seed 1) solved under the bf16 V-cycle
+    (``precond_dtype="bfloat16"``, the main path: its launches are
+    counted) and under the f32 V-cycle, every system's true residual, the
+    iterations and the warm times of both; (c) the JAX package's
+    high-contrast case at 128^2 under the bf16 V-cycle; (d) the resumed
+    config 3 trainer of phase 10 exported for ``("cuda", "cpu")``, loaded
+    on both and checked at every bucket; (e) highres32 steps under
+    ``Trainer.run(profile_dir=)`` and the trace's kernel events; (f) three
+    f64 steps of a trainer whose labels were solved with given BC
+    encodings (``CreateTrainerFromPermutation(BCE_encoding=)``).  Returns
+    (derived launches, what the records read)."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from generative_physics_informed_pde_tpu_torch import fem
+    from generative_physics_informed_pde_tpu_torch.data import DataLoader
+    from generative_physics_informed_pde_tpu_torch.fem.batched_solver \
+        import make_batched_fom_solver
+    from generative_physics_informed_pde_tpu_torch.ops import (
+        apply_stencil, apply_stencil_reference)
+    from generative_physics_informed_pde_tpu_torch.serving import (
+        SurrogateBundle)
+    from generative_physics_informed_pde_tpu_torch.training import (
+        CreateTrainer, CreateTrainerFromPermutation)
+
+    t_phase = time.perf_counter()
+    out, derived = {}, []
+    say(f"phase 17: the bf16 V-cycle on K1 in bf16, the two-platform "
+        f"bundle, the profiled run, BC encodings; card: {card}")
+    # ------------------------------------------- (a) K1 bf16 at each level
+    kgen = torch.Generator(device="cuda").manual_seed(17)
+    for n in MG_NODES:
+        coefs, v, mask = shape_inputs("apply_stencil", n, C5_SYSTEMS,
+                                      "bfloat16", kgen)
+        got = apply_stencil(coefs, v, mask)
+        ref = apply_stencil_reference(coefs, v, mask)
+        if got.dtype != torch.bfloat16 \
+                or not torch.equal(bits(got), bits(ref)):
+            raise AssertionError(f"K1 bf16 is not bit-equal to its plain "
+                                 f"version at {(n, n, C5_SYSTEMS)}")
+        del coefs, v, mask, got, ref
+    say(f"  (a) K1 bf16 bit-equal to its plain version at "
+        f"{[(n, n, C5_SYSTEMS) for n in MG_NODES]}")
+
+    # ------------------------------- (b) config 5's pool, bf16 vs f32 V-cycle
+    us = torch_runner().torch_uncertainty_study
+    phys = fem.LinearEllipticPhysics("fom", "ND", fem.StructuredTriGrid(
+        C5_N, C5_N), device="cuda")
+    fields = us.sample_fields(us.CORRLENGTHS, C5_B, n=C5_N, seed=1,
+                              device="cuda")
+    bc = us.centre_bc_values(phys, C5_SYSTEMS)
+    alphas = torch.exp(phys.pixels.image_to_function(fields))
+    del fields
+    solvers = {d: make_batched_fom_solver(phys.op, phys.profile,
+                                          precond="mg", precond_dtype=d)
+               for d in ("bfloat16", "float32")}
+    mg = solvers["bfloat16"].mg
+    if mg.dtype != "bfloat16" or mg.num_levels != len(MG_NODES):
+        raise AssertionError(f"the bf16 solver's V-cycle is {mg}")
+    path = "17 bf16 V-cycle"
+    start_path()
+    Y = {"bfloat16": solvers["bfloat16"](alphas, bc)}
+    counts = end_path(path)
+    k = solvers["bfloat16"].iterations
+    per = mg_by_level(mg, k)
+    derived.append((path, "apply_stencil", MG_NODES[0], C5_SYSTEMS,
+                    "float32", 1 + k))
+    for i, n in enumerate(MG_NODES):
+        derived.append((path, "apply_stencil", n, C5_SYSTEMS, "bfloat16",
+                        per[i] - (1 + k if i == 0 else 0)))
+    if counts["apply_stencil"] != sum(per) \
+            or sum(counts.values()) != counts["apply_stencil"]:
+        raise AssertionError(f"the bf16 V-cycle solve launched {counts} for "
+                             f"{k} iterations, expected {sum(per)} K1")
+    Y["float32"] = solvers["float32"](alphas, bc)
+    iters = {d: s_.iterations for d, s_ in solvers.items()}
+    res = {}
+    for d, y in Y.items():
+        res[d] = torch.cat([true_residual(
+            phys, y[i:i + C5_SLICE], alphas[i:i + C5_SLICE],
+            bc[i:i + C5_SLICE], apply_stencil_reference)
+            for i in range(0, C5_SYSTEMS, C5_SLICE)]).max().item()
+    diff = ((Y["bfloat16"] - Y["float32"]).norm(dim=1)
+            / Y["float32"].norm(dim=1)).max().item()
+    ms = {d: event_ms(lambda s_=s_: s_(alphas, bc))
+          for d, s_ in solvers.items()}
+    say(f"  (b) {C5_SYSTEMS} fields of {C5_N}^2 f32, precond='mg': bf16 "
+        f"V-cycle {iters['bfloat16']} PCG iterations, {ms['bfloat16']:.2f} "
+        f"ms warm, true residual max {res['bfloat16']:.3e}; f32 V-cycle "
+        f"{iters['float32']} iterations, {ms['float32']:.2f} ms, "
+        f"{res['float32']:.3e} (bound {F32_FLOOR:g}); bf16 vs f32 labels "
+        f"rel-L2 max {diff:.3e}; K1 launches {counts} (medians of 3, CUDA "
+        f"events); card: {card}")
+    if not max(res.values()) <= F32_FLOOR or not diff <= F32_FLOOR:
+        raise AssertionError("a config 5 system's residual under the bf16 "
+                             "or f32 V-cycle exceeds the f32 floor")
+    out["bf16_vcycle"] = dict(
+        iterations=iters, warm_ms=ms, max_true_residual=res,
+        bf16_vs_f32_rel=diff, launches=counts["apply_stencil"],
+        launches_per_level=dict(zip(MG_NODES, per)))
+    del alphas, bc, Y, solvers
+
+    # --------------------------------- (c) the JAX test's high-contrast case
+    hc = fem.LinearEllipticPhysics("fom", "ND", fem.StructuredTriGrid(
+        P17_HC_N, P17_HC_N), device="cuda")
+    rng = np.random.default_rng(3)
+    a_hc = torch.as_tensor(np.exp(rng.normal(
+        0, P17_HC_SIGMA, (P17_HC_B, hc.grid.n_cells))),
+        dtype=torch.float32, device="cuda")
+    v_hc = torch.as_tensor(hc.profile.constrained_values(
+        np.tile([[0.0, 0.0, 1.0, 1.0]], (P17_HC_B, 1))),
+        dtype=torch.float32, device="cuda")
+    s_hc = make_batched_fom_solver(hc.op, hc.profile, precond="mg",
+                                   precond_dtype="bfloat16", tol=P17_HC_TOL)
+    y_hc = s_hc(a_hc, v_hc)
+    r_hc = true_residual(hc, y_hc, a_hc, v_hc, apply_stencil_reference)
+    say(f"  (c) {P17_HC_N}^2, B={P17_HC_B}, sigma {P17_HC_SIGMA}, bf16 "
+        f"V-cycle ({s_hc.mg.num_levels} levels): {s_hc.iterations} PCG "
+        f"iterations, true residuals {r_hc.tolist()} (bound "
+        f"{10 * P17_HC_TOL:g})")
+    if not bool(torch.isfinite(y_hc).all()) \
+            or not bool((r_hc < 10 * P17_HC_TOL).all()):
+        raise AssertionError("the high-contrast bf16 V-cycle solve is above "
+                             "10 x its tolerance")
+    out["high_contrast"] = dict(iterations=s_hc.iterations,
+                                true_residual=r_hc.tolist())
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_phase17_")
+    try:
+        # -------------------------- (d) the bundle for ("cuda", "cpu")
+        bpath = os.path.join(tmp, "surrogate.zip")
+        t0 = time.perf_counter()
+        bundle = resumed.export_surrogate(bpath, platforms=("cuda", "cpu"))
+        export_s = time.perf_counter() - t0
+        loaded = {d: SurrogateBundle.load(bpath, device=d)
+                  for d in ("cuda", "cpu")}
+        if not all(b.platforms == ("cuda", "cpu") for b in loaded.values()):
+            raise AssertionError("the bundle's platforms are "
+                                 f"{loaded['cpu'].platforms}")
+        pool = resumed.dl
+        rows = np.arange(max(bundle.buckets)) % pool.N
+        xs = torch.as_tensor(pool.X[rows], dtype=torch.float32)
+        fs = torch.as_tensor(pool.F_ROM_BC[rows], dtype=torch.float32)
+        cpu_err = {}
+        for b in bundle.buckets:
+            want = bundle.predict(xs[:b].cuda(), fs[:b].cuda())
+            got = loaded["cuda"].predict(xs[:b].cuda(), fs[:b].cuda())
+            on_cpu = loaded["cpu"].predict(xs[:b], fs[:b])
+            if not torch.equal(bits(got), bits(want)) \
+                    or on_cpu.device.type != "cpu" \
+                    or not bool(torch.isfinite(on_cpu).all()):
+                raise AssertionError(f"bucket {b}: the card's program is not "
+                                     "bit-equal to the module, or the CPU's "
+                                     "is not finite on the CPU")
+            cpu_err[b] = ((on_cpu - want.cpu()).abs().max()
+                          / want.abs().max()).item()
+        say(f"  (d) the resumed config 3 surrogate for ('cuda', 'cpu'): "
+            f"{os.path.getsize(bpath) / 1e6:.2f} MB, export {export_s:.2f} "
+            f"s; card program bit-equal to the module at buckets "
+            f"{list(bundle.buckets)}; CPU program max rel "
+            f"{ {b: f'{e:.2e}' for b, e in cpu_err.items()} } (bound "
+            f"{P17_CPU_RTOL:g})")
+        if not max(cpu_err.values()) <= P17_CPU_RTOL:
+            raise AssertionError("the bundle's CPU program is far from the "
+                                 "card's module")
+        out["bundle"] = dict(export_s=export_s, cpu_rel=cpu_err,
+                             mb=os.path.getsize(bpath) / 1e6)
+        del bundle, loaded
+
+        # ------------------------------------------- (e) a profiled run
+        p = recipe_params()
+        p.trainer.update(N_monitor_interval=0, N_PE_updates_final=0)
+        tr = CreateTrainer(p, *labeled_copies(dl, dlu), device="cuda")
+        tr.step()
+        pdir = os.path.join(tmp, "profile")
+        t0 = time.perf_counter()
+        tr.run(P17_PROFILED_STEPS, verbose=False, profile_dir=pdir)
+        prof_s = time.perf_counter() - t0
+        traces = glob.glob(os.path.join(pdir, "*.pt.trace.json"))
+        if len(traces) != 1:
+            raise AssertionError(f"the profiled run wrote {traces}")
+        with open(traces[0]) as fh:
+            events = json.load(fh)["traceEvents"]
+        n_kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        say(f"  (e) {P17_PROFILED_STEPS} highres32 steps under "
+            f"run(profile_dir=): {prof_s:.2f} s with the trace written, "
+            f"{os.path.getsize(traces[0]) / 1e6:.1f} MB, {len(events)} "
+            f"events, {n_kernels} CUDA kernel events")
+        if n_kernels == 0 or torch.autograd._profiler_enabled():
+            raise AssertionError("the trace holds no CUDA kernel, or the "
+                                 "profiler was left running")
+        out["profile"] = dict(seconds=prof_s, events=len(events),
+                              kernel_events=n_kernels)
+        del tr
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ------------------------------------------- (f) given BC encodings
+    n_lab, n_u = P17_BCE_LABELED, P17_BCE_UNLABELED
+    enc = fem.BoundaryConditionEnsemble.from_factory(
+        "NDP", n_lab, np.random.default_rng(17)).encode()
+    p64 = recipe_params("float64")
+    p64.trainer.update(N_monitor_interval=0, N_PE_updates_final=0)
+    p64.data.update(N_s=n_lab // 2, N_s_max=n_lab // 2, N_val=n_lab // 2,
+                    N_vo=0, N_vo_max=0, N_u=n_u, N_u_max=n_u)
+    path = "17 BCE_encoding train"
+    start_path()
+    tr = CreateTrainerFromPermutation(
+        p64, np.arange(n_lab), np.arange(n_u), dl=DataLoader(dl.X[:n_lab]),
+        dlu=DataLoader(dlu.X[:n_u]), BCE_encoding=enc, device="cuda")
+    for _ in range(P17_BCE_STEPS):
+        tr.step()
+    counts = end_path(path)
+    for k_ in tr.dl.label_iterations:
+        derived.append((path, "apply_stencil", 33, n_lab, "float64",
+                        k_ + 1))
+    fom = tr.physics["fom"]
+    a64 = torch.exp(fom.pixels.image_to_function(torch.as_tensor(
+        dl.X[:n_lab], dtype=torch.float64, device="cuda")))
+    v64 = torch.as_tensor(tr.dl.BCE.constrained_values("fom"),
+                          device="cuda")
+    r64 = true_residual(fom, torch.as_tensor(tr.dl.Y, device="cuda"), a64,
+                        v64, apply_stencil_reference).max().item()
+    elbos = tr.elbos()
+    say(f"  (f) {n_lab} labels solved with given encodings (iterations "
+        f"{tr.dl.label_iterations}, launches {counts}), true residual max "
+        f"{r64:.3e} (tolerance {TOL_F64:g}); {P17_BCE_STEPS} f64 ELBOs "
+        f"{elbos.tolist()}")
+    if not np.array_equal(tr.dl.BCE.encode(), enc) or not r64 <= TOL_F64 \
+            or not bool(torch.isfinite(elbos).all()) \
+            or elbos.shape != (P17_BCE_STEPS,):
+        raise AssertionError("the BCE-encoded trainer's labels or ELBOs are "
+                             "off")
+    out["bce_encoding"] = dict(label_iterations=list(tr.dl.label_iterations),
+                               true_residual=r64, elbos=elbos.tolist())
+    del tr
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"  phase 17 took {out['phase_s']:.1f} s; card: {card}")
+    return derived, out
+
+
 def main() -> int:
     import torch
 
@@ -4467,6 +4746,8 @@ def main() -> int:
                                    errors["apply_stencil"][1])
     d15, c15 = phase15_api(card, start_path, end_path, report_profile)
     d16, c16 = phase16_sharded(card, dl, dlu, start_path, end_path, add_path)
+    d17, c17 = phase17_options(card, c10.pop("resumed"), dl, dlu,
+                               start_path, end_path)
 
     # ------------------------------ 8. K1 and K2 at every main-path shape
     say("phase 8: K1 and K2 at every shape of the main paths: launches, "
@@ -4552,6 +4833,9 @@ def main() -> int:
     # phase 16: the lifecycle's label dispatches (each process's and the
     # one process's), the ablation's MG labels and VO applies
     derived += d16
+    # phase 17: the bf16 V-cycle's levels and f32 matvecs, the BCE-encoded
+    # label dispatch
+    derived += d17
     # K3: phase 6's chain at its first shape (padded nodes), no other path
     k3 = apply_stencil_sym_blocked.__name__
     derived.append((K3_CHAIN_PATH, k3, *K3_SHAPES[0], K3_CHAIN))
@@ -4699,7 +4983,9 @@ def main() -> int:
                   f"{n},{n},{B} {d}": sum(r[5] for r in d15
                                          if r[2:5] == (n, B, d))
                   for n, B, d in sorted({r[2:5] for r in d15})},
-              **{k: c15[k] for k in ("single", "vmap", "forcing")}}}),
+              **{k: c15[k] for k in ("single", "vmap", "forcing")}},
+          "phase17": {k: c17[k] for k in (
+              "bf16_vcycle", "high_contrast", "bce_encoding")}}),
         ("apply_stencil_sym", "stencil_sym.cu", f"{tpu}:129",
          "_make_sym_kernel",
          {"launches_per_label_solve": iters_sym + 1,
@@ -4756,6 +5042,8 @@ def main() -> int:
             "api_phase15": {k: c15[k] for k in (
                 "calibration", "dense_ed", "cache", "analysis", "seconds")},
             "sharded_phase16": c16,
+            "options_phase17": {k: c17[k] for k in (
+                "bundle", "profile", "phase_s")},
             "predict_ms": {str(b): t for b, t in predict_ms.items()}}}
     ends = [t for _, t in PHASE_STARTS[1:]] + [time.perf_counter() - _T0]
     say("seconds per phase: " + ", ".join(

@@ -57,12 +57,18 @@ class TensorDataset:
 
 
 def minibatch_indices(generator: Optional[torch.Generator], num_data: int,
-                      batch_size: int, device=None) -> torch.Tensor:
-    """Uniform minibatch of ``batch_size`` distinct indices into
-    ``range(num_data)``, on ``device`` (default: the generator's)."""
+                      batch_size: int, device=None, *,
+                      replace: bool = False) -> torch.Tensor:
+    """Uniform minibatch of ``batch_size`` indices into ``range(num_data)``,
+    on ``device`` (default: the generator's): distinct ones, or with
+    ``replace`` independent uniform draws."""
     gen_device = generator.device if generator is not None else device
-    idx = torch.randperm(num_data, generator=generator,
-                         device=gen_device)[:batch_size]
+    if replace:
+        idx = torch.randint(num_data, (batch_size,), generator=generator,
+                            device=gen_device)
+    else:
+        idx = torch.randperm(num_data, generator=generator,
+                             device=gen_device)[:batch_size]
     return idx if device is None else idx.to(device)
 
 

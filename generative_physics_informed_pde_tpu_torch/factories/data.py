@@ -57,7 +57,8 @@ class DataFactory:
     _rfs: GaussianRandomField
     _identifier: Optional[str] = None
 
-    def __init__(self, path: Optional[str] = None):
+    def __init__(self, config=None, path: Optional[str] = None):
+        self.config = config
         if isinstance(path, str) and not path.endswith("/"):
             raise ValueError(f"path must end with a slash | path={path}")
         self.path = path if path is not None else DATAPATH

@@ -20,13 +20,15 @@ contractions.  The stiffness operator is self-adjoint and the reference
 has no backward Pallas kernel, so the backward reuses the forward's
 stencil kernels and needs none of its own.
 
-Left out as TPU-only: the ``precond_dtype`` knob (the reference's bf16
-V-cycle is for a TPU; off it the reference resolves float32, which is the
-V-cycle of every f32 solve here, and an f64 solve runs the f64 V-cycle),
-the ``optimization_barrier``
-fence around the preconditioner, the ``effective_platform()`` gates and
-the ``use_pallas`` switch (on a card the apply is always the hand-written
-kernel).
+``precond_dtype`` is the V-cycle's dtype as in the reference: 'bfloat16',
+'float32' or 'float64', None meaning 'float32' (the reference's default
+off a TPU); an f64 solve runs the f64 V-cycle whatever it says (the
+reference's ``_mg_for_dtype``).  The outer PCG always runs in the data's
+dtype.
+
+Left out as TPU-only: the ``optimization_barrier`` fence around the
+preconditioner, the ``effective_platform()`` gates and the ``use_pallas``
+switch (on a card the apply is always the hand-written kernel).
 """
 
 from __future__ import annotations
@@ -151,11 +153,18 @@ class BatchedFomSolver:
     and ``adjoint_iterations`` that of the last backward."""
 
     def __init__(self, op: StencilOperator, profile, *, tol=None,
-                 maxiter=None, precond: str = "auto", sym: bool = False):
+                 maxiter=None, precond: str = "auto",
+                 precond_dtype: str | None = None, sym: bool = False):
+        from .multigrid import MultigridPreconditioner, check_precond_dtype
+
         grid = op.grid
         if precond not in ("auto", "mg", "jacobi"):
             raise ValueError(f"precond must be 'auto', 'mg' or 'jacobi', "
                              f"got {precond!r}")
+        # the reference's None is bfloat16 on a TPU up to 256^2; there is
+        # no TPU here, so None is its float32 of every other platform
+        precond_dtype = check_precond_dtype(
+            "float32" if precond_dtype is None else precond_dtype)
         # the V-cycle's level masks assume the standard left/right
         # Dirichlet profile; for any other constraint set multigrid would
         # smooth the wrong dof set
@@ -186,9 +195,9 @@ class BatchedFomSolver:
                     "precond='mg' requires the standard left/right "
                     "DirichletProfile (the V-cycle level masks assume it); "
                     "use 'jacobi' for custom constraint sets")
-            from .multigrid import MultigridPreconditioner
-            # float32 V-cycle; _precond switches f64 solves to float64
-            self.mg = MultigridPreconditioner.for_grid(grid, dtype="float32")
+            # _precond switches f64 solves to the float64 V-cycle
+            self.mg = MultigridPreconditioner.for_grid(grid,
+                                                       dtype=precond_dtype)
             maxiter = maxiter or 60
         # the reference refuses sym=True at >= 256^2 on a TPU, a runtime
         # fault of that chip; no such refusal here
@@ -223,7 +232,8 @@ class BatchedFomSolver:
     def _precond(self, coefs, mask, levels=None, alphas=None):
         """-> (precond r -> z, V-cycle levels): Jacobi on ``coefs[0]``, or
         the V-cycle on ``levels`` (built from ``alphas`` when None; the
-        VJP passes the forward's).  An f64 solve runs the f64 V-cycle."""
+        VJP passes the forward's).  An f64 solve runs the f64 V-cycle, as
+        the reference's does (``_mg_for_dtype``)."""
         if self.mg is None:
             diag = coefs[0]
             inv_diag = mask / torch.where(diag <= 0, 1.0, diag)
@@ -265,13 +275,18 @@ class BatchedFomSolver:
 
 def make_batched_fom_solver(op: StencilOperator, profile, *, tol=None,
                             maxiter=None, precond: str = "auto",
+                            precond_dtype: str | None = None,
                             sym: bool = False) -> BatchedFomSolver:
     """Build the batched differentiable solver (see
     :class:`BatchedFomSolver`).  ``precond``: 'jacobi' | 'mg' | 'auto'
     (the V-cycle on grids with both dims even, min dim >= 64 and the
     standard profile, else Jacobi, with a warning at >= 64).
-    The V-cycle runs in the solve's dtype.  ``sym=True`` runs every
-    outer stencil apply of the solve and its VJP in the symmetric 4-grid
-    form (the V-cycle keeps the 7-grid form, as in the reference)."""
+    ``precond_dtype``: the V-cycle's dtype, 'bfloat16', 'float32' or
+    'float64'; None is 'float32'.  An f64 solve runs the f64 V-cycle
+    whatever it says, as the reference's does; the outer PCG runs in the
+    data's dtype.  ``sym=True`` runs every outer stencil apply of the
+    solve and its VJP in the symmetric 4-grid form (the V-cycle keeps the
+    7-grid form, as in the reference)."""
     return BatchedFomSolver(op, profile, tol=tol, maxiter=maxiter,
-                            precond=precond, sym=sym)
+                            precond=precond, precond_dtype=precond_dtype,
+                            sym=sym)

@@ -14,6 +14,10 @@ on batch-last ``(Ny, Nx, B)`` arrays.  Every smoother sweep and every
 residual is the masked 7-point apply ``mask * K z``, i.e. the function of
 kernel K1, so each goes through ``ops.stencil.apply_stencil``: the
 hand-written CUDA kernel on a card, its plain version on the CPU.  The
+V-cycle runs in its own ``dtype``, bfloat16, float32 or float64, as the
+reference's does: levels, smoother, transfers and coarse sweeps all in that
+dtype, the residual cast in and the correction cast back.  In bfloat16 K1
+forms its sums in f32 and rounds once (``ops/stencil.py``).  The
 reference's ``optimization_barrier`` fences are left out: they keep XLA
 from fusing the V-cycle into kernels that fault a TPU runtime.
 """
@@ -32,7 +36,16 @@ from .assembly import StencilOperator
 from .bc import DirichletProfile
 from ..ops.stencil import apply_stencil
 
-_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float64": torch.float64}
+
+
+def check_precond_dtype(dtype: str) -> str:
+    """``dtype`` if it names a V-cycle dtype, else ValueError."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"the V-cycle dtype must be 'bfloat16', 'float32' "
+                         f"or 'float64', got {dtype!r}")
+    return dtype
 
 
 def _coarsen_alpha_cellgrid(a: torch.Tensor) -> torch.Tensor:
@@ -92,6 +105,9 @@ class MultigridPreconditioner:
     nu_coarse: int = 24
     omega: float = 0.8
     dtype: str = "float32"
+
+    def __post_init__(self):
+        check_precond_dtype(self.dtype)
 
     @classmethod
     def for_grid(cls, grid: StructuredTriGrid, min_size: int = 4, **kw):

@@ -142,10 +142,11 @@ class Analysis:
 
     @torch.no_grad()
     def sample_predictive_y(self, q, generator, n_monte_carlo: int,
-                            index: Optional[int] = None):
+                            index: Optional[int] = None, F=None):
         """(N, S, dim_y) samples: z ~ q -> gp -> g, each reparametrised;
-        with ``index`` the (S, dim_y) samples of that datapoint alone."""
-        F_ = self.data["F_ROM_BC"]
+        with ``index`` the (S, dim_y) samples of that datapoint alone.
+        ``F``: the ROM forces (N, d_rom), default the instance data's."""
+        F_ = self.data["F_ROM_BC"] if F is None else F
         if index is not None:
             Zs = va.sample_component(q, index, generator, n_monte_carlo)
             Xs = components.propagate_gp_samples(self.model.apply_gp(Zs),

@@ -137,16 +137,16 @@ class ReducedOrderModelOperator(nn.Module):
     def dim_out(self) -> int:
         return self.W.shape[0]
 
-    def forward_mean(self, effprop, F_):
+    def forward_mean(self, effprop, F):
         """(..., c) log-properties + (..., d_rom) forces -> (..., n_free)."""
-        y_rom = self.rom(torch.exp(effprop) + self.EXP_FLOOR, F_)
+        y_rom = self.rom(torch.exp(effprop) + self.EXP_FLOOR, F)
         return torch.einsum("sk,...k->...s", self.W.to(effprop.dtype), y_rom)
 
     def forward(self, effprop, F_):
         mean = self.forward_mean(effprop, F_)
         return mean, self.logsigmas_y.to(mean.dtype).expand_as(mean)
 
-    def propagate_samples(self, effprops, F_, generator=None):
+    def propagate_samples(self, effprops, F, generator=None):
         """Reparameterised push-through: one draw of y per row."""
-        mean, logsigmas = self(effprops, F_)
+        mean, logsigmas = self(effprops, F)
         return reparametrize(generator, mean, logsigmas)

@@ -221,8 +221,8 @@ class GenerativeModel(nn.Module):
     def apply_gp(self, z):
         return self.gp(z)
 
-    def apply_g(self, effprop, F_):
-        return self.g(effprop, F_)
+    def apply_g(self, effprop, F):
+        return self.g(effprop, F)
 
     # ---------------------------------------------------- likelihood of x
     def random_field_likelihood(self, predict, target):

@@ -35,7 +35,18 @@
 // neighbour outside the grid contributes c * 0 as the plain version's zero
 // padding does; so the result equals apply_stencil_reference bit for bit,
 // signed zeros and inf * 0 = NaN included.
+//
+// bfloat16 (the V-cycle's levels under precond_dtype="bfloat16"): the
+// coefficients, v and the mask are loaded as bf16 and widened to f32, which
+// is exact; the seven products, the sums and the mask product run in f32 in
+// the order above, without fused multiply-adds, and the result is rounded
+// once, to nearest even, at the store.  apply_stencil_reference upcasts,
+// sums and rounds the same way, so the two agree bit for bit (a NaN's
+// payload aside).  The Pallas kernel instead accumulates in the output
+// dtype, rounding at every step; one rounding is at least as accurate and
+// costs nothing on an apply bound by memory, whose bytes halve against f32.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstddef>
 #include <cstdint>
@@ -46,11 +57,45 @@ namespace {
 
 using namespace gpipde;
 
+// An element as stored (S) and as summed (A).  f32 and f64 are summed in
+// their own type; bf16 is stored as its 16 bits and summed in f32.
+template <typename T>
+struct Elem {
+  using S = T;
+  using A = T;
+  static __device__ __forceinline__ A stream(const S* p) { return __ldcs(p); }
+  static __device__ __forceinline__ A cached(const S* p, bool in_grid) {
+    return ld_cached<T, 1>(p, in_grid).e[0];
+  }
+  static __device__ __forceinline__ void store(S* p, A x) { __stcs(p, x); }
+};
+
+struct Bf16 {};
+
+template <>
+struct Elem<Bf16> {
+  using S = unsigned short;
+  using A = float;
+  static __device__ __forceinline__ A widen(unsigned short u) {
+    return __uint_as_float(static_cast<unsigned>(u) << 16);
+  }
+  static __device__ __forceinline__ A stream(const S* p) { return widen(__ldcs(p)); }
+  static __device__ __forceinline__ A cached(const S* p, bool in_grid) {
+    return in_grid ? widen(__ldg(p)) : 0.0f;
+  }
+  static __device__ __forceinline__ void store(S* p, A x) {
+    __stcs(p, __bfloat16_as_ushort(__float2bfloat16_rn(x)));
+  }
+};
+
 template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
-apply_stencil_kernel(const T* __restrict__ coefs, const T* __restrict__ v,
-                     const T* __restrict__ mask, T* __restrict__ out,
-                     int Ny, int Nx, int B, Plan p) {
+apply_stencil_kernel(const typename Elem<T>::S* __restrict__ coefs,
+                     const typename Elem<T>::S* __restrict__ v,
+                     const typename Elem<T>::S* __restrict__ mask,
+                     typename Elem<T>::S* __restrict__ out, int Ny, int Nx, int B, Plan p) {
+  using E = Elem<T>;
+  using A = typename E::A;
   const Item it = item_of(Ny, Nx, p);
   const Lanes ln = lanes_of<1>(p.chunk);
   const int b = it.b0 + ln.lane;
@@ -62,34 +107,35 @@ apply_stencil_kernel(const T* __restrict__ coefs, const T* __restrict__ v,
     const int node = y * Nx + x;
     const ptrdiff_t i = static_cast<ptrdiff_t>(node) * B + b;
     const bool n_ = y + 1 < Ny, s_ = y > 0, e_ = x + 1 < Nx, w_ = x > 0;
-    T c[7];
+    A c[7];
 #pragma unroll
-    for (int q = 0; q < 7; ++q) c[q] = __ldcs(coefs + q * plane + i);
-    const T u[7] = {ld_cached<T, 1>(v + i, true).e[0],               // ( 0, 0)
-                    ld_cached<T, 1>(v + i + row, n_).e[0],           // ( 1, 0)
-                    ld_cached<T, 1>(v + i - row, s_).e[0],           // (-1, 0)
-                    ld_cached<T, 1>(v + i + B, e_).e[0],             // ( 0, 1)
-                    ld_cached<T, 1>(v + i - B, w_).e[0],             // ( 0,-1)
-                    ld_cached<T, 1>(v + i + row + B, n_ && e_).e[0], // ( 1, 1)
-                    ld_cached<T, 1>(v + i - row - B, s_ && w_).e[0]};// (-1,-1)
-    const T m = __ldg(mask + node);
-    T acc = T(0);
+    for (int q = 0; q < 7; ++q) c[q] = E::stream(coefs + q * plane + i);
+    const A u[7] = {E::cached(v + i, true),                 // ( 0, 0)
+                    E::cached(v + i + row, n_),             // ( 1, 0)
+                    E::cached(v + i - row, s_),             // (-1, 0)
+                    E::cached(v + i + B, e_),               // ( 0, 1)
+                    E::cached(v + i - B, w_),               // ( 0,-1)
+                    E::cached(v + i + row + B, n_ && e_),   // ( 1, 1)
+                    E::cached(v + i - row - B, s_ && w_)};  // (-1,-1)
+    const A m = E::cached(mask + node, true);
+    A acc = A(0);
 #pragma unroll
     for (int q = 0; q < 7; ++q) acc = add_rn(acc, mul_rn(c[q], u[q]));
-    __stcs(out + i, mul_rn(m, acc));
+    E::store(out + i, mul_rn(m, acc));
   }
 }
 
 template <typename T>
 int launch(const void* coefs, const void* v, const void* mask, void* out,
            int Ny, int Nx, int B, const int* plan, int device, void* stream) {
+  using S = typename Elem<T>::S;
   Plan p;
-  int err = check_plan(plan, Ny, Nx, B, sizeof(T), false, &p);
+  int err = check_plan(plan, Ny, Nx, B, sizeof(S), false, &p);
   if (err == 0) err = use_device(device);
   if (err != 0) return err;
   apply_stencil_kernel<T><<<grid_of(p), p.threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(coefs), static_cast<const T*>(v), static_cast<const T*>(mask),
-      static_cast<T*>(out), Ny, Nx, B, p);
+      static_cast<const S*>(coefs), static_cast<const S*>(v), static_cast<const S*>(mask),
+      static_cast<S*>(out), Ny, Nx, B, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -110,4 +156,11 @@ extern "C" int gpipde_apply_stencil_f64(const void* coefs, const void* v,
                                         int Nx, int B, const int* plan,
                                         int device, void* stream) {
   return launch<double>(coefs, v, mask, out, Ny, Nx, B, plan, device, stream);
+}
+
+extern "C" int gpipde_apply_stencil_bf16(const void* coefs, const void* v,
+                                         const void* mask, void* out, int Ny,
+                                         int Nx, int B, const int* plan,
+                                         int device, void* stream) {
+  return launch<Bf16>(coefs, v, mask, out, Ny, Nx, B, plan, device, stream);
 }

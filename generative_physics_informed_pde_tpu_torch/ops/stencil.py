@@ -44,13 +44,20 @@ import numpy as np
 import torch
 
 _DTYPE_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+# K1 alone also runs in bfloat16 (the V-cycle's 7-grid applies)
+_K1_DTYPE_SUFFIX = {**_DTYPE_SUFFIX, torch.bfloat16: "bf16"}
 
 
 def apply_stencil_reference(coefs: torch.Tensor, v: torch.Tensor,
                             mask: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the kernel (same sum order)."""
+    """Plain PyTorch version of the kernel (same sum order).  In bfloat16
+    the kernel's contract: the inputs upcast to f32, the f32 sums and the
+    mask product, rounded once to bfloat16."""
     from ..fem.batched_solver import _apply_stencil_blast
 
+    if v.dtype == torch.bfloat16:
+        c, u, m = coefs.float(), v.float(), mask.float()
+        return (m * _apply_stencil_blast(c, u)).to(torch.bfloat16)
     return mask * _apply_stencil_blast(coefs, v)
 
 
@@ -63,7 +70,7 @@ def apply_stencil_sym_reference(coefs4: torch.Tensor, v: torch.Tensor,
     return mask * _apply_stencil_sym_blast(coefs4, v)
 
 
-def _check(coefs, v, mask, n_grids):
+def _check(coefs, v, mask, n_grids, dtypes=_DTYPE_SUFFIX):
     if coefs.dim() != 4 or coefs.shape[0] != n_grids:
         raise ValueError(f"coefs must be ({n_grids}, Ny, Nx, B), got "
                          f"{tuple(coefs.shape)}")
@@ -73,10 +80,10 @@ def _check(coefs, v, mask, n_grids):
     if tuple(mask.shape) != (Ny, Nx, 1):
         raise ValueError(f"mask must be {(Ny, Nx, 1)}, got "
                          f"{tuple(mask.shape)}")
-    if not (coefs.dtype == v.dtype == mask.dtype) \
-            or v.dtype not in _DTYPE_SUFFIX:
-        raise TypeError("coefs, v and mask must share one dtype, float32 or "
-                        f"float64; got {coefs.dtype}, {v.dtype}, {mask.dtype}")
+    if not (coefs.dtype == v.dtype == mask.dtype) or v.dtype not in dtypes:
+        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise TypeError(f"coefs, v and mask must share one dtype, {names}; "
+                        f"got {coefs.dtype}, {v.dtype}, {mask.dtype}")
     if not (coefs.device == v.device == mask.device):
         raise ValueError(f"coefs, v and mask lie on {coefs.device}, "
                          f"{v.device}, {mask.device}")
@@ -219,7 +226,7 @@ def _launch(name, library, coefs, v, mask, sym):
     out = torch.empty_like(v)
     index = device.index
     stream = torch.cuda.current_stream(device).cuda_stream
-    symbol = f"gpipde_{name}_{_DTYPE_SUFFIX[v.dtype]}"
+    symbol = f"gpipde_{name}_{_K1_DTYPE_SUFFIX[v.dtype]}"
     ptrs = (coefs.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr())
     aligned = (ptrs[0] | ptrs[1] | ptrs[3]) % 16 == 0
     key = (Ny, Nx, B, v.dtype, index, sym, aligned)
@@ -238,8 +245,9 @@ def _launch(name, library, coefs, v, mask, sym):
 def apply_stencil(coefs: torch.Tensor, v: torch.Tensor,
                   mask: torch.Tensor) -> torch.Tensor:
     """Masked stencil apply: coefs (7, Ny, Nx, B), v (Ny, Nx, B),
-    mask (Ny, Nx, 1) -> (Ny, Nx, B), all contiguous, one dtype."""
-    _check(coefs, v, mask, 7)
+    mask (Ny, Nx, 1) -> (Ny, Nx, B), all contiguous, one dtype: float32,
+    float64 or bfloat16 (summed in f32, rounded once)."""
+    _check(coefs, v, mask, 7, _K1_DTYPE_SUFFIX)
     if v.device.type == "cpu":
         return apply_stencil_reference(coefs, v, mask)
     out = _launch("apply_stencil", "stencil", coefs, v, mask, sym=False)

@@ -49,7 +49,7 @@ _ENV_NEEDS = _SIGNALS + ("MASTER_PORT",)
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None,
-               device="cuda") -> bool:
+               local_device_ids=None, device="cuda") -> bool:
     """Idempotent ``torch.distributed.init_process_group`` wrapper.
 
     With no arguments it joins the group that the environment describes
@@ -61,7 +61,10 @@ def initialize(coordinator_address: Optional[str] = None,
     CUDA, gloo on CUDA when a node runs more processes than it has cards
     (the processes of a node: ``LOCAL_WORLD_SIZE``, else all of them).  A
     CUDA process uses card ``LOCAL_RANK``, else its rank, modulo the card
-    count.  Returns True if the group spans more than one process.
+    count, or the one card of ``local_device_ids`` (a list of one index:
+    a process of the port drives one card, so more than one id is refused,
+    and on the CPU it must be None).  Returns True if the group spans more
+    than one process.
 
     A half-initialised job raises, never falls back to one process: an
     environment with some of the signals but not all of what ``env://``
@@ -69,6 +72,14 @@ def initialize(coordinator_address: Optional[str] = None,
     and a second call whose world size or rank differs from the group
     already up.
     """
+    if local_device_ids is not None:
+        local_device_ids = [int(i) for i in local_device_ids]
+        if torch.device(device).type != "cuda":
+            raise ValueError(f"local_device_ids={local_device_ids} names "
+                             f"cards; with device={device!r} it must be None")
+        if len(local_device_ids) != 1:
+            raise ValueError(f"local_device_ids={local_device_ids}: a "
+                             "process drives one card, give one id")
     if dist.is_initialized():
         if (num_processes is not None
                 and num_processes != dist.get_world_size()) \
@@ -102,8 +113,10 @@ def initialize(coordinator_address: Optional[str] = None,
     backend = backend_for(dev, int(os.environ.get("LOCAL_WORLD_SIZE",
                                                   world)))
     if dev.type == "cuda":
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank))
-                              % torch.cuda.device_count())
+        torch.cuda.set_device(
+            local_device_ids[0] if local_device_ids is not None
+            else int(os.environ.get("LOCAL_RANK", rank))
+            % torch.cuda.device_count())
     dist.init_process_group(backend, **kw)
     return dist.get_world_size() > 1
 

@@ -9,10 +9,13 @@ frozen copy of the eager module for every bucket.  ``save`` writes one zip:
 ``manifest.json`` (the JAX package's fields plus the device type and the
 torch version) and one ``torch.export`` program per bucket, exported at
 the bucket's static batch as the JAX package exports one StableHLO module
-per bucket; ``load`` serves those programs.  A program carries its
-constants on the device it was exported on, so a bundle is saved and
-loaded on one device type, and by one torch major.minor (the program
-format is not stable across them).
+per bucket and platform; ``load`` serves those programs.  A program
+carries its constants on the device it was exported on, so a bundle
+exports one program per bucket for each torch device type in its
+``platforms`` (``("cuda", "cpu")`` serves on a card and on a CPU host, as
+the JAX package's ``("tpu", "cpu")`` does), and is loaded by one torch
+major.minor (the program format is not stable across them).  A bundle of
+the first format (one platform, ``bucket_{b}.pt2``) still loads.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import dataclasses
 import io
 import json
 import zipfile
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +33,9 @@ import torch
 from .utils.device import resolve_device
 
 DEFAULT_BUCKETS = (8, 64, 512)
-BUNDLE_FORMAT = "gpipde-torch-surrogate-bundle-v1"
+BUNDLE_FORMAT = "gpipde-torch-surrogate-bundle-v2"
+# one platform, programs at bucket_{b}.pt2
+BUNDLE_FORMAT_V1 = "gpipde-torch-surrogate-bundle-v1"
 
 
 class _Surrogate(torch.nn.Module):
@@ -61,10 +66,26 @@ def _torch_minor(version: str) -> str:
     return ".".join(version.split("+")[0].split(".")[:2])
 
 
+def _platforms(platforms, device: torch.device) -> Tuple[str, ...]:
+    """The torch device types a bundle exports for: ``device``'s alone for
+    None, else the given ones, which must include it."""
+    if platforms is None:
+        return (device.type,)
+    out = tuple(dict.fromkeys(str(p) for p in platforms))
+    if not out:
+        raise ValueError("platforms must be None or non-empty")
+    if device.type not in out:
+        raise ValueError(f"platforms {out} must include the bundle's device "
+                         f"type {device.type!r}")
+    return out
+
+
 @dataclasses.dataclass
 class SurrogateBundle:
-    """A set of surrogate callables, one per static batch bucket; a loaded
-    bundle also holds the programs it serves."""
+    """A set of surrogate callables, one per static batch bucket, serving
+    on ``device``; ``frozen`` holds the frozen module of each platform the
+    bundle exports for.  A loaded bundle holds the programs it serves, of
+    its device's platform."""
 
     buckets: Tuple[int, ...]
     image_shape: Tuple[int, ...]
@@ -74,22 +95,41 @@ class SurrogateBundle:
     calls: Dict[int, Callable]
     programs: Dict[int, "torch.export.ExportedProgram"] = dataclasses.field(
         default_factory=dict)
+    frozen: Dict[str, Callable] = dataclasses.field(default_factory=dict)
+    platform_names: Tuple[str, ...] = ()
+    # a loaded bundle's programs of its other platforms, as saved
+    saved: Dict[str, bytes] = dataclasses.field(default_factory=dict)
 
     @classmethod
     def build(cls, discriminative, image_shape: Sequence[int], dim_F: int, *,
               buckets: Sequence[int] = DEFAULT_BUCKETS,
               dtype=torch.float32, device="cuda",
+              platforms: Optional[Sequence[str]] = None,
               use_encoder: bool = True) -> "SurrogateBundle":
+        """Freeze the surrogate on ``device``, which serves ``predict``.
+        ``platforms``: the torch device types (``"cuda"``, ``"cpu"``) the
+        bundle exports a program for at every bucket; None is ``device``'s
+        alone.  A frozen copy of the module is made on each, so exporting
+        for ``"cuda"`` needs a card."""
         device = resolve_device(device)
         if not buckets:
             raise ValueError("buckets must be non-empty")
-        fn = surrogate_fn(discriminative, dtype=dtype, device=device,
-                          use_encoder=use_encoder)
+        names = _platforms(platforms, device)
+        frozen = {p: surrogate_fn(discriminative, dtype=dtype,
+                                  device=device if p == device.type else p,
+                                  use_encoder=use_encoder) for p in names}
+        fn = frozen[device.type]
         bs = tuple(sorted(set(int(b) for b in buckets)))
         return cls(buckets=bs,
                    image_shape=tuple(int(s) for s in image_shape),
                    dim_F=int(dim_F), dtype=dtype, device=device,
-                   calls={b: fn for b in bs})
+                   calls={b: fn for b in bs}, frozen=frozen,
+                   platform_names=names)
+
+    @property
+    def platforms(self) -> Tuple[str, ...]:
+        """The torch device types the bundle has programs for."""
+        return self.platform_names or (self.device.type,)
 
     def predict(self, x, F) -> torch.Tensor:
         """Serve a request of any batch size: pad up to the smallest bucket
@@ -136,44 +176,59 @@ class SurrogateBundle:
         return self.calls[bucket](x, F)[:n]
 
     # ------------------------------------------------------ persistence
-    def _program(self, bucket: int):
-        """The bucket's ``torch.export`` program, exported at its static
-        batch on the bundle's device the first time it is asked for."""
-        if bucket not in self.programs:
-            x = torch.zeros((bucket,) + self.image_shape, dtype=self.dtype,
-                            device=self.device)
-            F = torch.zeros((bucket, self.dim_F), dtype=self.dtype,
-                            device=self.device)
-            self.programs[bucket] = torch.export.export(self.calls[bucket],
-                                                        (x, F))
-        return self.programs[bucket]
+    def _program(self, bucket: int, platform: str):
+        """The ``torch.export`` program of ``bucket`` for ``platform``,
+        exported at the bucket's static batch from the module frozen on
+        that platform; a loaded bundle returns the program it loaded."""
+        if platform == self.device.type and bucket in self.programs:
+            return self.programs[bucket]
+        if platform not in self.frozen:
+            raise ValueError(f"the bundle has no module for {platform!r}; "
+                             f"its platforms are {self.platforms}")
+        dev = self.device if platform == self.device.type else \
+            torch.device(platform)
+        x = torch.zeros((bucket,) + self.image_shape, dtype=self.dtype,
+                        device=dev)
+        F = torch.zeros((bucket, self.dim_F), dtype=self.dtype, device=dev)
+        program = torch.export.export(self.frozen[platform], (x, F))
+        if platform == self.device.type:
+            self.programs[bucket] = program
+        return program
 
     def save(self, path: str) -> str:
         """Write the bundle as one zip: ``manifest.json`` and a
-        ``torch.export`` program per bucket."""
+        ``torch.export`` program per bucket and platform,
+        ``bucket_{b}.{platform}.pt2``."""
         manifest = {"buckets": list(self.buckets),
                     "image_shape": list(self.image_shape),
                     "dim_F": self.dim_F,
                     "dtype": str(self.dtype).removeprefix("torch."),
-                    "device": self.device.type, "torch": torch.__version__,
-                    "format": BUNDLE_FORMAT}
+                    "device": self.device.type,
+                    "platforms": list(self.platforms),
+                    "torch": torch.__version__, "format": BUNDLE_FORMAT}
         with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as zf:
             zf.writestr("manifest.json", json.dumps(manifest))
-            for b in self.buckets:
-                buf = io.BytesIO()
-                torch.export.save(self._program(b), buf)
-                zf.writestr(f"bucket_{b}.pt2", buf.getvalue())
+            for p in self.platforms:
+                for b in self.buckets:
+                    name = f"bucket_{b}.{p}.pt2"
+                    if name in self.saved:
+                        zf.writestr(name, self.saved[name])
+                        continue
+                    buf = io.BytesIO()
+                    torch.export.save(self._program(b, p), buf)
+                    zf.writestr(name, buf.getvalue())
         return path
 
     @classmethod
     def load(cls, path: str, device="cuda") -> "SurrogateBundle":
-        """A bundle serving the programs of a :meth:`save` zip on
-        ``device``, which must be of the device type it was saved on; the
-        torch that saved it must have this torch's major.minor."""
+        """A bundle serving the programs of ``device``'s type from a
+        :meth:`save` zip, which must have them; the torch that saved it
+        must have this torch's major.minor."""
         device = resolve_device(device)
         with zipfile.ZipFile(path, "r") as zf:
             manifest = json.loads(zf.read("manifest.json"))
-            if manifest.get("format") != BUNDLE_FORMAT:
+            fmt = manifest.get("format")
+            if fmt not in (BUNDLE_FORMAT, BUNDLE_FORMAT_V1):
                 raise ValueError(f"not a surrogate bundle: {path}")
             if _torch_minor(manifest["torch"]) != _torch_minor(
                     torch.__version__):
@@ -181,18 +236,28 @@ class SurrogateBundle:
                     f"{path} was saved by torch {manifest['torch']}; this "
                     f"is torch {torch.__version__}: export the bundle again "
                     "with this torch")
-            if manifest["device"] != device.type:
+            platforms = tuple(manifest.get("platforms",
+                                           [manifest["device"]]))
+            if device.type not in platforms:
                 raise ValueError(
-                    f"{path} was exported on {manifest['device']!r}, which "
-                    f"its programs' constants live on; load it with "
-                    f"device={manifest['device']!r}, or export it again on "
-                    f"{device.type!r}")
+                    f"{path} holds programs for the platforms {platforms}, "
+                    f"whose constants live there, and none for "
+                    f"{device.type!r}: load it with "
+                    f"device={platforms[0]!r}"
+                    f"{' or another of them' if len(platforms) > 1 else ''}"
+                    f", or export it again with {device.type!r} among its "
+                    "platforms")
+            suffix = "" if fmt == BUNDLE_FORMAT_V1 else f".{device.type}"
             programs = {int(b): torch.export.load(
-                io.BytesIO(zf.read(f"bucket_{b}.pt2")))
+                io.BytesIO(zf.read(f"bucket_{b}{suffix}.pt2")))
                 for b in manifest["buckets"]}
+            saved = {f"bucket_{b}.{p}.pt2": zf.read(f"bucket_{b}.{p}.pt2")
+                     for p in platforms if p != device.type
+                     for b in manifest["buckets"]}
         bs = tuple(sorted(programs))
         return cls(buckets=bs, image_shape=tuple(manifest["image_shape"]),
                    dim_F=int(manifest["dim_F"]),
                    dtype=getattr(torch, manifest["dtype"]), device=device,
                    calls={b: programs[b].module() for b in bs},
-                   programs=programs)
+                   programs=programs, platform_names=platforms,
+                   saved=saved)

@@ -63,6 +63,7 @@ from __future__ import annotations
 import math
 import os
 import time
+import warnings
 from typing import Dict, Optional
 
 import numpy as np
@@ -209,10 +210,18 @@ class Trainer:
         self._layout = None
 
     @classmethod
-    def FromIdentifier(cls, identifier: str, margs=None, **kwargs):
+    def FromIdentifier(cls, identifier: str, margs=None, dargs=None,
+                       **kwargs):
         mf = ModelFactory.FromIdentifier(identifier)
         for key, val in (margs or {}).items():
             mf.set(key, val)
+        if dargs:
+            # as in the JAX package and its reference, where dargs is
+            # unused: warn rather than discard it silently
+            warnings.warn(
+                "TrainerParameters.dargs is accepted for reference parity "
+                "but has no effect; configure data via DataFactory presets "
+                "or pass dl/dlu explicitly", stacklevel=2)
         return cls(mf=mf, **kwargs)
 
     from_identifier = FromIdentifier
@@ -616,17 +625,39 @@ class Trainer:
         self._vo_is_initialized = True
 
     # ---------------------------------------------------------------- run
-    def run(self, N: int, verbose: bool = True, callback=None):
-        """``N`` SVI iterations, then the final refinement and
-        evaluation."""
+    def run(self, N: int, verbose: bool = True, callback=None,
+            profile_dir: Optional[str] = None):
+        """``N`` SVI iterations, then the final refinement and evaluation.
+
+        ``profile_dir``: trace the run with ``torch.profiler`` (host
+        activity, and the card's kernels when the trainer is on one) and
+        write the trace into that directory with
+        ``tensorboard_trace_handler``, for TensorBoard's profiler view or
+        any Chrome-trace viewer."""
         if self._finalized:
             raise RuntimeError("Cannot run trainer which has already been"
                                " finalized")
+        prof = None
+        if profile_dir is not None:
+            from torch.profiler import (ProfilerActivity, profile,
+                                        tensorboard_trace_handler)
+
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            prof = profile(activities=activities,
+                           on_trace_ready=tensorboard_trace_handler(
+                               str(profile_dir)))
+            prof.start()
         t_start = time.time()
         try:
             self._run_loop(N, verbose, callback)
         finally:
+            # accrue the runtime and stop the trace even when the loop
+            # raises: a profiler left running blocks every later one
             self._global_runtime += time.time() - t_start
+            if prof is not None:
+                prof.stop()
 
     def _run_loop(self, N: int, verbose: bool, callback):
         mi = self.get("N_monitor_interval")
@@ -821,13 +852,16 @@ class Trainer:
         self._vo_state = None
         self._vo_is_initialized = False
 
-    def export_surrogate(self, path: Optional[str] = None, *, buckets=None):
+    def export_surrogate(self, path: Optional[str] = None, *, buckets=None,
+                         platforms=None):
         """The discriminative surrogate as a ``serving.SurrogateBundle``
         over a frozen copy of the current weights, in the trainer's dtype
         on its device; with ``path`` also written there (one
-        ``torch.export`` program per bucket, see
+        ``torch.export`` program per bucket and platform, see
         ``SurrogateBundle.save``; in a group of processes process 0 writes
-        it, the weights being whole on every process)."""
+        it, the weights being whole on every process).  ``platforms``: the
+        torch device types to export for, e.g. ``("cuda", "cpu")``; None
+        is the trainer's device alone."""
         from ..serving import DEFAULT_BUCKETS, SurrogateBundle
 
         if self.optimizer is None:
@@ -837,7 +871,7 @@ class Trainer:
             self.discriminative_model, (img, img),
             self.physics["rom"].grid.n_nodes,
             buckets=DEFAULT_BUCKETS if buckets is None else buckets,
-            dtype=self._dtype, device=self.device)
+            dtype=self._dtype, device=self.device, platforms=platforms)
         if path is not None:
             if process_index() == 0:
                 bundle.save(path)
@@ -869,17 +903,32 @@ def CreateTrainer(params: TrainerParameters, dl, dlu,
 
 def CreateTrainerFromPermutation(params: TrainerParameters, permutation=None,
                                  permutation_u=None, dl=None, dlu=None,
-                                 datasets=None, device="cuda") -> Trainer:
+                                 datasets=None, BCE_encoding=None,
+                                 device="cuda") -> Trainer:
+    """A trainer of ``params`` on the labeled and unlabeled pools (a
+    preset's when ``dl`` / ``dlu`` are None) partitioned by the
+    permutations.  ``BCE_encoding``: (n, 4) boundary-condition encodings
+    of the FOM's family, one per labeled field, which the labels are
+    solved with in place of the loader's own draws."""
     trainer = Trainer.FromIdentifier(
-        params.identifier, params.margs, folder=params.folder,
+        params.identifier, params.margs, params.dargs, folder=params.folder,
         comment=params.comment, debug=params.debug, seed=params.seed,
         device=device)
+    BCE = None
+    if BCE_encoding is not None:
+        from ..fem.bc import BoundaryConditionEnsemble
+
+        fom = trainer.physics["fom"]
+        BCE = BoundaryConditionEnsemble.from_encoding(fom.physics_id,
+                                                      BCE_encoding)
+        BCE.register_function_space("fom", fom.grid)
+        BCE.register_function_space("rom", trainer.physics["rom"].grid)
     if datasets is None:
         dl, dlu, datasets = CreateDataSetsFromPermutation(
             params.identifier, permutation, permutation_u,
             params.data["N_val"], params.data["N_u_max"],
             params.data["N_s_max"], params.data["N_vo_max"],
-            trainer.physics, None, trainer.dtype, dl=dl, dlu=dlu,
+            trainer.physics, BCE, trainer.dtype, dl=dl, dlu=dlu,
             device=trainer.device)
     trainer.set_data_from_datasets(
         datasets, params.data["N_u"], params.data["N_s"],

@@ -1,4 +1,5 @@
-"""The port covers the JAX package's public API, name by name.
+"""The port covers the JAX package's public API, name by name and
+keyword by keyword.
 
 The JAX package is read with ``ast`` only (never imported): its
 subpackages' ``__all__`` lists, the public top-level names of each of its
@@ -6,10 +7,14 @@ modules, and the public methods of its classes.  Each must have a
 counterpart in the port's module of the same path, except the names of
 ``EXCEPTIONS`` (each with its reason) and the renames of ``RENAMED``.  The
 methods the port added in its last API slice are named one by one too.
+Every parameter of a public JAX function, method or ``__init__`` must be a
+parameter of its counterpart's signature, except the pairs of
+``KEYWORD_EXCEPTIONS`` (each with its reason).
 """
 
 import ast
 import importlib
+import inspect
 from pathlib import Path
 
 import pytest
@@ -37,7 +42,94 @@ EXCEPTIONS = {
     "DiscriminativeModel.extract": "copies buffers of a donated TrainState",
     "DiscriminativeModel.extract_params": "copies buffers of a donated "
                                           "TrainState",
-    "SurrogateBundle.platforms": "StableHLO multi-platform export",
+}
+# why a JAX parameter has no counterpart in the port's signature
+_STATE = ("functional state turned into module state: the port's modules "
+          "and optimizers own it")
+_KEY = "a JAX PRNG key turned into a torch.Generator argument"
+_TPU = "a TPU-only knob (Pallas interpret mode, VMEM tiling, chunking)"
+# "module.Qualname" of a JAX function or method -> {parameter: reason}
+KEYWORD_EXCEPTIONS = {
+    **{f"constraints.virtual_observables.{c}.sample": {"key": _KEY}
+       for c in ("BaseSampler", "CoarseGrainedResidualSampler",
+                 "GaussianSketchingSampler", "RadialBasisFunctionSampler",
+                 "FluxConstrainSampler", "ConcatenatedSamplers")},
+    "constraints.virtual_observables.RadialBasisFunctionSampler.sample_V":
+        {"key": _KEY},
+    **{f"constraints.virtual_observables.{c}.resample": {"key": _KEY}
+       for c in ("VirtualObservablesEnsemble",
+                 "EnergyVirtualObservablesEnsemble")},
+    "data.sampling.BatchedOverSampler.batches": {"key": _KEY},
+    "data.sampling.minibatch_indices": {"key": _KEY},
+    "fem.batched_solver.make_batched_fom_solver": {
+        "use_pallas": _TPU,
+        "fused_rr": "the port's stop rule is the fused form, and the two "
+                    "forms give the same results"},
+    "fem.randomfield.GaussianRandomField.sample": {"key": _KEY},
+    "fem.solvers.rom_solve": {"max_chunk": _TPU},
+    "inference.analysis.Analysis.sample_predictive_y": {
+        "params": _STATE, "key": _KEY},
+    "inference.analysis.Analysis.sample_predictive_x": {
+        "params": _STATE, "batch_stats": _STATE, "key": _KEY},
+    "inference.analysis.Analysis.eval_all_y": {"params": _STATE,
+                                               "key": _KEY},
+    "inference.analysis.Analysis.eval_all": {
+        "params": _STATE, "batch_stats": _STATE, "key": _KEY},
+    "inference.analysis.Analysis.from_encoder": {"params": _STATE,
+                                                 "batch_stats": _STATE},
+    "inference.likelihoods.reparametrize": {"key": _KEY},
+    "inference.prediction.PredictionEnsemble.elbo": {
+        "params": _STATE, "batch_stats": _STATE, "key": _KEY},
+    "inference.prediction.PredictionEnsemble.update": {
+        "params": _STATE, "batch_stats": _STATE, "q": _STATE,
+        "opt_state": _STATE, "key": _KEY},
+    **{f"inference.variational.{f}": {"key": _KEY}
+       for f in ("sample", "sample_component", "sample_all_components")},
+    "models.calibration.optimize_effective_properties": {
+        "g_params": _STATE},
+    "models.components.propagate_gp_samples": {"key": _KEY},
+    "models.components.ReducedOrderModelOperator.propagate_samples": {
+        "params": _STATE, "key": _KEY},
+    "models.generative.GenerativeModel.init_params": {
+        "key": _KEY,
+        "image_shape": "the port's networks take their shapes when they are "
+                       "built; init_params makes only the per-datapoint "
+                       "posteriors, sized by the datasets"},
+    **{f"models.generative.GenerativeModel.{m}": {
+        "params": _STATE, "batch_stats": _STATE, "key": _KEY,
+        "module": _STATE} for m in ("apply_decoder", "apply_encoder")},
+    "models.generative.GenerativeModel.apply_gp": {"params": _STATE},
+    "models.generative.GenerativeModel.apply_g": {"params": _STATE},
+    **{f"models.generative.GenerativeModel.{m}": {
+        "params": _STATE, "batch_stats": _STATE, "key": _KEY,
+        "decoded": "the port's fused= carries the fused decode's draws and "
+                   "decode"}
+       for m in ("elbo_supervised", "elbo_virtual_observables")},
+    "models.generative.GenerativeModel.elbo_unsupervised_amortized": {
+        "params": _STATE, "batch_stats": _STATE, "key": _KEY,
+        "decoded": "the port's fused= carries the fused decode's draws and "
+                   "decode",
+        "_enc": "the port's fused= carries the fused path's encoding too"},
+    **{f"models.generative.GenerativeModel.{m}": {
+        "params": _STATE, "batch_stats": _STATE, "key": _KEY}
+       for m in ("elbo_unsupervised", "elbo")},
+    "models.generative.GenerativeModel.propagate_vo_moments": {
+        "params": _STATE, "key": _KEY},
+    **{f"ops.stencil.{f}": {"interpret": _TPU, "tile_rows": _TPU}
+       for f in ("apply_stencil", "apply_stencil_sym")},
+    "ops.stencil.apply_stencil_sym_blocked": {"TY": _TPU,
+                                              "interpret": _TPU},
+    **{f"ops.stencil.{f}": {"TY": _TPU}
+       for f in ("pad_blocked", "pad_coefs_blocked", "mask_blocked")},
+    "parallel.mesh.shard_train_state": {"state": _STATE},
+    "serving.surrogate_fn": {"params": _STATE, "batch_stats": _STATE},
+    "serving.SurrogateBundle.build": {"params": _STATE,
+                                      "batch_stats": _STATE},
+    "training.checkpoint.restore_train_state": {"like": _STATE},
+    **{f"training.checkpoint.{f}": {"params": _STATE}
+       for f in ("save_encoder_decoder", "restore_encoder_decoder")},
+    **{f"utils.params.{f}": {"tree": _STATE}
+       for f in ("count_parameters", "global_norm")},
 }
 # JAX name -> the port's name for it
 RENAMED = {
@@ -176,3 +268,111 @@ def test_trainer_setup_takes_a_mesh():
     params = inspect.signature(mod.Trainer.setup).parameters
     assert list(params) == ["self", "scheduler_spec", "mesh"]
     assert params["mesh"].default is None
+
+
+def _jax_params(fn):
+    """The named parameters of a JAX ``def`` (no self / cls, no *args or
+    **kwargs)."""
+    a = fn.args
+    return [p.arg for p in a.posonlyargs + a.args + a.kwonlyargs
+            if p.arg not in ("self", "cls")]
+
+
+def _port_params(obj):
+    """The named parameters of a port callable's signature, or None for a
+    counterpart that takes none (a property or a cached attribute)."""
+    if isinstance(obj, (staticmethod, classmethod)):
+        obj = obj.__func__
+    if isinstance(obj, property):
+        obj = obj.fget
+    if isinstance(obj, type):
+        obj = obj.__init__
+    if not callable(obj):
+        return None
+    return {name for name, p in inspect.signature(obj).parameters.items()
+            if p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD)}
+
+
+def _keyword_pairs():
+    """[("module.Qualname", JAX parameters, port parameters or None)] of
+    every public JAX function, method and explicit ``__init__`` whose port
+    counterpart exists."""
+    out = []
+    for path, port_name in _modules():
+        if path.name == "__init__.py":
+            continue
+        try:
+            mod = importlib.import_module(port_name)
+        except ModuleNotFoundError:
+            continue
+        prefix = port_name.removeprefix(PORT + ".")
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in tree.body:
+            if isinstance(node, ast.FunctionDef) \
+                    and not node.name.startswith("_"):
+                obj = getattr(mod, RENAMED.get(node.name, node.name), None)
+                if obj is not None:
+                    out.append((f"{prefix}.{node.name}", _jax_params(node),
+                                _port_params(obj)))
+            elif isinstance(node, ast.ClassDef) \
+                    and not node.name.startswith("_") \
+                    and hasattr(mod, node.name):
+                klass = getattr(mod, node.name)
+                for item in node.body:
+                    if not isinstance(item, ast.FunctionDef) or (
+                            item.name.startswith("_")
+                            and item.name != "__init__"):
+                        continue
+                    obj = inspect.getattr_static(klass, item.name, None)
+                    if obj is not None:
+                        out.append((f"{prefix}.{node.name}.{item.name}",
+                                    _jax_params(item), _port_params(obj)))
+    return out
+
+
+def _missing_keywords():
+    missing = {}
+    for name, jax_params, port_params in _keyword_pairs():
+        for p in jax_params:
+            if port_params is None or p not in port_params:
+                missing.setdefault(name, set()).add(p)
+    return missing
+
+
+def test_every_jax_keyword_has_a_port_counterpart():
+    missing = _missing_keywords()
+    unexplained = {name: sorted(ps - set(KEYWORD_EXCEPTIONS.get(name, ())))
+                   for name, ps in missing.items()}
+    assert not {k: v for k, v in unexplained.items() if v}
+    # the table does not rot: every exception is still missing
+    stale = {name: sorted(set(ps) - missing.get(name, set()))
+             for name, ps in KEYWORD_EXCEPTIONS.items()}
+    assert not {k: v for k, v in stale.items() if v}
+    assert all(reason for ps in KEYWORD_EXCEPTIONS.values()
+               for reason in ps.values())
+
+
+# the keywords this slice ported, each named (JAX module.Qualname, keyword)
+PORTED_KEYWORDS = [
+    ("fem.batched_solver.make_batched_fom_solver", "precond_dtype"),
+    ("serving.SurrogateBundle.build", "platforms"),
+    ("training.trainer.Trainer.export_surrogate", "platforms"),
+    ("training.trainer.Trainer.run", "profile_dir"),
+    ("training.trainer.CreateTrainerFromPermutation", "BCE_encoding"),
+    ("training.trainer.Trainer.FromIdentifier", "dargs"),
+    ("factories.data.DataFactory.__init__", "config"),
+    ("data.sampling.minibatch_indices", "replace"),
+    ("parallel.distributed.initialize", "local_device_ids"),
+    ("models.components.ReducedOrderModelOperator.forward_mean", "F"),
+    ("models.components.ReducedOrderModelOperator.propagate_samples", "F"),
+    ("models.generative.GenerativeModel.apply_g", "F"),
+    ("inference.analysis.Analysis.sample_predictive_y", "F"),
+]
+
+
+@pytest.mark.parametrize("name,keyword", PORTED_KEYWORDS,
+                         ids=[f"{n}:{k}" for n, k in PORTED_KEYWORDS])
+def test_ported_keyword_is_in_both_signatures(name, keyword):
+    pairs = {n: (j, p) for n, j, p in _keyword_pairs()}
+    jax_params, port_params = pairs[name]
+    assert keyword in jax_params and keyword in port_params

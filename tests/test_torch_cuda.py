@@ -215,7 +215,8 @@ def _hazard_inputs(Ny, Nx, B, dtype, n_grids, seed, hazards):
 
 
 def _bits(x):
-    return x.view(torch.int32 if x.dtype == torch.float32 else torch.int64)
+    return x.view({2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[x.element_size()])
 
 
 def _assert_bit_equal(kernel, plain, coefs, v, mask):
@@ -836,3 +837,120 @@ def test_uneven_training_across_cards_equals_one_card(tmp_path):
             got = {k.split("/", 1)[1]: v for k, v in rec.items()
                    if k.startswith(name + "/")}
             sharded._assert_close(got, want, f"{name} card {r}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Ny,Nx,B", [(65, 65, 2048), (33, 33, 2048),
+                                     (17, 17, 2048), (9, 9, 2048),
+                                     (5, 5, 2048), (13, 7, 1), (70, 41, 257),
+                                     (26, 26, 200)])
+def test_k1_bf16_kernel_bit_equal_to_its_plain_version(Ny, Nx, B):
+    """K1 in bf16 at the V-cycle's levels and at tile edges: loads widened
+    to f32, f32 sums in the f32 kernel's order, one rounding; the plain
+    version upcasts, sums and rounds the same way."""
+    _need_cuda()
+    _assert_bit_equal(apply_stencil, apply_stencil_reference,
+                      *_hazard_inputs(Ny, Nx, B, torch.bfloat16, 7,
+                                      Ny * Nx + B, False))
+
+
+@pytest.mark.cuda
+def test_k1_bf16_kernel_keeps_inf_and_nan_at_the_edge():
+    """With +-inf, -0 and negative coefficients at the edge: equal to the
+    plain version, NaN where it has NaN (a NaN's payload may differ)."""
+    _need_cuda()
+    coefs, v, mask = _hazard_inputs(33, 33, 64, torch.bfloat16, 7, 3, True)
+    got = apply_stencil(coefs, v, mask)
+    want = apply_stencil_reference(coefs, v, mask)
+    nan = torch.isnan(want)
+    assert bool(nan.any()) and torch.equal(torch.isnan(got), nan)
+    assert torch.equal(_bits(got)[~nan], _bits(want)[~nan])
+
+
+@pytest.mark.cuda
+def test_bf16_vcycle_solve_on_the_kernel(monkeypatch):
+    """An f32 MG-PCG solve at 64^2, B=64, preconditioned by the bf16
+    V-cycle: every V-cycle apply launches K1 in bf16, the outer matvec in
+    f32; the solve equals the plain path's and its true residual is within
+    the f32 floor."""
+    _need_cuda()
+    phys = fem.make_fom_rom_pair("ND", 8, 8, 3, device="cuda")
+    fom = phys["fom"]
+    g = torch.Generator().manual_seed(9)
+    alphas = torch.exp(1.3 * torch.randn(64, fom.grid.n_cells,
+                                         generator=g)).cuda()
+    vals = (torch.rand(64, fom.constrained_dofs.size, generator=g)
+            - 0.5).cuda()
+    dtypes = []
+    real = stencil._launch
+
+    def launch(name, library, coefs, v, mask, sym):
+        dtypes.append(v.dtype)
+        return real(name, library, coefs, v, mask, sym)
+
+    monkeypatch.setattr(stencil, "_launch", launch)
+    solve = batched_solver.make_batched_fom_solver(
+        fom.op, fom.profile, precond="mg", precond_dtype="bfloat16")
+    Y = solve(alphas, vals)
+    torch.cuda.synchronize()
+    k, per_cycle = solve.iterations, solve.mg.applies_per_cycle
+    assert dtypes.count(torch.float32) == 1 + k
+    assert dtypes.count(torch.bfloat16) == (k + 1) * per_cycle
+    monkeypatch.setattr(batched_solver, "apply_stencil",
+                        apply_stencil_reference)
+    monkeypatch.setattr(multigrid, "apply_stencil", apply_stencil_reference)
+    plain = batched_solver.make_batched_fom_solver(
+        fom.op, fom.profile, precond="mg", precond_dtype="bfloat16")
+    assert torch.equal(Y, plain(alphas, vals)) and plain.iterations == k
+    free = fom.free_dofs
+    a64, b64 = alphas.double(), vals.double()
+    f_eff = fom.effective_force(a64, b64)[:, free]
+    y0 = torch.zeros(64, fom.grid.n_nodes, dtype=torch.float64,
+                     device="cuda")
+    y0[:, free] = Y.double()
+    rel = (fom.op.matvec(a64, y0)[:, free] - f_eff).norm(dim=1) \
+        / f_eff.norm(dim=1)
+    assert bool((rel <= 1e-4).all()), rel.max()
+
+
+@pytest.mark.cuda
+def test_bundle_for_cuda_and_cpu_serves_on_both(tmp_path):
+    """A ``("cuda", "cpu")`` bundle of the highres32 surrogate: the CUDA
+    program equals the eager module on the card bit for bit, the CPU
+    program is within 1e-5 of it (TF32 off)."""
+    _need_cuda()
+    from generative_physics_informed_pde_tpu_torch.factories import (
+        highres32)
+    from generative_physics_informed_pde_tpu_torch.serving import (
+        SurrogateBundle)
+
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        dm = highres32().setup(device="cuda", generator=torch.Generator(
+            ).manual_seed(0))[2]
+        bundle = SurrogateBundle.build(dm, (32, 32), 25, buckets=(4, 8),
+                                       device="cuda",
+                                       platforms=("cuda", "cpu"))
+        path = bundle.save(str(tmp_path / "s.zip"))
+        on_card = SurrogateBundle.load(path, device="cuda")
+        on_cpu = SurrogateBundle.load(path, device="cpu")
+        assert on_card.platforms == on_cpu.platforms == ("cuda", "cpu")
+        rng = np.random.default_rng(1)
+        for n in (3, 8, 11):
+            x = torch.as_tensor(rng.normal(0.4, 0.8, (n, 32, 32)),
+                                dtype=torch.float32)
+            F = torch.as_tensor(rng.uniform(-0.5, 0.5, (n, 25)),
+                                dtype=torch.float32)
+            eager = bundle.predict(x, F)
+            assert torch.equal(on_card.predict(x, F), eager)
+            cpu = on_cpu.predict(x, F)
+            assert cpu.device.type == "cpu"
+            err = ((cpu - eager.cpu()).abs().max()
+                   / eager.abs().max()).item()
+            assert err <= 1e-5, err
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32

@@ -192,9 +192,10 @@ def test_bundle_roundtrip_on_disk(tmp_path, name):
     assert loaded.dtype == torch.float32 and loaded.device.type == "cpu"
     with zipfile.ZipFile(path) as zf:
         manifest = json.loads(zf.read("manifest.json"))
-        assert sorted(zf.namelist()) == ["bucket_4.pt2", "bucket_8.pt2",
+        assert sorted(zf.namelist()) == ["bucket_4.cpu.pt2",
+                                         "bucket_8.cpu.pt2",
                                          "manifest.json"]
-    assert manifest["device"] == "cpu" \
+    assert manifest["device"] == "cpu" and manifest["platforms"] == ["cpu"] \
         and manifest["torch"] == torch.__version__
     for n, seed in ((3, 4), (8, 5), (13, 6)):  # pad, exact, stream
         x, F = _request(n, 32, dim_F, seed)
@@ -226,7 +227,8 @@ def test_bundle_load_refuses_another_torch_or_device(tmp_path):
                               torch="1.13.1")
     with pytest.raises(ValueError, match="saved by torch 1.13.1"):
         SurrogateBundle.load(other, device="cpu")
-    card = _rewrite_manifest(path, str(tmp_path / "c.zip"), device="cuda")
+    card = _rewrite_manifest(path, str(tmp_path / "c.zip"), device="cuda",
+                             platforms=["cuda"])
     with pytest.raises(ValueError, match="load it with device='cuda'"):
         SurrogateBundle.load(card, device="cpu")
     (tmp_path / "n.zip").write_bytes(b"")
