@@ -78,8 +78,11 @@ recipe through ``setup(mesh=make_mesh(1))``, bit for bit against
 package's two-process test in f64, each labeling its own rows on K1, held
 to the same lifecycle in one process, then training the batches that do
 not divide by the shard count (an amortized unlabeled set and minibatch,
-Monte-Carlo rows over the replicas), each held to one process; and the
-three arms of
+Monte-Carlo rows over the replicas), each held to one process, then the
+VO ablation's energy and constrain arms at their published 64^2 widths
+(64 VO fields, 64 Monte-Carlo samples) in f64 with each process
+refreshing its 32 VO rows (its rows, K1 launches, refresh time and peak
+memory printed), held to one process; and the three arms of
 ``examples/torch_vo_ablation.py`` at their published 64^2 widths and
 pools, cut to 40 steps.
 Then the options the port took over last (phase 17): K1 in bf16 held bit
@@ -366,6 +369,21 @@ P16_UNEVEN = {
     "mc_rows": ("mc", dict(seed=13, n_mc=3, data=dict(N_s=5),
                            margs=dict(droprate=0.2))),
 }
+# (e) The virtual observables split over the same two processes, after
+# (d): examples/torch_vo_ablation.py's energy and constrain arms (its
+# _params: the 'highres' 64^2 recipe, N_vo 64 and N_monte_carlo_vo 64; the
+# energy arm 10 subspace iterations of 32 RBF columns an update, 331 K1
+# launches; the constrain arm's CGR, flux, 8 Gaussian and 8 RBF test
+# functions) in f64, its pools cut from N_s 64, N_val 64 and N_u 1024
+# (batch 64) to P16_VO_POOLS, the VO refreshed every 2 steps from step 0
+# (the holdoffs and cadences cut from 50 / 10 and 250), P16_VO_STEPS steps,
+# on fields labeled once here on K1; each process refreshes its 32 of the
+# 64 VO rows (the energy arm's applies at (65,65,32) f64, the constrain
+# arm's assembly whole at (65,65,64) f64), held to one process on the card
+# to P16_RTOL.
+P16_VO_STEPS, P16_VO_N = 3, 64
+P16_VO_POOLS = dict(N_s=8, N_val=8, N_u=16, armortized_bs=8)
+P16_VO_ARMS = ("energy", "constrain")
 # Every shape (nodes a side, B, dtype) the main paths launch K1 and K2 at:
 # the highres32 label solve (f32), its VJP (f64) and training labels (f64,
 # B=256); the VO constraint assembly (f32, B=128) and the energy arm (f64,
@@ -382,7 +400,8 @@ P16_UNEVEN = {
 # f64 and f32, (65,65,1) f64) and its vmap solves ((33,33,1024) f64 and
 # f32); phase 17's bf16 V-cycle on config 5's pool (its five levels in
 # bf16 at B=16,384, the outer matvec at (65,65,16384) f32) and its
-# BCE-encoded labels ((33,33,256) f64).  Phase 8
+# BCE-encoded labels ((33,33,256) f64); phase 16e's VO applies
+# ((65,65,64) f64 in one process, (65,65,32) f64 in each of two).  Phase 8
 # derives each shape's launches from the paths' iteration counts and holds
 # this list to them.
 MG_NODES = (65, 33, 17, 9, 5)
@@ -423,7 +442,9 @@ STENCIL_SHAPES = {
                             | {(33, 1, "float64"), (33, 1, "float32"),
                                (65, 1, "float64")}
                             | {(n, C5_SYSTEMS, "bfloat16")
-                               for n in MG_NODES},
+                               for n in MG_NODES}
+                            | {(MG_NODES[0], P16_VO_N, "float64"),
+                               (MG_NODES[0], P16_VO_N // 2, "float64")},
                             key=lambda s: (-s[0], -s[1], s[2])),
     "apply_stencil_sym": [(33, 1024, "float32"), (33, 1024, "float64")]}
 STENCIL_GRIDS = {"apply_stencil": 7, "apply_stencil_sym": 4}
@@ -677,6 +698,10 @@ class injected_draws:
         def reparametrize(generator, mean, logsigma):
             return mean + torch.exp(logsigma) * normal(logsigma)
 
+        def standard_normal(shape, like, generator=None):
+            return torch.as_tensor(rng.standard_normal(tuple(shape)),
+                                   dtype=like.dtype, device=like.device)
+
         def minibatch_indices(generator, num_data, batch_size,
                               device=None):
             return torch.as_tensor(rng.permutation(num_data)[:batch_size],
@@ -691,7 +716,7 @@ class injected_draws:
                         (variational, "sample_all_components",
                          sample_all_components),
                         (generative, "reparametrize", reparametrize),
-                        (components, "reparametrize", reparametrize),
+                        (components, "standard_normal", standard_normal),
                         (trainer, "minibatch_indices", minibatch_indices),
                         (codec, "dropout_mask", dropout_mask),
                         (virtual_observables, "sketch_normals",
@@ -2518,15 +2543,13 @@ def phase14_vo_configs(card, start_path, end_path, report_profile):
 
 class injected_analysis_draws(injected_draws):
     """``injected_draws`` plus the analyses' own standard normals (the
-    property map's and the ROM's reparametrised draws, the decodes'
-    noise), from the same numpy stream in call order."""
+    ROM's reparametrised draws and the decodes' noise), from the same
+    numpy stream in call order."""
 
     def __enter__(self):
         import torch
         from generative_physics_informed_pde_tpu_torch.inference import (
             analysis)
-        from generative_physics_informed_pde_tpu_torch.models import (
-            components)
 
         super().__enter__()
         rng = self.rng
@@ -2535,8 +2558,7 @@ class injected_analysis_draws(injected_draws):
             return torch.as_tensor(rng.standard_normal(tuple(shape)),
                                    dtype=like.dtype, device=like.device)
 
-        extra = ((components, "standard_normal", standard_normal),
-                 (analysis, "standard_normal", standard_normal))
+        extra = ((analysis, "standard_normal", standard_normal),)
         self.saved += [getattr(m, n) for m, n, _ in extra]
         self.targets += extra
         for m, n, f in extra:
@@ -2964,9 +2986,8 @@ def p16_trainer(dl, dlu, mesh, seed, n_mc=1, data=None, margs=None,
     in f64 (24 labeled fields: 16 supervised, 8 validation; 16 unlabeled,
     batch 8) with the changes ``data``, ``margs`` and ``trainer``, set up
     on ``mesh`` (None: unsharded)."""
-    import numpy as np
     from generative_physics_informed_pde_tpu_torch.training import (
-        CreateTrainerFromPermutation, TrainerParameters)
+        TrainerParameters)
 
     p = TrainerParameters()
     p.identifier = "highres32"
@@ -2979,6 +3000,17 @@ def p16_trainer(dl, dlu, mesh, seed, n_mc=1, data=None, margs=None,
     p.data.update(N_u=16, N_s=16, N_u_max=16, N_s_max=16, N_vo_max=0,
                   N_vo=0, N_val=8, armortized_bs=8, vo_spec={})
     p.data.update(data or {})
+    return p16_setup(p, dl, dlu, mesh)
+
+
+def p16_setup(p, dl, dlu, mesh):
+    """The trainer of the parameters ``p`` on the loaders ``dl`` (its
+    fields in order) and ``dlu`` on the card, set up on ``mesh`` (None:
+    unsharded)."""
+    import numpy as np
+    from generative_physics_informed_pde_tpu_torch.training import (
+        CreateTrainerFromPermutation)
+
     tr = CreateTrainerFromPermutation(
         p, permutation=np.arange(dl.N), permutation_u=np.arange(dlu.N),
         dl=dl, dlu=dlu, device="cuda")
@@ -3027,6 +3059,148 @@ def p16_uneven(meshes, X, Y, F, Xu):
                     f"{name}/generator": tr.generator.get_state().numpy(),
                     f"{name}/steps_per_s": np.asarray(rate)})
         del tr
+    return out
+
+
+def p16_vo_params(arm):
+    """``examples/torch_vo_ablation.py``'s ``arm`` (its ``_params``) in
+    f64, cut as phase 16e's constants say."""
+    sys.path.insert(0, str(ROOT / "examples"))
+    import torch_vo_ablation as abl
+
+    if abl.N_VO != P16_VO_N:
+        raise AssertionError(f"the ablation's N_vo is {abl.N_VO}")
+    n = P16_VO_POOLS
+    p = abl._params(P16_VO_STEPS, arm, n["N_s"])
+    p.margs["dtype"] = "float64"
+    p.seed = 17
+    p.scheduler = {"milestones": [50], "factor": 0.5}
+    p.data.update(N_u=n["N_u"], N_u_max=n["N_u"], N_val=n["N_val"],
+                  armortized_bs=n["armortized_bs"])
+    p.trainer.update(N_vo_holdoff=0, N_vo_update_interval=2)
+    return p
+
+
+def p16_vo_fields():
+    """Phase 16e's fields: the ablation's 'highres' fields (64^2, FFT,
+    correlation length 0.04; labeled key 0, unlabeled key 1) in its
+    supervised, VO, validation order, drawn on the card."""
+    from generative_physics_informed_pde_tpu_torch.data import DataLoader
+    from generative_physics_informed_pde_tpu_torch.fem import (
+        GaussianRandomField)
+
+    rf = GaussianRandomField.from_image(64, 64, 0.4, 0.8, 0.04,
+                                        method="fft")
+    n = P16_VO_POOLS
+    return (DataLoader.from_sampler(rf, n["N_s"] + P16_VO_N + n["N_val"],
+                                    key=0, device="cuda"),
+            DataLoader.from_sampler(rf, n["N_u"], key=1, device="cuda").X)
+
+
+def p16_vo(mesh, X, X_DG, Y, F, thetas, Xu):
+    """Phase 16e's runs (``P16_VO_ARMS``, ``p16_vo_params``) on the
+    labeled fields ``X`` (their DG0 fields ``X_DG``, labels ``Y``, ROM
+    forces ``F`` and boundary conditions ``thetas``) and the unlabeled
+    ``Xu``, on ``mesh`` (None: unsharded, one process).  Each VO refresh
+    is timed between synchronisations, its K1 launches counted and its
+    peak memory read, whole and above what the process held when the
+    refresh began (the refresh's own working set; the process that runs
+    the whole script holds the earlier phases' tensors too).  Returns
+    {arm/key: array}: the VO moments, q_z, parameters and ELBOs (whole),
+    the generators, the VO rows this process holds, and per refresh its
+    ms, K1 launches and peak GB (whole, above the start)."""
+    import numpy as np
+    import torch
+    from generative_physics_informed_pde_tpu_torch import fem, parallel
+    from generative_physics_informed_pde_tpu_torch.data import DataLoader
+    from generative_physics_informed_pde_tpu_torch.factories import (
+        ModelFactory)
+    from generative_physics_informed_pde_tpu_torch.ops import apply_stencil
+
+    phys = ModelFactory.FromIdentifier("highres").physics(device="cuda")
+
+    def whole(x):
+        x = x.detach()
+        return (x if mesh is None else parallel.gather_batch(x, mesh)) \
+            .cpu().numpy()
+
+    out = {}
+    for arm in P16_VO_ARMS:
+        bce = fem.BoundaryConditionEnsemble(phys["fom"].physics_id, thetas)
+        bce.register_function_space("fom", phys["fom"].grid)
+        bce.register_function_space("rom", phys["rom"].grid)
+        dlu = DataLoader(Xu)
+        dlu.lock_physics_assembly()
+        n0 = apply_stencil.launches
+        tr = p16_setup(p16_vo_params(arm), DataLoader(
+            X, X_DG=X_DG, Y=Y, BCE=bce, F_ROM_BC=F), dlu, mesh)
+        refreshes = []
+        refresh = tr.update_virtual_observables
+
+        def timed(step, resample=True):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            k, t0 = apply_stencil.launches, time.perf_counter()
+            refresh(step, resample)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            refreshes.append(((time.perf_counter() - t0) * 1e3,
+                              apply_stencil.launches - k, peak / 1e9,
+                              (peak - held) / 1e9))
+
+        tr.update_virtual_observables = timed
+        for _ in range(P16_VO_STEPS):
+            tr.step()
+        torch.cuda.synchronize()
+        ms, launches, peak, rise = (np.asarray(v) for v in zip(*refreshes))
+        params = torch.cat([t.detach().reshape(-1) for n, t in
+                            tr.model.named_parameters()
+                            if n.split(".", 1)[0] not in ("q_z", "q_X")])
+        per = tr.VO.num_iterations_per_update * (tr.VO.sampler.N_aux + 1) \
+            + 1 if arm == "energy" else sum(
+                smp.m + 1 for smp in tr.VO.sampler.samplers
+                if smp.__class__.__name__ != "FluxConstrainSampler")
+        out.update({f"{arm}/vo_mean": whole(tr.VO.mean),
+                    f"{arm}/vo_vars": whole(tr.VO.vars),
+                    f"{arm}/q": whole(tr.model.q_z["supervised"]["mean"]),
+                    f"{arm}/params": params.cpu().numpy(),
+                    f"{arm}/elbo": tr.elbos().numpy(),
+                    f"{arm}/generator": tr.generator.get_state().numpy(),
+                    f"{arm}/vo_generator":
+                        tr.vo_generator.get_state().numpy(),
+                    f"{arm}/vo_rows": np.asarray(tr.VO.mean.shape[0]),
+                    f"{arm}/refresh_ms": ms,
+                    f"{arm}/refresh_launches": launches,
+                    f"{arm}/refresh_peak_gb": peak,
+                    f"{arm}/refresh_rise_gb": rise,
+                    f"{arm}/per_assembly": np.asarray(per),
+                    f"{arm}/launches":
+                        np.asarray(apply_stencil.launches - n0)})
+        del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def p16_vo_derived(path, rec, rows):
+    """Phase 16e's K1 launches per shape, from a record of ``p16_vo``
+    that holds ``rows`` of the VO rows: the energy arm's applies on its
+    rows, the constrain arm's assemblies (one when it is built, one a
+    refresh) on all of them; each arm's count checked against them."""
+    out = []
+    for arm in P16_VO_ARMS:
+        per, n = int(rec[f"{arm}/per_assembly"]), len(
+            rec[f"{arm}/refresh_launches"])
+        count, B = (per * n, rows) if arm == "energy" else (
+            per * (n + 1), P16_VO_N)
+        if int(rec[f"{arm}/launches"]) != count or any(
+                int(k) != per for k in rec[f"{arm}/refresh_launches"]):
+            raise AssertionError(
+                f"{path} {arm}: K1 launched {int(rec[f'{arm}/launches'])} "
+                f"times ({rec[f'{arm}/refresh_launches'].tolist()} a "
+                f"refresh), {per} an update or assembly gives {count}")
+        out.append((path, "apply_stencil", MG_NODES[0], B, "float64",
+                    count))
     return out
 
 
@@ -3105,8 +3279,10 @@ def phase16_child(rank: int, world: int, init: str, out: str) -> int:
     --phase16-child RANK WORLD INIT_FILE OUT_DIR``): joins the group on
     the card (two processes on one card: gloo), runs ``p16_lifecycle`` on
     a hybrid ("dcn", "dp") mesh and writes its record to
-    ``OUT_DIR/rank{RANK}.json``, then phase 16d's ``p16_uneven`` on
-    ``OUT_DIR/uneven.npz``, written to ``OUT_DIR/uneven_rank{RANK}.npz``."""
+    ``OUT_DIR/rank{RANK}.json``, then phase 16d's ``p16_uneven`` and
+    phase 16e's ``p16_vo`` on ``OUT_DIR/uneven.npz`` and
+    ``OUT_DIR/vo.npz``, written to ``OUT_DIR/uneven_rank{RANK}.npz`` and
+    ``OUT_DIR/vo_rank{RANK}.npz``."""
     import numpy as np
     import torch
     from generative_physics_informed_pde_tpu_torch import parallel
@@ -3131,6 +3307,10 @@ def phase16_child(rank: int, world: int, init: str, out: str) -> int:
     with np.load(Path(out) / "uneven.npz") as f:
         uneven = p16_uneven(meshes, f["X"], f["Y"], f["F"], f["Xu"])
     np.savez(Path(out) / f"uneven_rank{rank}.npz", **uneven)
+    # (e): the virtual observables split over the processes
+    with np.load(Path(out) / "vo.npz") as f:
+        vo = p16_vo(meshes["dp"], **{k: f[k] for k in f.files})
+    np.savez(Path(out) / f"vo_rank{rank}.npz", **vo)
     dist.destroy_process_group()
     print(f"[phase 16b process {rank}] ok", flush=True)
     return 0
@@ -3148,7 +3328,13 @@ def phase16_sharded(card, dl, dlu, start_path, end_path, add_path):
     P16_CHILD_TIMEOUT fails the phase.  (d) The same two processes then
     train the batches that do not divide by the shard count
     (``P16_UNEVEN``, ``p16_uneven``) on labels solved once here on K1,
-    each held to one process on the card to P16_RTOL.  (c) The three arms of
+    each held to one process on the card to P16_RTOL.  (e) Then they
+    train the VO ablation's energy and constrain arms at their published
+    widths in f64 (``P16_VO_ARMS``, ``p16_vo_params``, ``p16_vo``) on
+    64^2 fields labeled once here on K1, each process refreshing its rows
+    of the VO fields, each held to one process on the card to P16_RTOL,
+    the VO rows, K1 launches, refresh ms and peak GB of every process
+    printed.  (c) The three arms of
     ``examples/torch_vo_ablation.py`` through its ``main`` and
     ``run_arm`` at the published 64^2 widths and pools, cut (see the
     constants), results written to a temporary directory.  Returns
@@ -3164,6 +3350,8 @@ def phase16_sharded(card, dl, dlu, start_path, end_path, add_path):
     from generative_physics_informed_pde_tpu_torch.constraints import (
         FluxConstrainSampler)
     from generative_physics_informed_pde_tpu_torch.data import DataLoader
+    from generative_physics_informed_pde_tpu_torch.factories import (
+        ModelFactory)
     from generative_physics_informed_pde_tpu_torch.training import (
         CreateTrainer, Trainer)
 
@@ -3230,6 +3418,21 @@ def phase16_sharded(card, dl, dlu, start_path, end_path, add_path):
                     for k in dl_u.label_iterations]
         uneven_data = dict(X=X16, Y=dl_u.Y, F=dl_u.F_ROM_BC, Xu=Xu16)
         np.savez(os.path.join(tmp, "uneven.npz"), **uneven_data)
+        # (e)'s fields, labeled once here on K1 under the V-cycle
+        dl_vo, Xu_vo = p16_vo_fields()
+        phys_vo = ModelFactory.FromIdentifier("highres").physics(
+            device="cuda")
+        start_path()
+        dl_vo.assemble(phys_vo)
+        end_path("16e labels")
+        mg = phys_vo["fom"]._batched_solver.mg
+        derived += [("16e labels", "apply_stencil", n, dl_vo.label_batch,
+                     "float64", c) for k in dl_vo.label_iterations
+                    for n, c in zip(MG_NODES, mg_by_level(mg, k))]
+        vo_data = dict(X=dl_vo.X, X_DG=dl_vo.X_DG, Y=dl_vo.Y,
+                       F=dl_vo.F_ROM_BC, thetas=dl_vo.BCE.thetas, Xu=Xu_vo)
+        np.savez(os.path.join(tmp, "vo.npz"), **vo_data)
+        del dl_vo, phys_vo
         t0 = time.perf_counter()
         procs = [subprocess.Popen(
             [sys.executable, str(Path(__file__).resolve()),
@@ -3258,10 +3461,15 @@ def phase16_sharded(card, dl, dlu, start_path, end_path, add_path):
                 for r in range(2)]
         kids_uneven = [dict(np.load(Path(tmp, f"uneven_rank{r}.npz")))
                        for r in range(2)]
+        kids_vo = [dict(np.load(Path(tmp, f"vo_rank{r}.npz")))
+                   for r in range(2)]
         start_path()
         one = p16_lifecycle(None, tmp, X16, Xu16)
         end_path("16b one process")
         one_uneven = p16_uneven(None, **uneven_data)
+        start_path()
+        one_vo = p16_vo(None, **vo_data)
+        end_path("16e one process")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for path, r in [("16b one process", one)] + [
@@ -3332,6 +3540,58 @@ def phase16_sharded(card, dl, dlu, start_path, end_path, add_path):
         rec["uneven"][name] = dict(errors=e, steps_per_s=rates,
                                    one_process_steps_per_s=one_rate)
     say(f"  (d) the uneven runs' largest difference {worst:.3e}")
+
+    # ------------------ (e) the virtual observables split, 2 processes
+    derived += p16_vo_derived("16e one process", one_vo, P16_VO_N)
+    for i, k in enumerate(kids_vo):
+        path = f"16e process {i}"
+        derived += p16_vo_derived(path, k, P16_VO_N // 2)
+        add_path(path, {"apply_stencil": sum(
+            int(k[f"{arm}/launches"]) for arm in P16_VO_ARMS)})
+    rec["vo"] = {}
+    for arm in P16_VO_ARMS:
+        e = {}
+        for key in ("vo_mean", "vo_vars", "q", "params", "elbo"):
+            ref = one_vo[f"{arm}/{key}"]
+            scale = max(np.abs(ref).max(), 1e-300)
+            e[key] = max(float(np.abs(k[f"{arm}/{key}"] - ref).max()
+                               / scale) for k in kids_vo)
+        gen = all(np.array_equal(k[f"{arm}/{g}"], one_vo[f"{arm}/{g}"])
+                  for k in kids_vo for g in ("generator", "vo_generator"))
+        rows = [int(k[f"{arm}/vo_rows"]) for k in kids_vo]
+        keys = (("ms", "refresh_ms"), ("launches", "refresh_launches"),
+                ("peak_gb", "refresh_peak_gb"),
+                ("rise_gb", "refresh_rise_gb"))
+        per = {name: [k[f"{arm}/{key}"].tolist() for k in kids_vo]
+               for name, key in keys}
+        one_per = {name: one_vo[f"{arm}/{key}"].tolist()
+                   for name, key in keys}
+        batch = (P16_VO_N // 2, P16_VO_N) if arm == "energy" else (
+            P16_VO_N, P16_VO_N)
+        say(f"  (e) {arm} VO, f64, {P16_VO_STEPS} steps, "
+            f"{len(one_per['ms'])} refreshes: VO rows per process {rows} "
+            f"of {P16_VO_N} (one process {int(one_vo[f'{arm}/vo_rows'])});"
+            f" K1 launches per refresh per process {per['launches']} at B "
+            f"= {batch[0]} (one process {one_per['launches']} at B = "
+            f"{batch[1]})")
+        say(f"      refresh ms per process "
+            f"{[[round(x, 2) for x in v] for v in per['ms']]} (one process "
+            f"{[round(x, 2) for x in one_per['ms']]}); peak GB in a refresh "
+            f"per process {[[round(x, 4) for x in v] for v in per['peak_gb']]}"
+            f" (one process {[round(x, 4) for x in one_per['peak_gb']]}), "
+            "of it above what the process held as the refresh began "
+            f"{[[round(x, 5) for x in v] for v in per['rise_gb']]} (one "
+            f"process {[round(x, 5) for x in one_per['rise_gb']]})")
+        say(f"      against one process max rel VO mean {e['vo_mean']:.3e}, "
+            f"vars {e['vo_vars']:.3e}, q_z {e['q']:.3e}, parameters "
+            f"{e['params']:.3e}, ELBOs {e['elbo']:.3e} (bound "
+            f"{P16_RTOL:g}); generators equal: {gen}")
+        if not (max(e.values()) <= P16_RTOL and gen
+                and rows == [P16_VO_N // 2] * 2):
+            raise AssertionError(f"the {arm} VO on two processes differs "
+                                 "from one")
+        rec["vo"][arm] = dict(errors=e, rows=rows, batch=batch,
+                              refresh=per, one_process=one_per)
 
     # -------------------------------------------- (c) the VO ablation
     sys.path.insert(0, str(ROOT / "examples"))

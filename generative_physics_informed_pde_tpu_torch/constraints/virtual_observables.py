@@ -34,11 +34,20 @@ module functions :func:`sketch_normals` (Gaussian sketches) and
 :func:`rbf_uniforms` (RBF centres, also the energy arm's test functions),
 which tests replace to inject draws.
 
-In sharded training the ensemble is whole on every process, like the
-network weights: the trainer feeds every refresh and energy update the
-gathered posterior, every process runs it on all the VO fields with the
-same generator (the temperature schedule advances alike), and each
-process's ELBO term reads its own rows of the result.
+In sharded training (``shard``, set by ``Trainer.setup(mesh=...)``) the
+ensemble lies as the JAX package's layout places it: the moments
+(``mean``, ``vars``, the fallback mask) and the energy arm's iterate hold
+this process's rows of the mesh's batch axes, as the VO data and
+posteriors do, and every process conditions or iterates its own rows
+only.  What the JAX package keeps whole stays whole on every process: the
+query points, the constrain arm's test functions and their assembly
+(``Gamma``, ``alpha``: drawn and assembled whole, which keeps the draws in
+step), its precision hyperprior (``_prec_beta``, ``vo_variances``: its
+sums over the samples are summed over the processes) and the energy arm's
+``K_diag``.  Every draw over the samples is made whole and cut, so the
+generators stay equal to the unsharded run's.  The failure count and its
+warning are global sums; ``GPIPDE_VO_DUMP`` is written by process 0 from
+the gathered inputs.
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ import torch
 
 from ..fem.assembly import apply_batch_last
 from ..fem.physics import LinearEllipticPhysics
+from ..parallel.distributed import all_reduce_sum
 from .flux import FluxConstraintOperator
 
 
@@ -356,9 +366,87 @@ def gamma_precision_beta(Gamma, alpha, mean, vars_, weights=None):
     return 0.5 * torch.sum(per_sample, dim=0)
 
 
-class VirtualObservablesEnsemble:
+class _RowsOfEnsemble:
+    """The ensembles' sharded layout (see the module docstring).
+    ``split``: this process's rows of the N samples (a
+    ``parallel.layout.RowSplit``; None unsharded), ``_layout`` the
+    training layout that gathers them."""
+
+    split = None
+    _layout = None
+    _qpe_local = None
+    _MOMENTS = ("_mean", "_vars")
+
+    def shard(self, layout) -> None:
+        """Hold this process's rows of ``layout`` (a
+        ``parallel.layout.TrainLayout``; None: all rows): the moments are
+        cut from the whole ones (gathered first if already sharded)."""
+        whole = self.moments()
+        self._layout = layout
+        self.split = None if layout is None else layout.rows(self.N)
+        self._qpe_local = None
+        self.load_moments(whole)
+
+    def _rows(self, x):
+        """This process's rows of ``x``, a tensor of all N samples."""
+        return x if self.split is None or x is None else self.split.take(x)
+
+    def _whole(self, x):
+        """All N rows of ``x``, a tensor of this process's rows."""
+        if self.split is None or x is None:
+            return x
+        if x.dtype == torch.bool:  # gathered as bytes
+            return self._layout.gather(x.to(torch.uint8)).bool()
+        return self._layout.gather(x)
+
+    def _sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the processes holding the other rows."""
+        if self.split is None or self.split.group is None:
+            return x
+        return all_reduce_sum(x.contiguous(), self.split.group)
+
+    @property
+    def qpe_local(self) -> "QuerryPointEnsemble":
+        """The query points of this process's rows."""
+        if self.split is None:
+            return self.qpe
+        if self._qpe_local is None:
+            self._qpe_local = QuerryPointEnsemble(
+                self.qpe.physics, self._rows(self.qpe.X_DG),
+                self._rows(self.qpe.bc_values))
+        return self._qpe_local
+
+    def moments(self) -> dict:
+        """The state a checkpoint keeps, whole (gathered when sharded;
+        the gathers are collectives: every process calls this)."""
+        out = {k.lstrip("_"): self._whole(getattr(self, k))
+               for k in self._MOMENTS}
+        out.update(self._whole_state())
+        return out
+
+    def _whole_state(self) -> dict:
+        return {}
+
+    def load_moments(self, state: dict) -> None:
+        """Set the state :meth:`moments` returned, cut to this process's
+        rows, on the ensemble's device."""
+        for k in self._MOMENTS:
+            v = state.get(k.lstrip("_"))
+            if v is not None:
+                v = self._rows(v.to(self.device))
+                v = v if v.dtype == torch.bool else v.to(self.dtype)
+            setattr(self, k, v)
+        self._load_whole_state(state)
+
+    def _load_whole_state(self, state: dict) -> None:
+        pass
+
+
+class VirtualObservablesEnsemble(_RowsOfEnsemble):
     """Constraint-based VO ensemble with Gamma-hyperprior precision
     learning."""
+
+    _MOMENTS = ("_mean", "_vars", "_fallback_mask")
 
     ALPHA_0 = 1e-6
     BETA_0 = 1e-6
@@ -433,10 +521,22 @@ class VirtualObservablesEnsemble:
         return torch.where(self.infinite_precision_mask,
                            torch.zeros_like(mean_vars), mean_vars)
 
+    def _whole_state(self) -> dict:
+        return {"prec_alpha": self._prec_alpha, "prec_beta": self._prec_beta,
+                "vo_variances": self.vo_variances}
+
+    def _load_whole_state(self, state: dict) -> None:
+        if "prec_beta" in state:
+            self._prec_alpha = float(state["prec_alpha"])
+            self._prec_beta = state["prec_beta"].to(self.device, self.dtype)
+            self.vo_variances = state["vo_variances"].to(self.device,
+                                                         self.dtype)
+
     # ---------------------------------------------------------- updates
     def resample(self, generator: torch.Generator, force: bool = False):
         """Redraw the non-constant test functions from ``generator`` (on
-        the ensemble's device) and reassemble Gamma and alpha."""
+        the ensemble's device) and reassemble Gamma and alpha, for all N
+        samples (sharded too)."""
         if self.sampler.is_constant and not force and self._Gamma is not None:
             return
         Gamma, alpha = self.sampler.sample(self.qpe, generator)
@@ -445,25 +545,29 @@ class VirtualObservablesEnsemble:
 
     def update_vo_precision(self, iteration: int, writer=None):
         """The Gamma-hyperprior update from the previous conditioned state;
-        a no-op before the first conditioning."""
+        a no-op before the first conditioning.  Sharded, the sums over
+        the samples run over every process's rows."""
         if self.fixed_precision or self._mean is None:
             return
         fb = self._fallback_mask
-        if fb is not None and bool(fb.all()):
+        Gamma, alpha = self._rows(self._Gamma), self._rows(self._alpha)
+        n_clean = self.N
+        if fb is not None:
+            n_clean = int(self._sum((~fb).sum()))
+        if n_clean == 0:
             # no clean sample: keep the previous beta rather than collapse
             # vo_variances to ~BETA_0/ALPHA_0 from an empty sum
             return
-        if fb is not None and bool(fb.any()):
+        if n_clean < self.N:
             # contained-failure stand-ins would inflate beta ensemble-wide
             w = (~fb).to(self._mean.dtype)
-            beta = gamma_precision_beta(self._Gamma, self._alpha,
-                                        self._mean, self._vars, w)
-            self._prec_alpha = 0.5 * float(w.sum()) + self.ALPHA_0
+            beta = gamma_precision_beta(Gamma, alpha, self._mean,
+                                        self._vars, w)
         else:
-            beta = gamma_precision_beta(self._Gamma, self._alpha,
-                                        self._mean, self._vars)
-            self._prec_alpha = 0.5 * self.N + self.ALPHA_0
-        self._prec_beta = beta + self.BETA_0
+            beta = gamma_precision_beta(Gamma, alpha, self._mean,
+                                        self._vars)
+        self._prec_alpha = 0.5 * n_clean + self.ALPHA_0
+        self._prec_beta = self._sum(beta) + self.BETA_0
         self.vo_variances = self._mean_vo_variances()
         if writer is not None:
             writer.add_scalar("Monitor/Mean_VO_variances",
@@ -472,7 +576,7 @@ class VirtualObservablesEnsemble:
 
     def update(self, G, PREC, iteration: int, writer=None):
         """Condition on the constraints given the model's predictive
-        moments G, PREC (N, d)."""
+        moments G, PREC (N, d; sharded: this process's rows)."""
         self.update_vo_precision(iteration, writer)
         # relative jitter on the equilibrated Schur system
         eps = 1e-12 if self.dtype == torch.float64 else 1e-6
@@ -481,30 +585,41 @@ class VirtualObservablesEnsemble:
         PREC = PREC.to(self.dtype)
         if self.prior_precision_factor != 1.0:
             PREC = PREC * self.prior_precision_factor
-        mean, vars_ = condition_ensemble(self._Gamma, self._alpha, G, PREC,
+        mean, vars_ = condition_ensemble(self._rows(self._Gamma),
+                                         self._rows(self._alpha), G, PREC,
                                          vo_var, eps)
         # failure containment: a per-sample breakdown (non-finite output or
         # a non-finite model prior) must not poison the ensemble through
         # the next precision update; fall back for the failed samples
         bad = ~(torch.isfinite(mean).all(dim=1)
                 & torch.isfinite(vars_).all(dim=1))
-        n_bad = int(bad.sum())  # the one host sync of a refresh
+        # the one host sync of a refresh: the failures over all processes
+        n_bad = int(self._sum(bad.sum()))
         if n_bad:
             bad_in = ~(torch.isfinite(G).all(dim=1)
                        & torch.isfinite(PREC).all(dim=1))
             warnings.warn(
                 f"VO conditioning produced non-finite moments for {n_bad}/"
                 f"{self.N} samples at iteration {iteration} "
-                f"({int(bad_in.sum())} had a non-finite model prior); "
-                "falling back to the prior/previous moments for those "
-                "samples (set GPIPDE_VO_DUMP=<path> to capture the inputs)")
-            dump = os.environ.get("GPIPDE_VO_DUMP")
-            if dump:
-                np.savez(dump, Gamma=self._Gamma.cpu().numpy(),
-                         alpha=self._alpha.cpu().numpy(),
-                         G=G.cpu().numpy(), PREC=PREC.cpu().numpy(),
-                         vo_var=vo_var.cpu().numpy(),
-                         bad=bad.cpu().numpy(), iteration=iteration)
+                f"({int(self._sum(bad_in.sum()))} had a non-finite model "
+                "prior); falling back to the prior/previous moments for "
+                "those samples (set GPIPDE_VO_DUMP=<path> to capture the "
+                "inputs)")
+            # process 0's setting decides for every process, which all
+            # take part in the gathers
+            dump = os.environ.get("GPIPDE_VO_DUMP") \
+                if self._layout is None or self._layout.lead else None
+            if int(self._sum(torch.tensor(int(bool(dump)),
+                                          device=G.device))):
+                whole = [self._whole(x) for x in (G, PREC, bad)]
+                if dump:
+                    np.savez(dump, Gamma=self._Gamma.cpu().numpy(),
+                             alpha=self._alpha.cpu().numpy(),
+                             G=whole[0].cpu().numpy(),
+                             PREC=whole[1].cpu().numpy(),
+                             vo_var=vo_var.cpu().numpy(),
+                             bad=whole[2].cpu().numpy(),
+                             iteration=iteration)
             # best finite stand-in per sample: the prior moments, unless
             # the prior itself is non-finite and previous moments exist
             fb_mean, fb_vars = G, 1.0 / PREC
@@ -565,11 +680,12 @@ class ExponentialTemperatureSchedule(TemperatureSchedule):
         return self.T_init * np.exp(-self._lmbda * t)
 
 
-class EnergyVirtualObservablesEnsemble:
+class EnergyVirtualObservablesEnsemble(_RowsOfEnsemble):
     """Energy-minimisation VOs: minimise ``(1/T)(0.5 y^T K y - f^T y) +
     0.5 ||y - g||^2_prec`` by randomized-subspace iteration, batched over
     the ensemble; each iteration applies ``K_ff`` to its s test columns and
-    to the iterate (s + 1 K1 launches over the N fields)."""
+    to the iterate (s + 1 K1 launches over the N fields, sharded over this
+    process's rows)."""
 
     def __init__(self, qpe: QuerryPointEnsemble,
                  num_iterations_per_update: int,
@@ -591,6 +707,10 @@ class EnergyVirtualObservablesEnsemble:
     @property
     def N(self):
         return self.qpe.N
+
+    @property
+    def device(self) -> torch.device:
+        return self.qpe.device
 
     @property
     def dim_out(self):
@@ -653,20 +773,20 @@ class EnergyVirtualObservablesEnsemble:
         """``num_iterations_per_update`` subspace steps from the current
         mean, their test functions drawn from a generator seeded with 101 +
         iteration (the reference folds its fixed key 101 with the
-        iteration)."""
+        iteration).  G, PREC (N, d; sharded: this process's rows)."""
         self.update_vo_precision(iteration, writer)
         dt = self.dtype
         inv_T = torch.tensor(1.0 / self.temperature, dtype=dt,
                              device=self.qpe.device)
         G = G.to(dt)
         PREC = PREC.to(dt)
-        self._vars = 1.0 / (PREC + inv_T * self._K_diag)
+        self._vars = 1.0 / (PREC + inv_T * self._rows(self._K_diag))
         generator = torch.Generator(self.qpe.device).manual_seed(
             101 + iteration)
         self._mean = self._iterate(self._mean, G, PREC, inv_T, generator)
 
     def _iterate(self, mean, G, PREC, inv_T, generator):
-        qpe, dt = self.qpe, self.dtype
+        qpe, dt = self.qpe_local, self.dtype
         b = inv_T * qpe.f_eff().to(dt) + PREC * G
         coefs = qpe.batch_last_coefficients(dt)
 
@@ -676,7 +796,10 @@ class EnergyVirtualObservablesEnsemble:
                                                                  V_cols)
 
         for _ in range(self.num_iterations_per_update):
-            V = self.sampler.sample_V(generator, qpe.N, dt, qpe.device)
+            # the test functions of all N samples (the generator advances
+            # alike on every process), this process's rows kept
+            V = self._rows(self.sampler.sample_V(generator, self.N, dt,
+                                                 qpe.device))
             AV = apply_A(V.permute(2, 0, 1)).permute(1, 2, 0)  # (N, d, s)
             Vt = V.transpose(-1, -2)
             Msub = Vt @ AV

@@ -7,6 +7,13 @@ dataset.  Above an element budget the Monte-Carlo axis streams in equal
 chunks (``_mc_chunk``), as the reference's does: the working set stays
 bounded at 256^2 and 512^2, and the sample count is rounded up to fill the
 chunks, so the metrics average over the reference's number of samples.
+
+In sharded training an analysis holds this process's rows of its dataset
+and of the posterior it is given (``split``, a
+``parallel.layout.RowSplit``), as the JAX package's row-sharded analyses
+compute: every draw is made for the whole dataset and cut, the chunk plan
+is the whole dataset's, and the sums behind rel-L2, R^2 and the logscore
+run over the processes, so every process records the one-process values.
 """
 
 from __future__ import annotations
@@ -18,9 +25,9 @@ from typing import Dict, Optional
 import torch
 
 from ..models import components
+from ..parallel.layout import RowSplit
 from . import variational as va
-from .likelihoods import (coefficient_of_determination, predictive_logscore,
-                          relative_error, standard_normal)
+from .likelihoods import predictive_logscore, relative_error, standard_normal
 
 
 # Largest Monte-Carlo block, in elements of the N x S_chunk x dim working
@@ -98,20 +105,50 @@ class DataPair:
         return self.value[-1]
 
 
-def y_metrics(y_mean, y_std, Y) -> dict:
-    """relerr_y (mean per-row relative L2), r2_y, logscore_y."""
+def _normals(shape, like, generator, split=None):
+    """Standard normals of ``shape`` (rows first); with ``split`` (this
+    process's rows of a sharded batch), drawn for all ``split.n`` rows and
+    the split's rows kept."""
+    split = split or RowSplit.whole(shape[0])
+    return split.take(standard_normal((split.n,) + tuple(shape[1:]), like,
+                                      generator))
+
+
+def _dataset_sums(split, *per_row):
+    """Each (rows, ...) tensor of ``per_row`` summed over the rows of the
+    dataset: over the rows it holds, then, with ``split`` (sharded: they
+    are this process's), over the processes, in one reduction."""
+    sums = [v.sum(0) for v in per_row]
+    if split is None:
+        return sums
+    total = split.sum(torch.cat([v.reshape(-1) for v in sums]))
+    return [t.view_as(v) for t, v in
+            zip(total.split([v.numel() for v in sums]), sums)]
+
+
+def y_metrics(y_mean, y_std, Y, split=None) -> dict:
+    """relerr_y (mean per-row relative L2), r2_y, logscore_y; ``split``:
+    the rows are this process's of a sharded dataset, whose metrics every
+    process gets (R^2 takes the whole dataset's mean of Y: two sums over
+    the processes)."""
     Y = Y.to(y_mean.dtype)
-    return {"relerr_y": relative_error(y_mean, Y).mean(),
-            "r2_y": coefficient_of_determination(y_mean, Y),
-            "logscore_y": predictive_logscore(Y, y_mean, y_std).mean(),
-            "y_mean": y_mean, "y_std": y_std}
+    n = Y.shape[0] if split is None else split.n
+    relerr, logscore, Y_sum, ss_res = _dataset_sums(
+        split, relative_error(y_mean, Y),
+        predictive_logscore(Y, y_mean, y_std), Y, (Y - y_mean) ** 2)
+    (ss_tot,) = _dataset_sums(split, (Y - Y_sum / n) ** 2)
+    return {"relerr_y": relerr / n, "r2_y": torch.mean(1.0 - ss_res / ss_tot),
+            "logscore_y": logscore / n, "y_mean": y_mean, "y_std": y_std}
 
 
-def x_metrics(x_mean, x_std, X) -> dict:
-    """relerr_x and logscore_x of flattened field reconstructions."""
+def x_metrics(x_mean, x_std, X, split=None) -> dict:
+    """relerr_x and logscore_x of flattened field reconstructions;
+    ``split`` as :func:`y_metrics`'s."""
     X = X.reshape(X.shape[0], -1).to(x_mean.dtype)
-    return {"relerr_x": relative_error(x_mean, X).mean(),
-            "logscore_x": predictive_logscore(X, x_mean, x_std).mean()}
+    n = X.shape[0] if split is None else split.n
+    relerr, logscore = _dataset_sums(split, relative_error(x_mean, X),
+                                     predictive_logscore(X, x_mean, x_std))
+    return {"relerr_x": relerr / n, "logscore_x": logscore / n}
 
 
 class Analysis:
@@ -119,9 +156,11 @@ class Analysis:
     the GenerativeModel, ``data`` holds 'X', 'Y', 'F_ROM_BC'."""
 
     def __init__(self, model, data: Dict[str, torch.Tensor],
-                 label: str = "validation", writer=None):
+                 label: str = "validation", writer=None, split=None):
         self.model = model
         self.data = data
+        # sharded: ``data`` and the posteriors given hold these rows
+        self.split = split
         self.label = label
         self.writer = writer
         self.series = {
@@ -131,6 +170,13 @@ class Analysis:
         # ("y" or "x", n_monte_carlo) -> (chunk, n_chunks) of the last
         # evaluation: its metrics averaged chunk * n_chunks samples
         self.mc_chunks = {}
+
+    @property
+    def n(self) -> int:
+        """The rows of the dataset (of which ``data`` may hold this
+        process's)."""
+        return self.data["X"].shape[0] if self.split is None \
+            else self.split.n
 
     @classmethod
     def from_encoder(cls, model, data: Dict[str, torch.Tensor], **kw):
@@ -145,7 +191,9 @@ class Analysis:
                             index: Optional[int] = None, F=None):
         """(N, S, dim_y) samples: z ~ q -> gp -> g, each reparametrised;
         with ``index`` the (S, dim_y) samples of that datapoint alone.
-        ``F``: the ROM forces (N, d_rom), default the instance data's."""
+        ``F``: the ROM forces (N, d_rom), default the instance data's.
+        With a ``split`` the rows of ``q`` and ``F`` are this process's
+        and the draws are made for the whole dataset and cut."""
         F_ = self.data["F_ROM_BC"] if F is None else F
         if index is not None:
             Zs = va.sample_component(q, index, generator, n_monte_carlo)
@@ -155,14 +203,17 @@ class Analysis:
                 Xs, F_[index][None, :].expand(n_monte_carlo, F_.shape[-1]))
             eps = standard_normal(mean.shape, mean, generator)
             return mean + torch.exp(logsigmas) * eps
-        Zs = va.sample_all_components(q, generator, n_monte_carlo)
+        split = self.split
+        mc = split and split.repeat(n_monte_carlo)  # None: all rows
+        Zs = va.sample_all_components_rows(q, generator, n_monte_carlo,
+                                           split)
         N = Zs.shape[0]
         gp_out = self.model.apply_gp(Zs.reshape(-1, Zs.shape[-1]))
-        Xs = components.propagate_gp_samples(gp_out, generator)
+        Xs = components.propagate_gp_samples(gp_out, generator, split=mc)
         F_rep = F_[:, None, :].expand(N, n_monte_carlo, F_.shape[-1])
         mean, logsigmas = self.model.apply_g(
             Xs, F_rep.reshape(N * n_monte_carlo, -1))
-        eps = standard_normal(mean.shape, mean, generator)
+        eps = _normals(mean.shape, mean, generator, mc)
         return (mean + torch.exp(logsigmas) * eps).reshape(
             N, n_monte_carlo, -1)
 
@@ -188,8 +239,8 @@ class Analysis:
         Y = self.data["Y"]
         y_mean, y_std, self.mc_chunks["y", n_monte_carlo] = _moments(
             lambda S: self.sample_predictive_y(q, generator, S),
-            n_monte_carlo, Y.shape[0] * Y.shape[-1], _EVAL_ELEMENT_BUDGET)
-        out = y_metrics(y_mean, y_std, Y)
+            n_monte_carlo, self.n * Y.shape[-1], _EVAL_ELEMENT_BUDGET)
+        out = y_metrics(y_mean, y_std, Y, self.split)
         if iteration is None:
             return (float(out["logscore_y"]), float(out["r2_y"]),
                     float(out["relerr_y"]))
@@ -200,20 +251,23 @@ class Analysis:
     @torch.no_grad()
     def eval_all_x(self, q, generator, n_monte_carlo: int,
                    iteration: Optional[int] = None) -> dict:
-        """x metrics of eval-mode decodes of q's samples."""
+        """x metrics of eval-mode decodes of q's samples (with a
+        ``split``, of this process's rows, reduced as the y metrics)."""
         X = self.data["X"]
         N, dim_x = X.shape[0], prod(X.shape[1:])
+        split = self.split
 
         def draw(S):
-            Zs = va.sample_all_components(q, generator, S)
+            Zs = va.sample_all_components_rows(q, generator, S, split)
             mean, logsigma = self.model.apply_decoder(
                 Zs.reshape(N * S, -1), train=False)
-            eps = standard_normal(mean.shape, mean, generator)
+            eps = _normals(mean.shape, mean, generator,
+                           split and split.repeat(S))
             return (mean + torch.exp(logsigma) * eps).reshape(N, S, dim_x)
 
         x_mean, x_std, self.mc_chunks["x", n_monte_carlo] = _moments(
-            draw, n_monte_carlo, N * dim_x, _EVAL_ELEMENT_BUDGET // 8)
-        out = x_metrics(x_mean, x_std, X)
+            draw, n_monte_carlo, self.n * dim_x, _EVAL_ELEMENT_BUDGET // 8)
+        out = x_metrics(x_mean, x_std, X, split)
         if iteration is not None:
             for k in ("relerr_x", "logscore_x"):
                 self.series[k].append(iteration, out[k])

@@ -66,9 +66,11 @@ def sample_all_components(params, generator,
 
 
 def sample_all_components_rows(params, generator, batch_size: int,
-                               split) -> torch.Tensor:
+                               split=None) -> torch.Tensor:
     """:func:`sample_all_components` of a block of rows ``split`` of the
-    whole batch."""
+    whole batch (None: all of it, :func:`sample_all_components` itself)."""
+    if split is None:
+        return sample_all_components(params, generator, batch_size)
     mean = params["mean"][:, None, :]
     logsigma = params["logsigma"][:, None, :]
     eps = split.take(standard_normal((split.n, batch_size, mean.shape[-1]),

@@ -18,6 +18,7 @@ from torch import nn
 
 from ..fem.solvers import rom_solve, stiffness_from_tensor
 from ..inference.likelihoods import reparametrize, standard_normal
+from ..parallel.layout import RowSplit
 from .mlp import architecture_from_linear_decay
 
 
@@ -57,11 +58,16 @@ class EffectivePropertyMap(nn.Module):
         return x, self.logsigmas_X.to(x.dtype).expand_as(x)
 
 
-def propagate_gp_samples(gp_out, generator=None):
-    """Reparameterised sample through the effective-property map."""
+def propagate_gp_samples(gp_out, generator=None, split=None):
+    """Reparameterised sample through the effective-property map (of any
+    (mean, logsigmas) pair); ``split`` (a ``parallel.layout.RowSplit``):
+    ``gp_out`` holds these rows of a sharded batch, the normals are drawn
+    for all of its rows and cut."""
     if isinstance(gp_out, tuple):
         mean, logsigmas = gp_out
-        eps = standard_normal(logsigmas.shape, mean, generator)
+        split = split or RowSplit.whole(logsigmas.shape[0])
+        eps = split.take(standard_normal(
+            (split.n,) + tuple(logsigmas.shape[1:]), mean, generator))
         return mean + torch.exp(logsigmas) * eps
     return gp_out
 

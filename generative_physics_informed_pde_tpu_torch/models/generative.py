@@ -242,13 +242,9 @@ class GenerativeModel(nn.Module):
         or one draw per datapoint; under ``mc_sharding`` this process's
         block of the rows of its datapoints."""
         if self.n_mc > 1:
-            split = self._block(q["mean"].shape[0])
-            if split is None:
-                return va.sample_all_components(
-                    q, generator, self.n_mc).reshape(-1, q["mean"].shape[-1])
             Z = va.sample_all_components_rows(
-                q, generator, self.n_mc, split).reshape(
-                    -1, q["mean"].shape[-1])
+                q, generator, self.n_mc, self._block(
+                    q["mean"].shape[0])).reshape(-1, q["mean"].shape[-1])
             if self.mc_sharding is not None:
                 Z = self.layout.replica_block(Z)
             return Z
@@ -481,12 +477,12 @@ class GenerativeModel(nn.Module):
 
     def _vo_y_sample(self, vo_mean, vo_logsigma, generator):
         """One draw of y per VO datapoint from the VO posterior, whose
-        moments every process holds whole: drawn whole, this process's
-        rows kept."""
+        moments hold this process's rows, as the VO data and posteriors
+        do: the normals drawn whole, this process's rows kept."""
         dt = self.q_z["vo"]["mean"].dtype
-        y = reparametrize(generator, vo_mean.to(dt), vo_logsigma.to(dt))
-        split = self._block(self.q_z["vo"]["mean"].shape[0])
-        return y if split is None else split.take(y)
+        return self._reparametrize(generator, vo_mean.to(dt),
+                                   vo_logsigma.to(dt),
+                                   self._block(vo_mean.shape[0]))
 
     def _fused_decode(self, data, generator, *, vo_state, vo_holdoff: bool,
                       train: bool) -> dict:
@@ -556,7 +552,11 @@ class GenerativeModel(nn.Module):
         """Monte-Carlo push of q through gp o g for every VO sample at once
         -> (Y_mean, Y_std), each (N_vo, dim_y).  ``q``: the VO posterior
         to push (default the model's ``q_X['vo']``, or ``q_z['vo']``
-        without ``independent_X``), whole over ``data_vo``."""
+        without ``independent_X``), over the rows of ``data_vo``.  With a
+        ``layout``, ``data_vo`` and ``q`` hold this process's rows: the
+        draws are made for all ``N_vo * n_monte_carlo`` samples and cut, so
+        this process decodes and solves its own rows' samples and returns
+        their moments."""
         if n_monte_carlo < 2:
             # std with one degree of freedom over one sample is NaN, which
             # would poison the VO precision downstream
@@ -566,19 +566,20 @@ class GenerativeModel(nn.Module):
         N = F_.shape[0]
         if q is None:
             q = self.q_X["vo"] if self.independent_X else self.q_z["vo"]
-        if self.independent_X:
-            Xs = va.sample_all_components(q, generator,
-                                          n_monte_carlo)  # (N, S, c)
-        else:
-            Zs = va.sample_all_components(q, generator,
-                                          n_monte_carlo)  # (N, S, dz)
-            gp_out = self.apply_gp(Zs.reshape(-1, Zs.shape[-1]))
-            Xs = propagate_gp_samples(gp_out, generator).reshape(
+        split = self._block(N)  # None: all rows
+        mc = split and split.repeat(n_monte_carlo)
+        Xs = va.sample_all_components_rows(q, generator, n_monte_carlo,
+                                           split)  # (N, S, c or dz)
+        if not self.independent_X:
+            gp_out = self.apply_gp(Xs.reshape(-1, Xs.shape[-1]))
+            Xs = propagate_gp_samples(gp_out, generator, split=mc).reshape(
                 N, n_monte_carlo, -1)
         F_rep = F_[:, None, :].expand(N, n_monte_carlo, F_.shape[-1])
-        Ys = self.g.propagate_samples(
+        # g's push-through (``self.g.propagate_samples``), drawn for all
+        # the rows of a sharded batch as the gp's samples are
+        Ys = propagate_gp_samples(self.g(
             Xs.reshape(N * n_monte_carlo, -1),
-            F_rep.reshape(N * n_monte_carlo, -1), generator)
+            F_rep.reshape(N * n_monte_carlo, -1)), generator, split=mc)
         Ys = Ys.reshape(N, n_monte_carlo, -1)
         return Ys.mean(dim=1), Ys.std(dim=1, correction=1)
 

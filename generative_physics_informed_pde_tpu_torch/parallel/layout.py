@@ -17,6 +17,11 @@ over that block's replicas.  The per-datapoint blocks (the posteriors and
 their data) always divide; the trainer refuses them otherwise, as the JAX
 package does.
 
+The virtual observables and the analyses follow the same layout: the VO
+ensemble's ``N_vo`` rows and the analysed datasets' rows are split over
+the batch axes (``rows``), whole on every replica, and every Monte-Carlo
+draw over them is made whole and cut (``RowSplit.repeat``, ``take``).
+
 Sums over a batch that repeats on the replicas are counted by the first
 replica only (``first_replica``), and terms that depend on no rows (the
 l2 penalty) by process 0 only (``lead``), so that the sum over all
@@ -53,6 +58,11 @@ class RowSplit:
     segments: Tuple[Tuple[int, int], ...]
     group: Any = None
 
+    @staticmethod
+    def whole(n: int) -> "RowSplit":
+        """All ``n`` rows on this process (the unsharded split)."""
+        return RowSplit(n, ((0, n),))
+
     def take(self, x: torch.Tensor) -> torch.Tensor:
         """This process's rows of ``x``, a tensor of all ``n`` rows."""
         if len(self.segments) == 1:
@@ -64,6 +74,13 @@ class RowSplit:
         """``x`` summed over the group, differentiably."""
         return x if self.group is None else differentiable_sum(x,
                                                                self.group)
+
+    def repeat(self, m: int) -> "RowSplit":
+        """The split of the ``n * m`` rows that repeat each row ``m``
+        times, row-major (the Monte-Carlo samples of this split's rows)."""
+        return RowSplit(self.n * m, tuple((lo * m, hi * m)
+                                          for lo, hi in self.segments),
+                        self.group)
 
     @staticmethod
     def concat(splits: Sequence["RowSplit"]) -> "RowSplit":

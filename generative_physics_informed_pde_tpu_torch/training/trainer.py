@@ -41,14 +41,21 @@ whole parameters are summed over all processes before Adam (those of the
 per-datapoint blocks over the processes holding the same rows), and the
 unlabeled minibatch is drawn whole and each process takes its share of
 its rows, gathered from the processes that hold them, or from a whole
-unlabeled set.  The virtual observables, the analyses and the monitor run
-whole on every process on gathered posteriors.  Only process 0 writes
-metrics, checkpoints and exports; a checkpoint holds the whole state, the
-layout of an unsharded one, and restores on any mesh.  Batches without
-per-datapoint state may split unevenly over the batch axes' shards, as
-GSPMD lays them out (``parallel.layout``): the amortized minibatch
-(``armortized_bs``), the unlabeled set of the amortized term (kept whole
-on every process) and the Monte-Carlo rows under ``mc_batch_sharding``.
+unlabeled set.  The virtual observables and the analyses split as the
+JAX package's layout splits them: each process propagates, conditions or
+iterates the VO rows it holds (the constrain arm's test functions and
+their assembly, its precision hyperprior and the energy arm's K_diag stay
+whole on every process), and the training and validation analyses
+evaluate each process's rows of their data and posteriors and sum their
+metrics over the processes; the encoder analysis, whose posterior the
+encoder makes from the whole validation set, runs whole on every
+process.  Only process 0 writes metrics, checkpoints and exports; a
+checkpoint holds the whole state, the layout of an unsharded one, and
+restores on any mesh.  Batches without per-datapoint state may split
+unevenly over the batch axes' shards, as GSPMD lays them out
+(``parallel.layout``): the amortized minibatch (``armortized_bs``), the
+unlabeled set of the amortized term (kept whole on every process) and
+the Monte-Carlo rows under ``mc_batch_sharding``.
 ``N_s``, ``N_val``, ``N_vo`` and the non-amortized ``N_u`` size
 per-datapoint blocks, which must divide by the shard count: setup
 refuses them otherwise, as the JAX package does.
@@ -400,6 +407,7 @@ class Trainer:
         if data_vo is not None:
             init_sets["vo"] = {"X": data_vo["X"]}
         self._N_u = 0 if X_unsup is None else X_unsup.shape[0]
+        n_sup = data_sup["X"].shape[0]
         if layout is not None:
             self._check_splits(layout, data_sup, data_vo, X_unsup, X_val)
             data_sup = shard_data_dict(data_sup, mesh)
@@ -409,11 +417,9 @@ class Trainer:
                 X_unsup = shard_data_dict({"X": X_unsup}, mesh)["X"]
         self._data_sup, self._X_unsup, self._data_vo = (data_sup, X_unsup,
                                                         data_vo)
-        # whole copies, gathered from the processes' rows (a process may
-        # have labeled its own rows only), for the analyses and the VO
-        self._data_sup_whole = self._gathered(data_sup)
-        self._data_vo_whole = None if data_vo is None \
-            else self._gathered(data_vo)
+        if self.VO is not None and (layout is not None
+                                    or self.VO.split is not None):
+            self.VO.shard(layout)  # its moments hold the VO rows
 
         self.model.init_params(init_sets)
         # the PE's Adam advances N_PE_updates counts per active iteration,
@@ -437,10 +443,17 @@ class Trainer:
 
         data_val = {k: ds["validation"].get(k) for k in keys}
         self._data_val = data_val
-        self._analysis = Analysis(self.model, data_val, "validation",
-                                  self.writer)
-        self._analysis_training = Analysis(self.model, self._data_sup_whole,
-                                           "training", self.writer)
+        # the validation and training analyses evaluate this process's
+        # rows of the posteriors they are given (the JAX package's output
+        # lies P('dp')); the validation data is whole on every process
+        val_split = self._rows_split(X_val.shape[0])
+        self._analysis = Analysis(
+            self.model, data_val if val_split is None
+            else {k: val_split.take(v) for k, v in data_val.items()},
+            "validation", self.writer, split=val_split)
+        self._analysis_training = Analysis(
+            self.model, self._data_sup, "training", self.writer,
+            split=self._rows_split(n_sup))
         self._analysis_encoder = None
         if self.model.encoder is not None:
             self._analysis_encoder = Analysis(
@@ -459,6 +472,12 @@ class Trainer:
             layout.check_rows("N_vo", data_vo["X"].shape[0])
         if X_unsup is not None and self.model.encoder is None:
             layout.check_rows("N_u", X_unsup.shape[0])
+
+    def _rows_split(self, n: int):
+        """The split of a whole dataset of ``n`` rows over the batch axes
+        that an analysis evaluates (None unsharded or on one shard)."""
+        L = self._layout
+        return None if L is None or L.k_rows == 1 else L.rows(n)
 
     def _gathered(self, tree):
         """Every process's rows of the sharded tensors of ``tree`` (a
@@ -609,15 +628,10 @@ class Trainer:
         """Monte-Carlo propagate q through gp o g, redraw the test
         functions, then condition the VO posterior; the propagation and the
         test functions draw from ``vo_generator``.  Sharded, every process
-        runs the update whole on the gathered posterior."""
-        q = None
-        if self._layout is not None:  # the VO ensemble is whole
-            m = self.model
-            q = self._gathered(m.q_X["vo"] if m.independent_X
-                               else m.q_z["vo"])
+        propagates and conditions the VO rows it holds (the draws made
+        whole and cut; the test functions drawn and assembled whole)."""
         Y_mean, Y_std = self.model.propagate_vo_moments(
-            self._data_vo_whole, self.vo_generator,
-            self.get("N_monte_carlo_vo"), q=q)
+            self._data_vo, self.vo_generator, self.get("N_monte_carlo_vo"))
         if resample:
             self.VO.resample(self.vo_generator)
         self.VO.update(Y_mean, 1.0 / (Y_std ** 2), step, writer=self.writer)
@@ -686,7 +700,7 @@ class Trainer:
         if n_final > 0:
             self._PE.update(n_final, self._monitor_generator(13), final=True)
         self._analysis.eval_all_y(
-            self._pe_q(), self._monitor_generator(17),
+            self._PE.q, self._monitor_generator(17),
             self.get("N_monte_carlo_analysis_final"),
             iteration=self.gn + self.get("N_PE_updates_final"))
 
@@ -732,12 +746,10 @@ class Trainer:
 
         n_mc = self.get("N_monte_carlo_analysis")
         generator = self._monitor_generator(23)
-        self._analysis.eval_all_y(self._pe_q(), generator, n_mc,
-                                  iteration=gn)
+        self._analysis.eval_all_y(self._PE.q, generator, n_mc, iteration=gn)
         if self.get("MonitorTraining") and self._data_sup["X"].shape[0] > 0:
             self._analysis_training.eval_all_y(
-                self._gathered(self.model.q_z["supervised"]), generator,
-                n_mc, iteration=gn)
+                self.model.q_z["supervised"], generator, n_mc, iteration=gn)
             if self._analysis_encoder is not None:
                 with torch.no_grad():
                     mean, logsigma = self.model.apply_encoder(
@@ -787,8 +799,14 @@ class Trainer:
         per-datapoint blocks are gathered and process 0 writes the
         unsharded layout; every process returns after the write.
 
-        The VO posterior is not written: the first step after a restore
-        reconditions it, as in the reference."""
+        The virtual observables' state rides along as another
+        per-datapoint block (``vo``: the moments, the fallback mask and
+        the constrain arm's precision hyperprior, whole), which goes
+        beyond the reference: its checkpoint leaves the VO state out, so
+        a resumed run reconditions from a fresh ensemble.  Here the first
+        step after a restore reconditions too, from the restored state
+        (the energy arm's iterate and the constrain arm's precision carry
+        on)."""
         from .checkpoint import save_train_state
 
         if self.optimizer is None:
@@ -804,6 +822,8 @@ class Trainer:
                  "monitor": self._monitor,
                  "generator": self.generator.get_state(),
                  "vo_generator": self.vo_generator.get_state()}
+        if self.VO is not None:
+            state["vo"] = self.VO.moments()  # whole: gathered when sharded
         if self._plateau is not None:
             state["plateau"] = self._plateau.state_dict()
         if self._layout is None:
@@ -817,10 +837,10 @@ class Trainer:
     def restore_checkpoint(self, path: str):
         """Load a :meth:`save_checkpoint` file into this trainer, built
         as the one that wrote it, on any mesh (the blocks are cut for
-        this trainer's).  A checkpoint written before the plateau
-        state was kept leaves the controller as it is.  A generator's
-        state is only valid on its device type, so a checkpoint from
-        another device type is refused (``checkpoint.
+        this trainer's).  A checkpoint written before the plateau or the
+        VO state was kept leaves the controller or the ensemble as it
+        is.  A generator's state is only valid on its device type, so a
+        checkpoint from another device type is refused (``checkpoint.
         restore_encoder_decoder`` loads the codec's parameters across
         devices)."""
         from .checkpoint import restore_train_state
@@ -842,6 +862,8 @@ class Trainer:
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         self._PE.load_state_dict(state["prediction_ensemble"])
+        if self.VO is not None and "vo" in state:
+            self.VO.load_moments(state["vo"])  # cut to this process's rows
         self.generator.set_state(state["generator"])
         self.vo_generator.set_state(state["vo_generator"])
         if self._plateau is not None and "plateau" in state:

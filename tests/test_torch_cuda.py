@@ -783,20 +783,23 @@ def test_batchnorm_sharded_statistics_equal_the_plain_ones(dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["dp", "dp_mc"])
+@pytest.mark.parametrize("case", ["dp", "dp_mc", "energy"])
 def test_sharded_training_across_cards_equals_one_card(case, tmp_path):
     """Sharded training with one process on every card of the machine
     (nccl): ``tests/test_torch_sharded_training.py``'s ``dp`` case (a dp
-    mesh of all cards) and ``dp_mc`` (a (cards / 2, 2) ("dp", "mc")
-    mesh, four Monte-Carlo samples), f64, each process's record held to
-    the same run in one process on the first card to 1e-9 of the scale.
-    Needs two or more cards."""
+    mesh of all cards), ``dp_mc`` (a (cards / 2, 2) ("dp", "mc") mesh,
+    four Monte-Carlo samples) and ``energy`` (the energy-VO arm on a dp
+    mesh: each card refreshes its rows of the 8 VO fields), f64, each
+    process's record held to the same run in one process on the first
+    card to 1e-9 of the scale.  Needs two or more cards (an even count
+    for dp_mc, a divisor of 8 for energy)."""
     _need_cuda()
     import test_torch_sharded_training as sharded
 
     n = torch.cuda.device_count()
-    if n < 2 or (case == "dp_mc" and n % 2):
-        pytest.skip("needs two or more cards (an even count for dp_mc)")
+    if n < 2 or (case == "dp_mc" and n % 2) or (case == "energy" and 8 % n):
+        pytest.skip("needs two or more cards (an even count for dp_mc, a "
+                    "divisor of 8 for energy)")
     X, Xu = sharded._draw_pools()
     np.savez(tmp_path / "drawn.npz", X=X, Xu=Xu)
     pools = (X, Xu, tmp_path / "drawn.npz")

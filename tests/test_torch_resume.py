@@ -12,6 +12,11 @@ Adam's state, exactly.  The JAX package's tests of the same properties
 port, compared with itself, is held exactly.
 """
 
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -26,6 +31,10 @@ from generative_physics_informed_pde_tpu_torch.training import (
 @pytest.fixture(scope="module")
 def pools():
     """16 labeled (labels solved once) and 8 unlabeled 32^2 fields."""
+    return _draw_pools()
+
+
+def _draw_pools():
     rf = fem.GaussianRandomField.from_image(32, 32, 0.4, 0.8, 0.15)
     X = rf.sample(torch.Generator().manual_seed(0), batch_size=24,
                   dtype=torch.float64, device="cpu").numpy()
@@ -176,9 +185,10 @@ def test_plateau_state_checkpoint_roundtrip(pools, tmp_path):
 
 
 def test_vo_checkpoint_resume_reconditions(pools, tmp_path):
-    """Port of ``test_trainer_vo_checkpoint_resume``: the VO posterior is
-    not in the checkpoint; the first step after a restore reconditions it
-    and the run stays finite."""
+    """Port of ``test_trainer_vo_checkpoint_resume``: the first step
+    after a restore reconditions the VO posterior (the checkpoint keeps
+    the ensemble's state to recondition from) and the run stays
+    finite."""
     spec = {"type": "constrain", "CGR": True, "flux": True,
             "N_gaussian": 2, "N_rbf": 2, "l_rbf": 0.2}
 
@@ -207,6 +217,66 @@ def test_vo_checkpoint_resume_reconditions(pools, tmp_path):
     assert np.isfinite(tr2.results()["logscore_y"])
 
 
+ENERGY = {"type": "energy", "l_rbf": 0.2, "N_rbf": 4,
+          "energy_num_iterations_per_update": 2, "T_init": 1.0,
+          "T_final": 1e-2, "T_iterations": 20}
+
+
+def _energy_params():
+    p = _params(N_vo=4, N_vo_max=4, N_s=6, N_s_max=6, vo_spec=ENERGY)
+    p.trainer.update(N_vo_holdoff=2, N_vo_update_interval=3)
+    return p
+
+
+def _resume_energy(pools, path, steps: int) -> dict:
+    """A fresh energy-VO trainer restored from ``path``: the VO state it
+    restored, the steps it refreshed at in ``steps`` more, its state
+    after them."""
+    tr = _make(pools, _energy_params())
+    tr.restore_checkpoint(path)
+    restored = {k: v.clone() for k, v in tr.VO.moments().items()}
+    initialized = tr._vo_is_initialized
+    refreshes = []
+    refresh = tr.update_virtual_observables
+    tr.update_virtual_observables = lambda step: (refreshes.append(step),
+                                                  refresh(step))
+    tr.run(steps, verbose=False)
+    return {"restored": restored, "initialized": initialized,
+            "refreshes": refreshes, "vo_mean": tr.VO.mean,
+            "elbos": tr.elbos(), "state": _training_state(tr)}
+
+
+def test_vo_state_resumes_in_a_fresh_process(pools, tmp_path):
+    """The checkpoint keeps the VO state, which the JAX package's leaves
+    out (its resume reconditions from a fresh ensemble): a new process
+    restores the energy arm's iterate from the file bit for bit,
+    reconditions it on its first step all the same, and continues as a
+    fresh trainer restored in this process does."""
+    tr = _make(pools, _energy_params())
+    tr.run(7, verbose=False)  # refreshes at 2 (the first chance), 3, 6
+    path = tr.save_checkpoint(str(tmp_path / "ck.pt"))
+    out = tmp_path / "fresh.pt"
+    root = str(Path(__file__).resolve().parents[1])
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + os.environ.get("PYTHONPATH", "").split(os.pathsep)))
+    subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                    "--resume-energy", path, str(out),
+                    str(torch.get_num_threads())], check=True, timeout=300,
+                   env=env)
+    there = torch.load(out)
+    here = _resume_energy(pools, path, 3)
+    for got in (there, here):
+        assert not got["initialized"]
+        assert got["refreshes"] == [7, 9]  # the first step, then 3k
+        assert set(got["restored"]) == {"mean", "vars"}
+        assert torch.equal(got["restored"]["mean"], tr.VO.mean)
+        assert torch.equal(got["restored"]["vars"], tr.VO.vars)
+        assert not torch.equal(got["vo_mean"], tr.VO.mean)
+        assert bool(torch.isfinite(got["elbos"]).all())
+    _assert_identical(there["state"], here["state"])
+    assert torch.equal(there["vo_mean"], here["vo_mean"])
+
+
 def test_checkpoint_from_another_device_type_is_refused(pools, tmp_path):
     """A generator's state belongs to its device type: a checkpoint from
     a card is refused on the CPU with a clear error, never restored with
@@ -229,3 +299,8 @@ def test_checkpoint_from_another_device_type_is_refused(pools, tmp_path):
     for part in ("f", "encoder"):
         _assert_identical(getattr(fresh.model, part).state_dict(),
                           getattr(tr.model, part).state_dict())
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["--resume-energy"]:
+    torch.set_num_threads(int(sys.argv[4]))
+    torch.save(_resume_energy(_draw_pools(), sys.argv[2], 3), sys.argv[3])

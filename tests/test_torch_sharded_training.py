@@ -177,8 +177,9 @@ def _record(tr, mesh=None):
         if name.endswith(("running_mean", "running_var")):
             out["buffer/" + name] = t.cpu().numpy()
     if tr.VO is not None:
-        out["vo_mean"] = tr.VO.mean.cpu().numpy()
-        out["vo_temperature"] = np.asarray(tr.VO.temperature)
+        out["vo_mean"] = whole(tr.VO.mean)  # this process's VO rows
+        if hasattr(tr.VO, "temperature"):  # the energy arm
+            out["vo_temperature"] = np.asarray(tr.VO.temperature)
     return out
 
 
