@@ -27,6 +27,7 @@ import torch
 from ..fem.bc import BoundaryConditionEnsemble
 from ..fem.pixels import PixelConverter
 from ..utils.device import resolve_device
+from ..utils.time import span
 
 
 def draw_fields(sampler, N: int, generator: torch.Generator,
@@ -153,11 +154,21 @@ class DataLoader:
 
         ``rows``: optional row indices, boolean mask or slice to solve
         labels for; the other rows are left NaN, so a row solved by nobody
-        surfaces as a non-finite loss, never as a silent wrong label."""
+        surfaces as a non-finite loss, never as a silent wrong label.
+
+        Spans (``utils.time.span``): ``loader.assemble`` around it all,
+        ``loader.bce`` (content hash and BCE draw), ``loader.prepare``
+        (``X_DG`` and the label array, then per dispatch ``exp``, the tail
+        padding and the copy to the device), ``loader.readback`` (per
+        dispatch, the labels to the host) and ``loader.rom_bc``."""
         if self._lock_physics_assembly:
             raise RuntimeError("physics assembly locked for this loader")
-        if self._BCE is None:
-            if BCE is not None:
+        with span("loader.assemble"):
+            self._assemble(physics, BCE, rng, label_batch, rows)
+
+    def _assemble(self, physics, BCE, rng, label_batch, rows):
+        with span("loader.bce"):
+            if self._BCE is None and BCE is not None:
                 if not (BCE.check_if_registered("fom")
                         and BCE.check_if_registered("rom")):
                     raise ValueError("BCE must have the 'fom' and 'rom' "
@@ -168,46 +179,49 @@ class DataLoader:
                         f"{self.N} fields -- a mismatched ensemble would "
                         "silently mislabel the dataset")
                 self._BCE = BCE
-            else:
+            elif self._BCE is None:
                 self.assemble_BCE(physics, rng)
-
         fom = physics["fom"]
-        cell_to_pixel = PixelConverter(fom.grid)._cell_to_pixel
-        self._X_DG = self._X.reshape(self.N, -1)[:, cell_to_pixel]
-
-        vals = self._BCE.constrained_values("fom")
-        if rows is None:
-            row_idx = np.arange(self.N)
-            Y = np.zeros((self.N, fom.dim_out), dtype=np.float64)
-        else:
-            if isinstance(rows, slice):
-                row_idx = np.arange(self.N)[rows]
+        with span("loader.prepare"):
+            cell_to_pixel = PixelConverter(fom.grid)._cell_to_pixel
+            self._X_DG = self._X.reshape(self.N, -1)[:, cell_to_pixel]
+            vals = self._BCE.constrained_values("fom")
+            if rows is None:
+                row_idx = np.arange(self.N)
+                Y = np.zeros((self.N, fom.dim_out), dtype=np.float64)
             else:
-                r = np.asarray(rows)
-                # a boolean mask is a mask, not the indices {0, 1}
-                row_idx = np.flatnonzero(r) if r.dtype == np.bool_ \
-                    else r.astype(np.int64)
-            Y = np.full((self.N, fom.dim_out), np.nan, dtype=np.float64)
+                if isinstance(rows, slice):
+                    row_idx = np.arange(self.N)[rows]
+                else:
+                    r = np.asarray(rows)
+                    # a boolean mask is a mask, not the indices {0, 1}
+                    row_idx = np.flatnonzero(r) if r.dtype == np.bool_ \
+                        else r.astype(np.int64)
+                Y = np.full((self.N, fom.dim_out), np.nan, dtype=np.float64)
         label_batch = max(8, min(label_batch, 2 ** 22 // fom.grid.n_cells))
         self.label_iterations, self.label_batch = [], label_batch
         for k in range(-(-row_idx.size // label_batch)):
             sl = row_idx[k * label_batch: (k + 1) * label_batch]
-            a = np.exp(self._X_DG[sl])
-            v = vals[sl]
-            pad = label_batch - a.shape[0]
-            if pad:  # pad the tail: every dispatch has one shape
-                a = np.concatenate([a, np.ones((pad,) + a.shape[1:])])
-                v = np.concatenate([v, np.zeros((pad,) + v.shape[1:])])
+            with span("loader.prepare"):
+                a = np.exp(self._X_DG[sl])
+                v = vals[sl]
+                pad = label_batch - a.shape[0]
+                if pad:  # pad the tail: every dispatch has one shape
+                    a = np.concatenate([a, np.ones((pad,) + a.shape[1:])])
+                    v = np.concatenate([v, np.zeros((pad,) + v.shape[1:])])
+                a = torch.as_tensor(a, device=fom.device)
+                v = torch.as_tensor(v, device=fom.device)
             # no retry loop: the reference's guarded tunnelled TPU workers
-            out = fom.solve_batched(torch.as_tensor(a, device=fom.device),
-                                    torch.as_tensor(v, device=fom.device))
-            Y[sl] = out[: sl.size].cpu().numpy()
+            out = fom.solve_batched(a, v)
+            with span("loader.readback"):
+                Y[sl] = out[: sl.size].cpu().numpy()
             self.label_iterations.append(fom.last_iterations)
         self._Y = Y
-        self._F_ROM_BC = self._BCE.full_f_with_applied_bc("rom")
-        # new labels: dependent views must drop their cached tensors
-        for ds in self._live_datasets():
-            ds.trigger_update()
+        with span("loader.rom_bc"):
+            self._F_ROM_BC = self._BCE.full_f_with_applied_bc("rom")
+            # new labels: dependent views must drop their cached tensors
+            for ds in self._live_datasets():
+                ds.trigger_update()
 
     # --------------------------------------------------------- accessors
     @property

@@ -41,6 +41,7 @@ import torch
 
 from .assembly import StencilOperator, _OFFSETS, _SYM_DIRS
 from ..ops.stencil import apply_stencil, apply_stencil_sym
+from ..utils.time import span
 
 
 def _apply_stencil_blast(coefs, v):
@@ -75,7 +76,8 @@ def _batched_pcg(matvec, b, mask, precond, tol, maxiter):
     ``fused_rr`` form: the residual norm is carried as a per-sample scalar
     computed beside ``gamma = <r, z>``.  Every sample iterates until all
     have converged (``rr <= tol^2 |b|^2``) or ``maxiter`` is reached; the
-    reference's while_loop condition is a host check per iteration.
+    reference's while_loop condition is a host check per iteration
+    (span ``pcg.stop_check``, beside each loop body's ``pcg.iteration``).
     Returns ``(x, iterations)``."""
 
     def dot(a, c):
@@ -91,20 +93,27 @@ def _batched_pcg(matvec, b, mask, precond, tol, maxiter):
     gamma = dot(r, z)
     rr = bnorm2
     k = 0
-    while k < maxiter and bool((rr > atol2).any()):
-        Ap = matvec(p)
-        denom = dot(p, Ap)
-        alpha = gamma / torch.where(denom == 0, 1.0, denom)
-        x = x + alpha * p
-        r = r - alpha * Ap
-        z = precond(r)
-        gamma_new = dot(r, z)
-        rr = dot(r, r)
-        beta = gamma_new / torch.where(gamma == 0, 1.0, gamma)
-        p = z + beta * p
-        gamma = gamma_new
-        k += 1
+    while k < maxiter and _unconverged(rr, atol2):
+        with span("pcg.iteration"):
+            Ap = matvec(p)
+            denom = dot(p, Ap)
+            alpha = gamma / torch.where(denom == 0, 1.0, denom)
+            x = x + alpha * p
+            r = r - alpha * Ap
+            z = precond(r)
+            gamma_new = dot(r, z)
+            rr = dot(r, r)
+            beta = gamma_new / torch.where(gamma == 0, 1.0, gamma)
+            p = z + beta * p
+            gamma = gamma_new
+            k += 1
     return x, k
+
+
+def _unconverged(rr, atol2) -> bool:
+    """The PCG's stop check: a host read that waits for the device."""
+    with span("pcg.stop_check"):
+        return bool((rr > atol2).any())
 
 
 class _Solve(torch.autograd.Function):
@@ -121,6 +130,13 @@ class _Solve(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ybar):
+        # autograd runs a card's backward on its device thread, where
+        # this span opens a root of its own
+        with span("solve.adjoint"):
+            return _Solve._backward(ctx, ybar)
+
+    @staticmethod
+    def _backward(ctx, ybar):
         s = ctx.solver
         y_full, coefs, mask = ctx.saved_tensors
         apply = s._apply()
@@ -248,26 +264,31 @@ class BatchedFomSolver:
     def _forward(self, alphas, bc_values):
         """The forward solve: -> (y_full (B, n_nodes), coefs, mask, tol,
         V-cycle levels or None)."""
-        dtype, device = alphas.dtype, alphas.device
-        tol = self.tol if self.tol is not None else (
-            1e-10 if dtype == torch.float64 else 2e-6)
-        B = alphas.shape[0]
-        c = (self.op.coefficients_sym(alphas) if self.sym
-             else self.op.coefficients(alphas))
-        # (B, 4|7, Ny, Nx) -> (4|7, Ny, Nx, B), made contiguous once per solve
-        coefs = c.permute(1, 2, 3, 0).contiguous()
-        mask = torch.as_tensor(self.free_mask, dtype=dtype, device=device)
-        apply = self._apply()
-        bc_full = torch.zeros((B, self.Ny * self.Nx), dtype=dtype,
-                              device=device)
-        bc_full[:, self._idx("con", device)] = bc_values.to(dtype)
-        bc_g = self._to_blast(bc_full)
-        rhs = -apply(coefs, bc_g, torch.ones_like(mask))
-        precond, levels = self._precond(coefs, mask, alphas=alphas)
-        y_free_g, self.iterations = _batched_pcg(
-            lambda v: apply(coefs, mask * v, mask), rhs, mask, precond, tol,
-            self.maxiter)
-        return self._from_blast(y_free_g + bc_g), coefs, mask, tol, levels
+        with span("solve"):
+            dtype, device = alphas.dtype, alphas.device
+            tol = self.tol if self.tol is not None else (
+                1e-10 if dtype == torch.float64 else 2e-6)
+            apply = self._apply()
+            with span("solve.setup"):
+                B = alphas.shape[0]
+                c = (self.op.coefficients_sym(alphas) if self.sym
+                     else self.op.coefficients(alphas))
+                # (B, 4|7, Ny, Nx) -> (4|7, Ny, Nx, B), contiguous once a
+                # solve
+                coefs = c.permute(1, 2, 3, 0).contiguous()
+                mask = torch.as_tensor(self.free_mask, dtype=dtype,
+                                       device=device)
+                bc_full = torch.zeros((B, self.Ny * self.Nx), dtype=dtype,
+                                      device=device)
+                bc_full[:, self._idx("con", device)] = bc_values.to(dtype)
+                bc_g = self._to_blast(bc_full)
+                rhs = -apply(coefs, bc_g, torch.ones_like(mask))
+                precond, levels = self._precond(coefs, mask, alphas=alphas)
+            y_free_g, self.iterations = _batched_pcg(
+                lambda v: apply(coefs, mask * v, mask), rhs, mask, precond,
+                tol, self.maxiter)
+            return (self._from_blast(y_free_g + bc_g), coefs, mask, tol,
+                    levels)
 
     def __call__(self, alphas: torch.Tensor, bc_values: torch.Tensor):
         return _Solve.apply(self, alphas, bc_values)

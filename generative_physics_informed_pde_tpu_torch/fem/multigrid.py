@@ -35,9 +35,12 @@ from .grid import StructuredTriGrid
 from .assembly import StencilOperator
 from .bc import DirichletProfile
 from ..ops.stencil import apply_stencil
+from ..utils.time import span
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float64": torch.float64}
+# the span of ``vcycle(li, .)``, which covers every coarser level too
+_LEVEL_SPANS = tuple(f"mg.level{li}" for li in range(32))
 
 
 def check_precond_dtype(dtype: str) -> str:
@@ -185,8 +188,12 @@ class MultigridPreconditioner:
             resid = mask * (r - apply_stencil(coefs, z, mask))
             coarse_mask = levels[li + 1][2]
             rc = (coarse_mask * _restrict(resid)).contiguous()
-            ec = vcycle(li + 1, rc)
+            with span(_LEVEL_SPANS[li + 1]):
+                ec = vcycle(li + 1, rc)
             z = z + mask * _prolong(ec)
             return smooth(coefs, inv_diag, mask, z, r, self.nu_post)
 
-        return vcycle(0, r.contiguous()).to(out_dtype)
+        with span(_LEVEL_SPANS[0]):
+            z = vcycle(0, r.contiguous())
+        return z.to(out_dtype)
+

@@ -19,6 +19,7 @@ from torch import nn
 from ..fem.solvers import rom_solve, stiffness_from_tensor
 from ..inference.likelihoods import reparametrize, standard_normal
 from ..parallel.layout import RowSplit
+from ..utils.time import span
 from .mlp import architecture_from_linear_decay
 
 
@@ -101,8 +102,9 @@ class ROM(nn.Module):
 
     def forward(self, X, F_):
         """X (..., c) positive conductivities, F (..., d) forces with the
-        BC values applied -> (..., d) solutions."""
-        return rom_solve(self.M.to(X.dtype), X, F_, self.bc_dofs)
+        BC values applied -> (..., d) solutions (span ``rom.solve``)."""
+        with span("rom.solve"):
+            return rom_solve(self.M.to(X.dtype), X, F_, self.bc_dofs)
 
     def get_stiffness(self, X, dirichlet_bc: bool = True):
         """Dense stiffness ``K = M . X`` (..., d, d), with the Dirichlet

@@ -87,6 +87,7 @@ from ..parallel.layout import TrainLayout
 from ..parallel.mesh import (mc_batch_sharding, map_state_blocks,
                              shard_data_dict, shard_train_state)
 from ..utils.device import resolve_device
+from ..utils.time import span
 from .metrics import MetricsWriter
 from .schedules import PlateauController, make_schedule
 
@@ -493,10 +494,18 @@ class Trainer:
         when due, then the gradient step on the ELBO, whose VO term is held
         off (``logL_x - DKL`` only) before ``N_vo_holdoff`` iterations and
         until the first refresh.  Sharded, the logs are the sums over the
-        processes."""
+        processes.  Spans: ``trainer.step`` around it, and inside
+        ``trainer.vo_refresh``, ``trainer.elbo``, ``trainer.backward``,
+        ``trainer.reduce_grads``, ``trainer.optimizer``,
+        ``trainer.pe_update`` and ``trainer.logs``."""
+        with span("trainer.step"):
+            return self._step()
+
+    def _step(self) -> Dict[str, torch.Tensor]:
         model = self.model
         if self.update_vo():
-            self.update_virtual_observables(self.gn)
+            with span("trainer.vo_refresh"):
+                self.update_virtual_observables(self.gn)
         data = {"supervised": self._data_sup}
         if self._X_unsup is not None and model.encoder is None:
             data["unsupervised"] = {"X": self._X_unsup}
@@ -512,32 +521,38 @@ class Trainer:
                        or not self._vo_is_initialized)
             vo_state = self._vo_state or (None, None)
         self.optimizer.zero_grad(set_to_none=True)
-        elbo, logs = model.elbo(data, self.generator, vo_state=vo_state,
-                                vo_holdoff=holdoff,
-                                normalize=self.get("normalize"),
-                                l2_penalty=self.get("l2_penalty"))
-        if torch.is_tensor(elbo) and elbo.requires_grad:
-            (-elbo).backward()  # a mesh's replica may count no term
-        for p in self._params:
-            if p.grad is None:  # optax updates moments on zero gradients
-                p.grad = torch.zeros_like(p)
-        self._reduce_grads()
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.lr(self.gn)
-        self.optimizer.step()
+        with span("trainer.elbo"):
+            elbo, logs = model.elbo(data, self.generator, vo_state=vo_state,
+                                    vo_holdoff=holdoff,
+                                    normalize=self.get("normalize"),
+                                    l2_penalty=self.get("l2_penalty"))
+        with span("trainer.backward"):
+            if torch.is_tensor(elbo) and elbo.requires_grad:
+                (-elbo).backward()  # a mesh's replica may count no term
+            for p in self._params:
+                if p.grad is None:  # optax updates moments on zero grads
+                    p.grad = torch.zeros_like(p)
+        with span("trainer.reduce_grads"):
+            self._reduce_grads()
+        with span("trainer.optimizer"):
+            for group in self.optimizer.param_groups:
+                group["lr"] = self.lr(self.gn)
+            self.optimizer.step()
 
         interval = int(self.get("N_PE_interval") or 1)
         if interval <= 1 or self.gn % interval == 0:
-            pe_elbo, pe_logL = self._PE.update(self.get("N_PE_updates"),
-                                               self.generator)
+            with span("trainer.pe_update"):
+                pe_elbo, pe_logL = self._PE.update(self.get("N_PE_updates"),
+                                                   self.generator)
         else:
             # skipped iterations log NaN; the monitor burst refreshes them
             pe_elbo = pe_logL = torch.full((), math.nan, dtype=self._dtype,
                                            device=self.device)
-        logs = self._global_logs(
-            {k: (v.detach() if isinstance(v, torch.Tensor) else v)
-             for k, v in logs.items()})
-        logs.update(self._pe_logs(pe_elbo, pe_logL))
+        with span("trainer.logs"):
+            logs = self._global_logs(
+                {k: (v.detach() if isinstance(v, torch.Tensor) else v)
+                 for k, v in logs.items()})
+            logs.update(self._pe_logs(pe_elbo, pe_logL))
         self._global_iteration_counter += 1
         self.elbo_history.append(logs["elbo"])
         return logs
@@ -647,7 +662,11 @@ class Trainer:
         activity, and the card's kernels when the trainer is on one) and
         write the trace into that directory with
         ``tensorboard_trace_handler``, for TensorBoard's profiler view or
-        any Chrome-trace viewer."""
+        any Chrome-trace viewer.  The trace carries the port's
+        ``gpipde.*`` spans (``utils.time.span``: the step's parts, the
+        solves, the V-cycle levels, the monitor points and the final
+        refinement), whose host totals ``utils.span_totals()`` then
+        holds."""
         if self._finalized:
             raise RuntimeError("Cannot run trainer which has already been"
                                " finalized")
@@ -678,31 +697,37 @@ class Trainer:
         for n in range(N):
             logs = self.step()
             if mi > 0 and n % mi == 0 and n > 0:
-                elbo = float(logs["elbo"])
-                if not np.isfinite(elbo) and self.get("halt_on_divergence"):
-                    raise TrainingDivergedError(
-                        f"non-finite ELBO at iteration {n} -- training "
-                        "diverged (set trainer config halt_on_divergence="
-                        "False to keep stepping anyway)")
-                if self._plateau is not None:
-                    self._plateau.step(elbo)
-                    for group in self.optimizer.param_groups:
-                        group["lr"] = self.lr(self.gn)
-                logs = self._pe_monitor_burst(logs)
-                self._record(logs)
-                if verbose:
-                    print(f"Step: {n} / {N} || ELBO= {elbo:.4g} || "
-                          "LogScore(y): "
-                          f"{self._analysis.series['logscore_y'].final():.4g}")
+                with span("trainer.monitor"):
+                    elbo = float(logs["elbo"])
+                    if not np.isfinite(elbo) \
+                            and self.get("halt_on_divergence"):
+                        raise TrainingDivergedError(
+                            f"non-finite ELBO at iteration {n} -- training "
+                            "diverged (set trainer config halt_on_divergence="
+                            "False to keep stepping anyway)")
+                    if self._plateau is not None:
+                        self._plateau.step(elbo)
+                        for group in self.optimizer.param_groups:
+                            group["lr"] = self.lr(self.gn)
+                    logs = self._pe_monitor_burst(logs)
+                    self._record(logs)
+                    if verbose:
+                        score = self._analysis.series["logscore_y"].final()
+                        print(f"Step: {n} / {N} || ELBO= {elbo:.4g} || "
+                              f"LogScore(y): {score:.4g}")
             if callback is not None:
                 callback(n, self.gn)
-        n_final = self.get("N_PE_updates_final") * self.get("N_PE_updates")
-        if n_final > 0:
-            self._PE.update(n_final, self._monitor_generator(13), final=True)
-        self._analysis.eval_all_y(
-            self._PE.q, self._monitor_generator(17),
-            self.get("N_monte_carlo_analysis_final"),
-            iteration=self.gn + self.get("N_PE_updates_final"))
+        # the final refinement and evaluation
+        with span("trainer.finalize"):
+            n_final = self.get("N_PE_updates_final") \
+                * self.get("N_PE_updates")
+            if n_final > 0:
+                self._PE.update(n_final, self._monitor_generator(13),
+                                final=True)
+            self._analysis.eval_all_y(
+                self._PE.q, self._monitor_generator(17),
+                self.get("N_monte_carlo_analysis_final"),
+                iteration=self.gn + self.get("N_PE_updates_final"))
 
     # ---------------------------------------------------------- monitoring
     def _pe_monitor_burst(self, logs: dict) -> dict:

@@ -9,13 +9,27 @@ Both read the host's wall clock and never synchronise a device: CUDA
 work is asynchronous, so a caller timing the card synchronises first (or
 moves the result to the host, as ``tensor.cpu()`` does) before
 ``stop()`` / ``exit()``; otherwise the time is that of the enqueue.
+
+``span(name)`` marks a layer boundary of the port's hot paths (the solve,
+the V-cycle levels, the loader's host work, the SVI step's parts).  It
+records only while a ``torch.profiler`` session is recording: then it
+enters ``torch.profiler.record_function("gpipde." + name)``, so the
+profiler's trace names the range (and every idle gap of the device inside
+it) by the port's layer, and keeps a host-clock record in memory, read by
+``span_records`` / ``span_totals`` and cleared by ``reset_spans``.  With no
+profiler recording, ``span`` returns one shared no-op context.
 """
 
 from __future__ import annotations
 
+import contextlib
+import itertools
+import threading
 import time
 from collections import defaultdict
-from typing import Optional
+from typing import NamedTuple, Optional
+
+import torch
 
 
 class StopWatch:
@@ -101,3 +115,100 @@ class Timer:
             lines.append(f"{name:<24}{sec:>10.2f}{sec / total:>8.1%}")
         lines.append(f"{'TOTAL':<24}{total:>10.2f}{1.0:>8.1%}")
         return "\n".join(lines)
+
+
+# ------------------------------------------------------------------ spans
+class SpanRecord(NamedTuple):
+    """One finished span: ``root`` is the id of the outermost span open on
+    its thread when it started (shared by every span of one solve, pool or
+    step), ``parent`` the id of the span it is nested in (None for a
+    root); ``start_ns`` / ``end_ns`` are ``time.perf_counter_ns()``."""
+
+    name: str
+    id: int
+    root: int
+    parent: Optional[int]
+    start_ns: int
+    end_ns: int
+    thread: int
+
+
+_OFF = contextlib.nullcontext()
+_records: list = []          # list.append is atomic: spans of any thread
+_ids = itertools.count(1)
+_local = threading.local()   # each thread's stack of open spans
+_profiler_enabled = torch.autograd._profiler_enabled
+
+
+class _Span:
+    __slots__ = ("name", "id", "root", "parent", "t0", "stack", "rf")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        parent = stack[-1] if stack else None
+        self.id = next(_ids)
+        self.parent = None if parent is None else parent.id
+        self.root = self.id if parent is None else parent.root
+        self.stack = stack
+        self.rf = torch.profiler.record_function("gpipde." + self.name)
+        self.rf.__enter__()
+        stack.append(self)
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter_ns()
+        self.stack.pop()
+        self.rf.__exit__(*exc)
+        _records.append(SpanRecord(self.name, self.id, self.root,
+                                   self.parent, self.t0, t1,
+                                   threading.get_ident()))
+        return False
+
+
+def span(name: str):
+    """A context that marks one layer boundary ``name`` while a
+    ``torch.profiler`` session records (``torch.autograd.
+    _profiler_enabled()``), and does nothing otherwise.  ``name`` is a
+    constant (a level's name built once), so the off path formats
+    nothing.  The stack of open spans is per thread: a backward that
+    autograd runs on its device thread opens a root there."""
+    if not _profiler_enabled():
+        return _OFF
+    return _Span(name)
+
+
+def span_records() -> list:
+    """The spans recorded since the last :func:`reset_spans`, in the
+    order they ended."""
+    return list(_records)
+
+
+def span_totals() -> dict:
+    """``{name: {"calls", "host_s", "self_s"}}`` over the recorded spans:
+    host seconds between entry and exit, and the part of them that no
+    child span covers (its own work, and its waits outside any child)."""
+    records = list(_records)
+    child = defaultdict(int)
+    for r in records:
+        if r.parent is not None:
+            child[r.parent] += r.end_ns - r.start_ns
+    out = {}
+    for r in records:
+        t = out.setdefault(r.name, {"calls": 0, "host_s": 0.0,
+                                    "self_s": 0.0})
+        dt = r.end_ns - r.start_ns
+        t["calls"] += 1
+        t["host_s"] += dt / 1e9
+        t["self_s"] += (dt - child.get(r.id, 0)) / 1e9
+    return out
+
+
+def reset_spans():
+    """Forget every recorded span."""
+    _records.clear()
