@@ -24,13 +24,13 @@ plain version and K2 and timed beside K2 at the padded shapes the JAX
 package's roofline benchmark chains it at, and runs chained in its own
 layout.  Then the 'highres' 64^2
 recipe: label the preset's 2048 fields (Karhunen-Loeve draws, eigh on the
-card) with the multigrid-preconditioned solve, whose V-cycle sweeps and
-residuals all run on K1, in f32 and f64; differentiate that solve; and
+card) with the multigrid-preconditioned solve, whose V-cycle runs in the
+fused kernels of ``ops/vcycle.py`` (K1 the PCG's matvec), in f32 and f64; differentiate that solve; and
 train the recipe of ``bench.py`` (FFT fields, channel dropout 0.2) for 200
 SVI steps.  Then BASELINE config 3 (phase 9,
 ``examples/baseline_configs.py`` ``config3``): 192 labeled and 256
 unlabeled 128^2 Matern-3/2 fields drawn with ``DataLoader.from_sampler``,
-labeled by the f64 6-level V-cycle on K1, and 200 SVI steps of the
+labeled by the f64 6-level V-cycle, and 200 SVI steps of the
 highres128 recipe with 16 Monte-Carlo ELBO samples, its unlabeled term
 and prediction-ensemble decodes in bf16 (the 'auto' gates), checked
 against full precision and, in f64 with the gates off, card against CPU.
@@ -41,14 +41,14 @@ on-disk bundle of ``torch.export`` programs, loaded on the card and held
 bit for bit against the in-memory bundle at every bucket; the trainer's
 metrics file against its in-memory scalars; and config 2 ('highres' 64^2
 with the constrain virtual observables on 64 fields) through the runner,
-its labels under the V-cycle on K1 and its constraint assemblies on K1,
+its labels under the fused V-cycle and its constraint assemblies on K1,
 with phase 4c's checks.  Phase 9 holds the bf16 gate to its bound at
 random inits, twice each: on the JAX package's gate test's model, the
 state the bound was set for, and on config 3's; the trained state's terms
 are reported.
 Then BASELINE config 5 (phase 11, ``examples/torch_uncertainty_study.py``
 through the runner's ``config5``): 4 correlation lengths x 4096 FFT fields
-of 64^2 in one batched solve of 16,384 systems under the V-cycle on K1,
+of 64^2 in one batched solve of 16,384 systems under the fused V-cycle,
 cold and warm, every system's true residual, 256 of the fields in f64 on
 the card and the CPU, the per-case QOI moments against numpy's, and its
 ParameterStudy saved to a temporary directory and loaded back.
@@ -85,19 +85,20 @@ refreshing its 32 VO rows (its rows, K1 launches, refresh time and peak
 memory printed), held to one process; and the three arms of
 ``examples/torch_vo_ablation.py`` at their published 64^2 widths and
 pools, cut to 40 steps.
-Then the options the port took over last (phase 17): K1 in bf16 held bit
-for bit against its plain version at config 5's V-cycle levels; config
-5's 16,384 64^2 fields solved under the bf16 V-cycle
+Then the options the port took over last (phase 17): the V-cycle's steps
+in bf16 held bit for bit against their plain versions on config 5's
+levels; config 5's 16,384 64^2 fields solved under the bf16 V-cycle
 (``precond_dtype="bfloat16"``) beside the f32 V-cycle, every system's
 true residual checked; the JAX package's high-contrast 128^2 bf16 case;
 phase 10's resumed config 3 surrogate exported for ``("cuda", "cpu")``
 and served from both; highres32 steps under ``run(profile_dir=)``; and
 three f64 steps on labels solved with given BC encodings.
-Last, K1 and K2 run at every shape the main paths launched
-them at, each held bit for bit against its plain version and timed, with
-its launches derived from the paths' iteration counts (and checked against
-the counted launches), and K3's launches per shape outside its chain are
-read from the same counts.  All three kernels are built from the sources
+Last, K1, K2 and the V-cycle's five step kernels run at every shape the
+main paths launched them at, each held bit for bit against its plain
+version and timed, with its launches derived from the paths' iteration
+counts (and checked against the counted launches), and K3's launches per
+shape outside its chain are read from the same counts.  All the kernels
+are built from the sources
 (``nvcc`` into ``build/torch_kernels/``) and held against their plain
 PyTorch versions on the card; the labels are checked against residuals
 recomputed with the plain apply, f64 solves and a dense direct solve, the
@@ -384,26 +385,6 @@ P16_UNEVEN = {
 P16_VO_STEPS, P16_VO_N = 3, 64
 P16_VO_POOLS = dict(N_s=8, N_val=8, N_u=16, armortized_bs=8)
 P16_VO_ARMS = ("energy", "constrain")
-# Every shape (nodes a side, B, dtype) the main paths launch K1 and K2 at:
-# the highres32 label solve (f32), its VJP (f64) and training labels (f64,
-# B=256); the VO constraint assembly (f32, B=128) and the energy arm (f64,
-# B=128); the five V-cycle levels of the 'highres' MG solve (f32, f64 at
-# B=2048), of its VJP and of its training labels (f64, B=256); the six
-# levels of BASELINE config 3's 128^2 label solve (f64, B=128); config 2's
-# label dispatch (the 'highres' levels, f64, B=256) and its VO applies
-# (65^2 nodes, f32, B=64); BASELINE config 5's sweep (the 'highres'
-# levels, f32, B=16,384); config 4's labels (the 7 levels of 256^2, f64,
-# B=32) and config 512's (the 8 levels of 512^2, f64, B=8); the VO
-# configs' labels (2e: 'highres' levels, B=256; 2h, 2he: config 3's
-# levels, B=128; f64) and their VO applies (2e at (65,65,64) f32, 2h and
-# 2he at (129,129,64) f32); phase 15's single-system solves ((33,33,1)
-# f64 and f32, (65,65,1) f64) and its vmap solves ((33,33,1024) f64 and
-# f32); phase 17's bf16 V-cycle on config 5's pool (its five levels in
-# bf16 at B=16,384, the outer matvec at (65,65,16384) f32) and its
-# BCE-encoded labels ((33,33,256) f64); phase 16e's VO applies
-# ((65,65,64) f64 in one process, (65,65,32) f64 in each of two).  Phase 8
-# derives each shape's launches from the paths' iteration counts and holds
-# this list to them.
 MG_NODES = (65, 33, 17, 9, 5)
 # Phase 17: the JAX package's high-contrast bf16 V-cycle case
 # (tests/test_multigrid.py: 128^2, B = 4, lognormal sigma 1.3, left/right
@@ -420,29 +401,56 @@ P17_BCE_LABELED, P17_BCE_UNLABELED, P17_BCE_STEPS = 256, 64, 3
 # label solve, in the loader's dispatches of 128 fields.
 MG128_NODES = (129, 65, 33, 17, 9, 5)
 C3_LABEL_BATCH = 128
+# The port's kernel wrappers whose launches the paths count: K1, K2, K3
+# and the V-cycle's steps (``ops/vcycle.py``; no TPU counterpart).
+STENCILS = ("apply_stencil", "apply_stencil_sym",
+            "apply_stencil_sym_blocked")
+FUSED = ("vcycle_presmooth", "vcycle_restrict", "vcycle_correct",
+         "vcycle_smooth", "vcycle_coarse")
+# Every V-cycle the main paths run, (levels, B, dtype): the 'highres' MG
+# solve (f32, f64 at B=2048), its VJP and training labels (f64, B=256);
+# BASELINE config 3's labels (128^2, f64, B=128); config 2's labels
+# ('highres' levels, f64, B=256); config 5's sweep (f32, B=16,384) and
+# phase 17's bf16 V-cycle on its pool; config 4's labels (256^2, f64,
+# B=32) and config 512's (512^2, f64, B=8); the VO configs' labels (2e:
+# 'highres' levels, B=256; 2h, 2he: config 3's levels, B=128; f64) and
+# phase 16's labels (the 'highres' levels, f64, B=256).  Each step runs on
+# every level above the coarsest, ``vcycle_coarse`` on the coarsest.
+VCYCLE_RUNS = sorted({(MG_NODES, B, d) for B, d in (
+    (2048, "float32"), (2048, "float64"), (256, "float64"),
+    (C2_LABEL_BATCH, "float64"), (C5_SYSTEMS, "float32"),
+    (C5_SYSTEMS, "bfloat16"))}
+    | {(MG128_NODES, C3_LABEL_BATCH, "float64"),
+       (MG256_NODES, C4_LABEL_BATCH, "float64"),
+       (MG512_NODES, C512_LABEL_BATCH, "float64")})
+VCYCLE_SHAPES = {name: sorted(
+    {(n, B, d) for levels, B, d in VCYCLE_RUNS
+     for n in (levels[-1:] if name == "vcycle_coarse" else levels[:-1])},
+    key=lambda s: (-s[0], -s[1], s[2])) for name in FUSED}
+# Every shape (nodes a side, B, dtype) the main paths launch K1 and K2 at:
+# the highres32 label solve (f32), its VJP (f64) and training labels (f64,
+# B=256); the VO constraint assembly (f32, B=128) and the energy arm (f64,
+# B=128); the rhs and the matvecs of every MG-PCG on the fine level of its
+# V-cycle run (in the solve's dtype: f32 under the bf16 V-cycle); config
+# 2's VO applies (65^2 nodes, f32, B=64); the VO configs' VO applies (2e
+# at (65,65,64) f32, 2h and 2he at (129,129,64) f32); phase 15's
+# single-system solves ((33,33,1) f64 and f32, (65,65,1) f64) and its vmap
+# solves ((33,33,1024) f64 and f32); phase 17's BCE-encoded labels
+# ((33,33,256) f64); phase 16e's VO applies ((65,65,64) f64 in one
+# process, (65,65,32) f64 in each of two).  Phase 8 derives each shape's
+# launches (and the V-cycle steps') from the paths' iteration counts and
+# holds these lists to them.
 STENCIL_SHAPES = {
     "apply_stencil": sorted({(33, 1024, "float32"), (33, 1024, "float64"),
                              (33, 256, "float64"), (33, 128, "float32"),
                              (33, 128, "float64")}
-                            | {(n, B, d) for n in MG_NODES
-                               for B, d in ((2048, "float32"),
-                                            (2048, "float64"),
-                                            (256, "float64"))}
-                            | {(n, C3_LABEL_BATCH, "float64")
-                               for n in MG128_NODES}
-                            | {(n, C2_LABEL_BATCH, "float64")
-                               for n in MG_NODES}
+                            | {(levels[0], B,
+                                "float32" if d == "bfloat16" else d)
+                               for levels, B, d in VCYCLE_RUNS}
                             | {(MG_NODES[0], C2_VO, "float32")}
-                            | {(n, C5_SYSTEMS, "float32") for n in MG_NODES}
-                            | {(n, C4_LABEL_BATCH, "float64")
-                               for n in MG256_NODES}
-                            | {(n, C512_LABEL_BATCH, "float64")
-                               for n in MG512_NODES}
                             | {(MG128_NODES[0], C2_VO, "float32")}
                             | {(33, 1, "float64"), (33, 1, "float32"),
                                (65, 1, "float64")}
-                            | {(n, C5_SYSTEMS, "bfloat16")
-                               for n in MG_NODES}
                             | {(MG_NODES[0], P16_VO_N, "float64"),
                                (MG_NODES[0], P16_VO_N // 2, "float64")},
                             key=lambda s: (-s[0], -s[1], s[2])),
@@ -623,31 +631,40 @@ def true_residual(fom, Y, alphas, vals, apply_plain):
 
 class plain_applies:
     """Route the batched solver's stencil applies (both forms), the
-    single-system solver's, the V-cycle's and ``fem.assembly``'s (the
+    single-system solver's, the V-cycle's steps and ``fem.assembly``'s (the
     virtual observables') through
-    their plain PyTorch versions for the duration of a ``with`` block."""
+    their plain PyTorch versions for the duration of a ``with`` block;
+    ``launched`` then holds the kernel launches made inside it, by name
+    (none on a plain path)."""
 
     def __enter__(self):
         from generative_physics_informed_pde_tpu_torch.fem import (
             assembly, batched_solver, multigrid, solvers)
         from generative_physics_informed_pde_tpu_torch.ops import (
-            apply_stencil_reference, apply_stencil_sym_reference)
+            apply_stencil_reference, apply_stencil_sym_reference, vcycle)
 
         self.targets = ((batched_solver, "apply_stencil",
                          apply_stencil_reference),
                         (solvers, "apply_stencil", apply_stencil_reference),
                         (batched_solver, "apply_stencil_sym",
                          apply_stencil_sym_reference),
-                        (multigrid, "apply_stencil", apply_stencil_reference),
+                        *((multigrid, f"vcycle_{step}",
+                           getattr(vcycle, f"vcycle_{step}_reference"))
+                          for step in ("presmooth", "restrict", "correct",
+                                       "smooth", "coarse")),
                         (assembly, "apply_stencil", apply_stencil_reference))
         self.saved = [getattr(m, n) for m, n, _ in self.targets]
         for m, n, f in self.targets:
             setattr(m, n, f)
+        self.before = launch_counts()
         return self
 
     def __exit__(self, *exc):
         for (m, n, _), f in zip(self.targets, self.saved):
             setattr(m, n, f)
+        self.launched = {k: n - self.before[k]
+                         for k, n in launch_counts().items()
+                         if n != self.before[k]}
 
 
 class injected_draws:
@@ -793,14 +810,138 @@ def highres_recipe_params(dtype: str = "float32"):
     return p
 
 
-def mg_by_level(mg, k):
-    """K1 launches per V-cycle level (fine first) of one MG-PCG of k
-    iterations: the rhs apply and one matvec per iteration on the fine
-    level, then per V-cycle the sweeps and residual of each level."""
-    per = [(mg.nu_pre + 1 + mg.nu_post) * (k + 1)] * (mg.num_levels - 1)
-    per = per + [mg.nu_coarse * (k + 1)]
-    per[0] += 1 + k
-    return per
+def mg_rows(path, mg, nodes, B, dname, k):
+    """Derived launches [(path, kernel, nodes, B, dtype, launches)] of one
+    MG-PCG of k iterations in ``dname`` on the V-cycle ``mg`` over the
+    levels ``nodes`` (fine first): K1 for the rhs (or the adjoint's
+    K lambda) and one matvec an iteration on the fine level; each of the
+    k + 1 V-cycles one launch of every step a level above the coarsest
+    (``vcycle_smooth`` once a sweep past the fused ones) and one of
+    ``vcycle_coarse`` on the coarsest, in the V-cycle's dtype (float64
+    for an f64 solve)."""
+    if len(nodes) != mg.num_levels:
+        raise AssertionError(f"{path}: a V-cycle of {mg.num_levels} levels "
+                             f"on {nodes}")
+    vdt, cycles = "float64" if dname == "float64" else mg.dtype, k + 1
+    smooths = max(mg.nu_pre - 2, 0) + max(mg.nu_post - 1, 0)
+    rows = [(path, "apply_stencil", nodes[0], B, dname, 1 + k)]
+    for n in nodes[:-1]:
+        rows += [(path, name, n, B, vdt, cycles * per) for name, per in (
+            ("vcycle_presmooth", 1), ("vcycle_restrict", 1),
+            ("vcycle_correct", 1), ("vcycle_smooth", smooths)) if per]
+    rows.append((path, "vcycle_coarse", nodes[-1], B, vdt, cycles))
+    if sum(r[5] for r in rows[1:]) != cycles * mg.launches_per_cycle:
+        raise AssertionError(f"{path}: the steps' launches differ from "
+                             f"{cycles} x launches_per_cycle")
+    return rows
+
+
+def launch_counts():
+    """Every kernel wrapper's launch counter, by name."""
+    from generative_physics_informed_pde_tpu_torch import ops
+
+    return {name: getattr(ops, name).launches for name in STENCILS + FUSED}
+
+
+def check_launches(what, counts, rows):
+    """A path's counted launches ``counts`` (every kernel by name) against
+    the derived ``rows``: equal for every kernel."""
+    want = dict.fromkeys(counts, 0)
+    for r in rows:
+        want[r[1]] += r[5]
+    if want != counts:
+        raise AssertionError(f"{what} launched {counts}, the iteration "
+                             f"counts give {want}")
+
+
+def vcycle_cost(name, n, B, item, nu_coarse):
+    """(bytes, bound ms, bound_by) of one V-cycle step at level (n, n, B)
+    in a type of ``item`` bytes: the 7 coefficient grids and r read once,
+    z too but in presmooth and coarse, the output written once, the
+    free-node masks read once; restrict writes a coarse field and correct
+    reads one.  18 f32 flops a node a sweep (K1's 14, the residual's
+    difference and the update's two products and sum): presmooth two
+    sweeps, coarse ``nu_coarse``, the others one."""
+    step = name.split("_", 1)[1]
+    nc = (n + 1) // 2
+    fields = {"presmooth": 9, "restrict": 9, "correct": 10, "smooth": 10,
+              "coarse": 9}[step]
+    moved = fields * n * n * B * item + n * n * item
+    if step in ("restrict", "correct"):
+        moved += nc * nc * B * item
+    if step == "restrict":
+        moved += nc * nc * item
+    sweeps = {"presmooth": 2, "coarse": nu_coarse}.get(step, 1)
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = 18 * sweeps * n * n * B / F32_FLOPS_PER_S * 1e3
+    return moved, max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                        else "operations")
+
+
+def vcycle_args(name, mg, coefs, mask, r, z, coarse_mask, ec):
+    """The arguments of V-cycle step ``name`` as ``mg.apply`` passes them
+    on a level (``coarse_mask`` and ``ec`` of the coarser level)."""
+    return {"vcycle_presmooth": (coefs, mask, r, mg.omega,
+                                 min(mg.nu_pre, 2)),
+            "vcycle_restrict": (coefs, mask, r, z, coarse_mask),
+            "vcycle_correct": (coefs, mask, r, z, ec, mg.omega,
+                               min(mg.nu_post, 1)),
+            "vcycle_smooth": (coefs, mask, r, z, mg.omega),
+            "vcycle_coarse": (coefs, mask, r, mg.omega, mg.nu_coarse)}[name]
+
+
+def vcycle_inputs(n, B, dtype, gen):
+    """Random inputs of the V-cycle's steps at level (n, n, B) on the card:
+    K1's (coefs, mask) and r of ``shape_inputs``, a normal z, and the
+    coarser level's 'ND' free mask and a normal e at ((n+1)/2, (n+1)/2,
+    B); ``gen`` is a CUDA generator, bf16 drawn in f32 and rounded."""
+    import torch
+    from generative_physics_informed_pde_tpu_torch import fem
+
+    coefs, r, mask = shape_inputs("apply_stencil", n, B, dtype, gen)
+    nc = (n + 1) // 2
+
+    def normal(m):
+        return torch.randn(m, m, B, generator=gen, device="cuda",
+                           dtype=torch.float64 if dtype == "float64"
+                           else torch.float32).to(r.dtype)
+
+    coarse_mask = torch.as_tensor(fem.DirichletProfile(
+        fem.StructuredTriGrid(nc - 1, nc - 1)).free_mask.reshape(nc, nc, 1),
+        dtype=r.dtype, device="cuda")
+    return coefs, mask, r, normal(n), coarse_mask, normal(nc)
+
+
+def vcycle_levels_check(mg, alphas, gen):
+    """Every V-cycle step bit for bit against its plain version on every
+    level of ``mg.setup(alphas)`` (in ``mg.dtype``), with normal r and z
+    and the coarser level's mask and a normal e; ``gen`` a CPU generator.
+    Returns the levels' shapes."""
+    import torch
+    from generative_physics_informed_pde_tpu_torch.ops import vcycle
+
+    levels = mg.setup(alphas)
+    shapes = []
+    for li, (coefs, mask) in enumerate(levels):
+        def normal(shape):
+            return torch.randn(shape, generator=gen, dtype=torch.float64
+                               ).to(coefs.dtype).cuda()
+
+        r, z = normal(coefs.shape[1:]), normal(coefs.shape[1:])
+        last = li == len(levels) - 1
+        coarse_mask, ec = (None, None) if last else (
+            levels[li + 1][1], normal(levels[li + 1][0].shape[1:]))
+        for name in (FUSED[-1:] if last else FUSED[:-1]):
+            args = vcycle_args(name, mg, coefs, mask, r, z, coarse_mask, ec)
+            got = getattr(vcycle, name)(*args)
+            ref = getattr(vcycle, f"{name}_reference")(*args)
+            if got.dtype != ref.dtype or got.shape != ref.shape \
+                    or not torch.equal(bits(got), bits(ref)):
+                raise AssertionError(f"{name} is not bit-equal to its plain "
+                                     f"version at {tuple(r.shape)} "
+                                     f"{mg.dtype}")
+        shapes.append(tuple(r.shape))
+    return shapes
 
 
 def config3_params(dtype: str = "float32", n_labeled: int = 128,
@@ -1247,7 +1388,7 @@ def phase9_config3(card, gen, start_path, end_path, report_profile):
     from generative_physics_informed_pde_tpu_torch.factories import (
         highres128)
     from generative_physics_informed_pde_tpu_torch.ops import (
-        apply_stencil, apply_stencil_reference)
+        apply_stencil_reference)
     from generative_physics_informed_pde_tpu_torch.training import (
         CreateTrainer)
 
@@ -1283,9 +1424,9 @@ def phase9_config3(card, gen, start_path, end_path, report_profile):
     torch.cuda.synchronize()
     c3_label_ms = t_s.elapsed_time(t_e)
     c3_label_iters = list(dl_c3.label_iterations)
-    c3_label_launches = apply_stencil.launches
-    per_level = [sum(c) for c in zip(*(mg_by_level(mg_c3, k)
-                                       for k in c3_label_iters))]
+    c3_label_launches = launch_counts()
+    c3_rows = [r for k in c3_label_iters for r in mg_rows(
+        "9 config3 train", mg_c3, MG128_NODES, C3_LABEL_BATCH, "float64", k)]
     a_c3 = torch.exp(torch.as_tensor(dl_c3.X_DG, device="cuda"))
     v_c3 = torch.as_tensor(dl_c3.BCE.constrained_values("fom"),
                            device="cuda")
@@ -1295,12 +1436,10 @@ def phase9_config3(card, gen, start_path, end_path, report_profile):
     say(f"  pools drawn in {pool_c3_s:.2f} s (FFT, Matern-3/2, keys 0/1); "
         f"labels: {C3_LABELED} fields f64 in {c3_label_ms:.1f} ms "
         f"(dispatches of {C3_LABEL_BATCH}), PCG iterations "
-        f"{c3_label_iters}, {c3_label_launches} K1 launches, per level "
-        f"{dict(zip(MG128_NODES, per_level))}; true relative residual max "
+        f"{c3_label_iters}, launches {c3_label_launches}; true relative "
+        f"residual max "
         f"{c3_res:.3e} (bound {C3_RESIDUAL:g})")
-    if c3_label_launches != sum(per_level):
-        raise AssertionError("config 3 label launches differ from the "
-                             "count of the V-cycle's applies")
+    check_launches("config 3's labels", c3_label_launches, c3_rows)
     if not c3_res <= C3_RESIDUAL:
         raise AssertionError("config 3 labels exceed their residual bound")
     del v_c3, Y_c3
@@ -1324,18 +1463,12 @@ def phase9_config3(card, gen, start_path, end_path, report_profile):
     trainer_c3.run(C3_STEPS, verbose=False)
     t_e.record()
     c3_counts = end_path("9 config3 train")
-    # K1 on every level of the first label dispatch, bit for bit (after
-    # the path: these launches are not the path's)
-    for coefs, _, mask in dataclasses.replace(
-            mg_c3, dtype="float64").setup(a_c3[:C3_LABEL_BATCH]):
-        v = torch.randn(coefs.shape[1:], generator=gen,
-                        dtype=torch.float64).cuda()
-        if not torch.equal(bits(apply_stencil(coefs, v, mask)),
-                           bits(apply_stencil_reference(coefs, v, mask))):
-            raise AssertionError(f"apply_stencil differs from its plain "
-                                 f"version at {tuple(v.shape)} f64")
-    say("  K1 bit-equal to its plain version on the six V-cycle levels of "
-        "the first label dispatch")
+    # the V-cycle's steps on every level of the first label dispatch, bit
+    # for bit (after the path: these launches are not the path's)
+    vcycle_levels_check(dataclasses.replace(mg_c3, dtype="float64"),
+                        a_c3[:C3_LABEL_BATCH], gen)
+    say("  the V-cycle's steps bit-equal to their plain versions on the six "
+        "levels of the first label dispatch")
     run_c3_s = t_s.elapsed_time(t_e) / 1e3
     elbos_c3 = trainer_c3.elbos()
     res_c3 = trainer_c3.results()
@@ -1346,10 +1479,7 @@ def phase9_config3(card, gen, start_path, end_path, report_profile):
     say(f"  ELBO step 0 {elbos_c3[0].item():.6g}, mean steps 0-19 "
         f"{first:.6g}, steps {C3_STEPS - 20}-{C3_STEPS - 1} {last:.6g}; "
         f"results {res_c3}")
-    if c3_counts["apply_stencil"] != c3_label_launches \
-            or sum(c3_counts.values()) != c3_label_launches:
-        raise AssertionError("the config 3 path launched other kernels "
-                             "than the label solve's K1")
+    check_launches("the config 3 path", c3_counts, c3_rows)
     if elbos_c3.shape != (C3_STEPS,) \
             or not bool(torch.isfinite(elbos_c3).all()) or not last > first:
         raise AssertionError("the config 3 ELBO is not finite and rising")
@@ -1730,7 +1860,10 @@ def phase10_persistence(card, c3, start_path, end_path, report_profile):
                                if not isinstance(smp, FluxConstrainSampler))
         failures2 = tr2.writer.scalars.get(
             "Monitor/VO_conditioning_failures", [])
-        label_launches2 = sum(sum(mg_by_level(mg2, k)) for k in iters2)
+        rows2 = [r for k in iters2 for r in mg_rows(
+            "10d config2", mg2, MG_NODES, C2_LABEL_BATCH, "float64", k)]
+        rows2.append(("10d config2", "apply_stencil", MG_NODES[0], C2_VO,
+                      "float32", k1_per_assembly2 * (1 + len(refreshes2))))
         elbos2 = tr2.elbos().double()
         vo_on = torch.stack(switched).double().cpu()
         held = elbos2 - vo_on
@@ -1759,10 +1892,7 @@ def phase10_persistence(card, c3, start_path, end_path, report_profile):
                                  "5-level V-cycle")
         if refreshes2 != C2_REFRESHES:
             raise AssertionError(f"config 2 refreshed at {refreshes2}")
-        if counts2["apply_stencil"] != label_launches2 \
-                + k1_per_assembly2 * (1 + len(refreshes2)) \
-                or sum(counts2.values()) != counts2["apply_stencil"]:
-            raise AssertionError(f"config 2 launched {counts2}")
+        check_launches("config 2", counts2, rows2)
         if failures2:
             raise AssertionError(f"config 2 conditioning failures "
                                  f"{failures2}")
@@ -1833,7 +1963,7 @@ def phase11_config5(card, start_path, end_path, report_profile):
     """Phase 11: BASELINE config 5 (``examples/baseline_configs.py``
     ``config5``: ``examples/torch_uncertainty_study.py`` with 4096 fields
     a case) on the card.  The runner's study module sweeps 16,384 64^2
-    f32 fields in one batched solve under the V-cycle on K1, cold and then
+    f32 fields in one batched solve under the fused V-cycle, cold and then
     warm with fresh fields (seed 1): seconds and solves/s on the host
     clock after the moments reach the host, PCG iterations, K1 launches
     per level, the warm sweep's device busy share and peak memory.  Then
@@ -1881,18 +2011,15 @@ def phase11_config5(card, start_path, end_path, report_profile):
     counts = end_path("11 config5 sweep")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     peak_above_gb = (torch.cuda.max_memory_allocated() - mem0) / 1e9
-    per_level = [sum(c) for c in zip(*(mg_by_level(mg, r["iterations"])
-                                       for r in runs.values()))]
     for what, r in runs.items():
         say(f"  {what}: {r['s']:.3f} s, {C5_SYSTEMS / r['s']:.0f} solves/s, "
             f"{r['iterations']} PCG iterations")
-    say(f"  K1 launches {counts}, per level "
-        f"{dict(zip(MG_NODES, per_level))}; peak memory {peak_gb:.2f} GB "
-        f"allocated ({peak_above_gb:.2f} GB above the phase's start)")
-    if counts["apply_stencil"] != sum(per_level) \
-            or sum(counts.values()) != counts["apply_stencil"]:
-        raise AssertionError("the config 5 sweep's launches differ from "
-                             "the count of the V-cycle's applies")
+    say(f"  launches {counts}; peak memory {peak_gb:.2f} GB allocated "
+        f"({peak_above_gb:.2f} GB above the phase's start)")
+    check_launches("the config 5 sweep", counts, [
+        row for r in runs.values() for row in mg_rows(
+            "11 config5 sweep", mg, MG_NODES, C5_SYSTEMS, "float32",
+            r["iterations"])])
     busy = report_profile("warm config 5 sweep", lambda: sweep(1),
                           1e3 * runs["warm"]["s"])
 
@@ -1970,7 +2097,7 @@ def phase11_config5(card, start_path, end_path, report_profile):
                                      for k, r in runs.items()},
             "seconds": {k: r["s"] for k, r in runs.items()},
             "solves_per_s": {k: C5_SYSTEMS / r["s"] for k, r in runs.items()},
-            "launches_per_level": dict(zip(MG_NODES, per_level)),
+            "launches": counts,
             "busy_share": busy, "peak_gb": peak_gb,
             "peak_gb_above_start": peak_above_gb,
             "max_true_residual": max_res, "f64_card_vs_cpu_rel": e64,
@@ -1979,33 +2106,36 @@ def phase11_config5(card, start_path, end_path, report_profile):
             "phase_s": phase_s}
 
 
-def label_pool(dl, phys, nodes, label_batch):
+def label_pool(dl, phys, nodes, label_batch, path):
     """Label the pool ``dl`` with the physics' 'auto' solve (its V-cycle of
     ``len(nodes)`` levels) in the loader's dispatches of ``label_batch``:
-    (ms by CUDA events, PCG iterations per dispatch, K1 launches per level
-    (fine first), the f64 true relative residual's max over the pool, the
-    first dispatch's conductivities)."""
+    (ms by CUDA events, PCG iterations per dispatch, the derived launches
+    of ``path``'s labels (``mg_rows``, checked against the counted ones),
+    the f64 true relative residual's max over the pool, the first
+    dispatch's conductivities)."""
     import torch
     from generative_physics_informed_pde_tpu_torch.ops import (
-        apply_stencil, apply_stencil_reference)
+        apply_stencil_reference)
 
     fom = phys["fom"]
     mg = fom._batched_solver.mg
     if mg is None or mg.num_levels != len(nodes):
         raise AssertionError(f"'auto' did not pick a {len(nodes)}-level "
                              f"V-cycle at {nodes[0]} nodes a side")
-    launches0 = apply_stencil.launches
+    before = launch_counts()
     t_s, t_e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     t_s.record()
     dl.assemble(phys)
     t_e.record()
     torch.cuda.synchronize()
     iters = list(dl.label_iterations)
-    per_level = [sum(c) for c in zip(*(mg_by_level(mg, k) for k in iters))]
-    if apply_stencil.launches - launches0 != sum(per_level) \
-            or dl.label_batch != label_batch:
-        raise AssertionError("the label launches differ from the count of "
-                             "the V-cycle's applies")
+    rows = [r for k in iters for r in mg_rows(path, mg, nodes, label_batch,
+                                              "float64", k)]
+    if dl.label_batch != label_batch:
+        raise AssertionError(f"the loader labeled in dispatches of "
+                             f"{dl.label_batch}")
+    check_launches(f"{path}'s labels", {
+        k: n - before[k] for k, n in launch_counts().items()}, rows)
     a = torch.exp(torch.as_tensor(dl.X_DG, device="cuda"))
     v = torch.as_tensor(dl.BCE.constrained_values("fom"), device="cuda")
     res = max(true_residual(fom, torch.as_tensor(dl.Y[i:i + label_batch],
@@ -2013,27 +2143,7 @@ def label_pool(dl, phys, nodes, label_batch):
                             a[i:i + label_batch], v[i:i + label_batch],
                             apply_stencil_reference).max().item()
               for i in range(0, dl.N, label_batch))
-    return (t_s.elapsed_time(t_e), iters, dict(zip(nodes, per_level)), res,
-            a[:label_batch])
-
-
-def k1_levels_check(mg, alphas, gen):
-    """K1 bit for bit against its plain version on every V-cycle level of
-    a label dispatch of conductivities ``alphas`` (f64)."""
-    import torch
-    from generative_physics_informed_pde_tpu_torch.ops import (
-        apply_stencil, apply_stencil_reference)
-
-    for coefs, _, mask in dataclasses.replace(
-            mg, dtype="float64").setup(alphas):
-        x = torch.randn(coefs.shape[1:], generator=gen,
-                        dtype=torch.float64).cuda()
-        if not torch.equal(bits(apply_stencil(coefs, x, mask)),
-                           bits(apply_stencil_reference(coefs, x, mask))):
-            raise AssertionError(f"apply_stencil differs from its plain "
-                                 f"version at {tuple(x.shape)} f64")
-    say(f"  K1 bit-equal to its plain version on the {mg.num_levels} "
-        f"V-cycle levels of the first label dispatch")
+    return t_s.elapsed_time(t_e), iters, rows, res, a[:label_batch]
 
 
 def check_run(what, tr, steps, plans):
@@ -2144,8 +2254,8 @@ def phase12_config4(card, gen, start_path, end_path, report_profile):
                            device="cuda")
     pool_s = time.perf_counter() - t0
     phys = highres128(**p.margs).setup(device="cuda")[0]
-    label_ms, iters, per_level, res, a0 = label_pool(dl, phys, MG256_NODES,
-                                                     C4_LABEL_BATCH)
+    label_ms, iters, rows, res, a0 = label_pool(dl, phys, MG256_NODES,
+                                                C4_LABEL_BATCH, "12 config4")
     t0 = time.perf_counter()
     tr = drv._run(p, dl, dlu, C4_STEPS, device="cuda")
     torch.cuda.synchronize()
@@ -2156,15 +2266,16 @@ def phase12_config4(card, gen, start_path, end_path, report_profile):
     say(f"  pools (FFT, keys 0/1) {pool_s:.2f} s ({dlu.X.nbytes / 1e9:.2f} "
         f"GB of f64 unlabeled fields on the host); labels {dl.N} fields f64 "
         f"in {label_ms:.1f} ms, PCG iterations {iters} (dispatches of "
-        f"{C4_LABEL_BATCH}), K1 per level {per_level}, true relative "
+        f"{C4_LABEL_BATCH}), true relative "
         f"residual max {res:.3e} (bound {C3_RESIDUAL:g}); set-up, "
         f"{C4_STEPS} steps, monitor and final analysis {run_s:.2f} s; "
         f"launches {counts}; peak {peak_gb:.2f} GB allocated "
         f"({peak_above_gb:.2f} above the phase's start)")
-    if counts["apply_stencil"] != sum(per_level.values()) \
-            or sum(counts.values()) != counts["apply_stencil"]:
-        raise AssertionError(f"the config 4 path launched {counts}")
-    k1_levels_check(phys["fom"]._batched_solver.mg, a0, gen)
+    check_launches("the config 4 path", counts, rows)
+    vcycle_levels_check(dataclasses.replace(
+        phys["fom"]._batched_solver.mg, dtype="float64"), a0, gen)
+    say(f"  the V-cycle's steps bit-equal to their plain versions on the "
+        f"{len(MG256_NODES)} levels of the first label dispatch")
     del a0
     if not res <= C3_RESIDUAL:
         raise AssertionError("config 4 labels exceed their residual bound")
@@ -2186,7 +2297,7 @@ def phase12_config4(card, gen, start_path, end_path, report_profile):
     phase_s = time.perf_counter() - t_phase
     say(f"  phase 12 took {phase_s:.1f} s")
     return {"label_iterations": iters, "mg": phys["fom"]._batched_solver.mg,
-            "label_ms": label_ms, "launches_per_level": per_level,
+            "label_ms": label_ms, "launches": counts,
             "label_residual": res, "pool_s": pool_s,
             "steps_per_s": 1e3 / step_ms, "busy_share": busy,
             "peak_gb": peak_gb, "peak_gb_above_start": peak_above_gb,
@@ -2238,8 +2349,8 @@ def phase13_config512(card, gen, start_path, end_path, report_profile):
                                seed=rec["pools"][2], device="cuda")
         pool_s = time.perf_counter() - t0
         phys = highres128(**p.margs).setup(device="cuda")[0]
-        label_ms, iters, per_level, res, a0 = label_pool(
-            dl, phys, MG512_NODES, C512_LABEL_BATCH)
+        label_ms, iters, rows, res, a0 = label_pool(
+            dl, phys, MG512_NODES, C512_LABEL_BATCH, "13 config512")
         t0 = time.perf_counter()
         tr_a = drv._run(p, dl, dlu, C512_SEG, ckpt_dir=ckpt_dir,
                         seg=C512_SEG, device="cuda")
@@ -2259,7 +2370,7 @@ def phase13_config512(card, gen, start_path, end_path, report_profile):
         peak_above_gb = (torch.cuda.max_memory_allocated() - mem0) / 1e9
         say(f"  pools (FFT, keys 0/1) {pool_s:.2f} s; labels {dl.N} fields "
             f"f64 in {label_ms:.1f} ms, PCG iterations {iters} (dispatches "
-            f"of {C512_LABEL_BATCH}), K1 per level {per_level}, true "
+            f"of {C512_LABEL_BATCH}), true "
             f"relative residual max {res:.3e} (bound {C3_RESIDUAL:g}); "
             f"segments {seg_a_s:.2f} s + {seg_b_s:.2f} s (set-up, steps, "
             f"monitor, checkpoint, final analysis); resumed at gn "
@@ -2267,10 +2378,11 @@ def phase13_config512(card, gen, start_path, end_path, report_profile):
             f"{tr._monitor['elbo_iter']}; launches {counts}; peak "
             f"{peak_gb:.2f} GB allocated ({peak_above_gb:.2f} above the "
             f"phase's start)")
-        if counts["apply_stencil"] != sum(per_level.values()) \
-                or sum(counts.values()) != counts["apply_stencil"]:
-            raise AssertionError(f"the config 512 path launched {counts}")
-        k1_levels_check(phys["fom"]._batched_solver.mg, a0, gen)
+        check_launches("the config 512 path", counts, rows)
+        vcycle_levels_check(dataclasses.replace(
+            phys["fom"]._batched_solver.mg, dtype="float64"), a0, gen)
+        say(f"  the V-cycle's steps bit-equal to their plain versions on "
+            f"the {len(MG512_NODES)} levels of the first label dispatch")
         del a0
         if not res <= C3_RESIDUAL:
             raise AssertionError("config 512 labels exceed their residual "
@@ -2334,7 +2446,7 @@ def phase13_config512(card, gen, start_path, end_path, report_profile):
     phase_s = time.perf_counter() - t_phase
     say(f"  phase 13 took {phase_s:.1f} s")
     return {"label_iterations": iters, "mg": phys["fom"]._batched_solver.mg,
-            "label_ms": label_ms, "launches_per_level": per_level,
+            "label_ms": label_ms, "launches": counts,
             "label_residual": res, "pool_s": pool_s,
             "segment_s": [seg_a_s, seg_b_s], "steps_per_s": 1e3 / step_ms,
             "busy_share": busy, "peak_gb": peak_gb,
@@ -2418,7 +2530,10 @@ def phase14_vo_configs(card, start_path, end_path, report_profile):
         fom = tr.physics["fom"]
         mg = fom._batched_solver.mg
         iters = list(dl.label_iterations)
-        label_launches = sum(sum(mg_by_level(mg, k)) for k in iters)
+        levels = MG_NODES if fom.grid.nx + 1 == MG_NODES[0] \
+            else MG128_NODES
+        rows = [r for k in iters for r in mg_rows(
+            f"14 config{c}", mg, levels, dl.label_batch, "float64", k)]
         if energy:
             # per update: each subspace iteration applies K_ff to its test
             # columns and to the iterate, then one effective force
@@ -2446,9 +2561,9 @@ def phase14_vo_configs(card, start_path, end_path, report_profile):
             f"); launches {counts}")
         if refreshes != VO_REFRESHES[c]:
             raise AssertionError(f"config {c} refreshed at {refreshes}")
-        if counts["apply_stencil"] != label_launches + vo_launches \
-                or sum(counts.values()) != counts["apply_stencil"]:
-            raise AssertionError(f"config {c} launched {counts}")
+        rows.append((f"14 config{c}", "apply_stencil", fom.grid.nx + 1,
+                     C2_VO, "float32", vo_launches))
+        check_launches(f"config {c}", counts, rows)
         if not res <= C3_RESIDUAL:
             raise AssertionError(f"config {c} labels exceed their residual "
                                  "bound")
@@ -3426,9 +3541,8 @@ def phase16_sharded(card, dl, dlu, start_path, end_path, add_path):
         dl_vo.assemble(phys_vo)
         end_path("16e labels")
         mg = phys_vo["fom"]._batched_solver.mg
-        derived += [("16e labels", "apply_stencil", n, dl_vo.label_batch,
-                     "float64", c) for k in dl_vo.label_iterations
-                    for n, c in zip(MG_NODES, mg_by_level(mg, k))]
+        derived += [r for k in dl_vo.label_iterations for r in mg_rows(
+            "16e labels", mg, MG_NODES, dl_vo.label_batch, "float64", k)]
         vo_data = dict(X=dl_vo.X, X_DG=dl_vo.X_DG, Y=dl_vo.Y,
                        F=dl_vo.F_ROM_BC, thetas=dl_vo.BCE.thetas, Xu=Xu_vo)
         np.savez(os.path.join(tmp, "vo.npz"), **vo_data)
@@ -3647,9 +3761,8 @@ def phase16_sharded(card, dl, dlu, start_path, end_path, add_path):
         tr, out = r["tr"], r["out"]
         mg = tr.physics["fom"]._batched_solver.mg
         path = f"16c {arm}"
-        label_rows = [(path, "apply_stencil", n, tr.dl.label_batch,
-                       "float64", c) for k in tr.dl.label_iterations
-                      for n, c in zip(MG_NODES, mg_by_level(mg, k))]
+        label_rows = [r for k in tr.dl.label_iterations for r in mg_rows(
+            path, mg, MG_NODES, tr.dl.label_batch, "float64", k)]
         vo = 0
         if arm == "constrain":
             per = sum(smp.m + 1 for smp in tr.VO.sampler.samplers
@@ -3691,9 +3804,10 @@ def phase16_sharded(card, dl, dlu, start_path, end_path, add_path):
 
 
 def phase17_options(card, resumed, dl, dlu, start_path, end_path):
-    """Phase 17: the options the port took over last.  (a) K1 in bf16
-    against its plain version, bit for bit, at every V-cycle level of
-    config 5's pool, (65..5)^2 x 16,384; (b) config 5's 16,384 64^2 f32
+    """Phase 17: the options the port took over last.  (a) The V-cycle's
+    steps in bf16 against their plain versions, bit for bit, on every
+    level of config 5's pool, (65..5)^2 x 16,384; (b) config 5's 16,384
+    64^2 f32
     fields (the warm sweep's, seed 1) solved under the bf16 V-cycle
     (``precond_dtype="bfloat16"``, the main path: its launches are
     counted) and under the f32 V-cycle, every system's true residual, the
@@ -3717,7 +3831,7 @@ def phase17_options(card, resumed, dl, dlu, start_path, end_path):
     from generative_physics_informed_pde_tpu_torch.fem.batched_solver \
         import make_batched_fom_solver
     from generative_physics_informed_pde_tpu_torch.ops import (
-        apply_stencil, apply_stencil_reference)
+        apply_stencil_reference)
     from generative_physics_informed_pde_tpu_torch.serving import (
         SurrogateBundle)
     from generative_physics_informed_pde_tpu_torch.training import (
@@ -3725,24 +3839,9 @@ def phase17_options(card, resumed, dl, dlu, start_path, end_path):
 
     t_phase = time.perf_counter()
     out, derived = {}, []
-    say(f"phase 17: the bf16 V-cycle on K1 in bf16, the two-platform "
+    say(f"phase 17: the bf16 V-cycle in its step kernels, the two-platform "
         f"bundle, the profiled run, BC encodings; card: {card}")
-    # ------------------------------------------- (a) K1 bf16 at each level
-    kgen = torch.Generator(device="cuda").manual_seed(17)
-    for n in MG_NODES:
-        coefs, v, mask = shape_inputs("apply_stencil", n, C5_SYSTEMS,
-                                      "bfloat16", kgen)
-        got = apply_stencil(coefs, v, mask)
-        ref = apply_stencil_reference(coefs, v, mask)
-        if got.dtype != torch.bfloat16 \
-                or not torch.equal(bits(got), bits(ref)):
-            raise AssertionError(f"K1 bf16 is not bit-equal to its plain "
-                                 f"version at {(n, n, C5_SYSTEMS)}")
-        del coefs, v, mask, got, ref
-    say(f"  (a) K1 bf16 bit-equal to its plain version at "
-        f"{[(n, n, C5_SYSTEMS) for n in MG_NODES]}")
-
-    # ------------------------------- (b) config 5's pool, bf16 vs f32 V-cycle
+    # ------------------------ (a) + (b) config 5's pool, bf16 vs f32 V-cycle
     us = torch_runner().torch_uncertainty_study
     phys = fem.LinearEllipticPhysics("fom", "ND", fem.StructuredTriGrid(
         C5_N, C5_N), device="cuda")
@@ -3757,21 +3856,19 @@ def phase17_options(card, resumed, dl, dlu, start_path, end_path):
     mg = solvers["bfloat16"].mg
     if mg.dtype != "bfloat16" or mg.num_levels != len(MG_NODES):
         raise AssertionError(f"the bf16 solver's V-cycle is {mg}")
+    shapes = vcycle_levels_check(mg, alphas, torch.Generator().manual_seed(
+        17))
+    torch.cuda.empty_cache()
+    say(f"  (a) the V-cycle's steps in bf16 bit-equal to their plain "
+        f"versions on the levels {shapes}")
     path = "17 bf16 V-cycle"
     start_path()
     Y = {"bfloat16": solvers["bfloat16"](alphas, bc)}
     counts = end_path(path)
     k = solvers["bfloat16"].iterations
-    per = mg_by_level(mg, k)
-    derived.append((path, "apply_stencil", MG_NODES[0], C5_SYSTEMS,
-                    "float32", 1 + k))
-    for i, n in enumerate(MG_NODES):
-        derived.append((path, "apply_stencil", n, C5_SYSTEMS, "bfloat16",
-                        per[i] - (1 + k if i == 0 else 0)))
-    if counts["apply_stencil"] != sum(per) \
-            or sum(counts.values()) != counts["apply_stencil"]:
-        raise AssertionError(f"the bf16 V-cycle solve launched {counts} for "
-                             f"{k} iterations, expected {sum(per)} K1")
+    rows = mg_rows(path, mg, MG_NODES, C5_SYSTEMS, "float32", k)
+    check_launches(f"the bf16 V-cycle solve of {k} iterations", counts, rows)
+    derived += rows
     Y["float32"] = solvers["float32"](alphas, bc)
     iters = {d: s_.iterations for d, s_ in solvers.items()}
     res = {}
@@ -3789,15 +3886,14 @@ def phase17_options(card, resumed, dl, dlu, start_path, end_path):
         f"ms warm, true residual max {res['bfloat16']:.3e}; f32 V-cycle "
         f"{iters['float32']} iterations, {ms['float32']:.2f} ms, "
         f"{res['float32']:.3e} (bound {F32_FLOOR:g}); bf16 vs f32 labels "
-        f"rel-L2 max {diff:.3e}; K1 launches {counts} (medians of 3, CUDA "
-        f"events); card: {card}")
+        f"rel-L2 max {diff:.3e}; bf16 launches {counts} (medians of 3, "
+        f"CUDA events); card: {card}")
     if not max(res.values()) <= F32_FLOOR or not diff <= F32_FLOOR:
         raise AssertionError("a config 5 system's residual under the bf16 "
                              "or f32 V-cycle exceeds the f32 floor")
     out["bf16_vcycle"] = dict(
         iterations=iters, warm_ms=ms, max_true_residual=res,
-        bf16_vs_f32_rel=diff, launches=counts["apply_stencil"],
-        launches_per_level=dict(zip(MG_NODES, per)))
+        bf16_vs_f32_rel=diff, launches=counts)
     del alphas, bc, Y, solvers
 
     # --------------------------------- (c) the JAX test's high-contrast case
@@ -3939,6 +4035,58 @@ def phase17_options(card, resumed, dl, dlu, start_path, end_path):
     return derived, out
 
 
+def vcycle_shape_rows(shape_launches, mg, gen, flush):
+    """Phase 8's rows of the V-cycle's steps: at every shape of
+    ``VCYCLE_SHAPES``, random inputs (``vcycle_inputs``, ``mg``'s sweeps)
+    held bit for bit against the plain version, the flushed / clean / warm
+    times, the byte bound and ``shape_launches``' launches there.  Returns
+    {step: (rows, the times at config 5's levels in f32 with the plain
+    version's)}; ``gen`` a CUDA generator, ``flush`` a zeroed tensor
+    larger than the L2."""
+    import torch
+    from generative_physics_informed_pde_tpu_torch.ops import vcycle
+
+    out = {}
+    for kname, shapes in VCYCLE_SHAPES.items():
+        kernel = getattr(vcycle, kname)
+        plain = getattr(vcycle, f"{kname}_reference")
+        rows, timing = [], None
+        for nodes, B, dname in shapes:
+            inputs = vcycle_inputs(nodes, B, dname, gen)
+            args = vcycle_args(kname, mg, *inputs)
+            got, ref = kernel(*args), plain(*args)
+            if got.dtype != ref.dtype or got.shape != ref.shape \
+                    or not torch.equal(bits(got), bits(ref)):
+                raise AssertionError(f"{kname} is not bit-equal to its plain "
+                                     f"version at {(nodes, nodes, B)} "
+                                     f"{dname}")
+            moved, bound, by = vcycle_cost(kname, nodes, B,
+                                           got.element_size(), mg.nu_coarse)
+            # warm first: the 256 MB flushes slow the calls that follow
+            t_w = cuda_time_ms(lambda: kernel(*args), 200)
+            t_c = cuda_time_ms(lambda: kernel(*args), 100, flush.sum)
+            t_f = cuda_time_ms(lambda: kernel(*args), 100, flush)
+            launches = shape_launches[(kname, nodes, B, dname)]
+            rows.append(dict(
+                shape=[nodes, nodes, B], dtype=dname, launches=launches,
+                bytes=moved, bound_ms=bound, bound_by=by, ms=t_f,
+                ms_l2_clean=t_c, ms_l2_warm=t_w,
+                share_of_bound=bound / t_c,
+                excess_ms=launches * (t_c - bound)))
+            if (B, dname) == (C5_SYSTEMS, "float32") and nodes == (
+                    MG_NODES[-1] if kname == "vcycle_coarse"
+                    else MG_NODES[0]):
+                timing = dict(
+                    ms=t_f, ms_l2_clean=t_c, ms_l2_warm=t_w,
+                    plain_ms_l2_warm=cuda_time_ms(lambda: plain(*args), 20),
+                    plain_ms=cuda_time_ms(lambda: plain(*args), 10, flush),
+                    bound_ms=bound, bound_by=by, bytes=moved,
+                    shape=[nodes, nodes, B], dtype=dname)
+            del inputs, args, got, ref
+        out[kname] = (rows, timing)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3959,6 +4107,7 @@ def main() -> int:
     from generative_physics_informed_pde_tpu_torch.fem.batched_solver \
         import make_batched_fom_solver
     from generative_physics_informed_pde_tpu_torch.factories import highres
+    from generative_physics_informed_pde_tpu_torch import ops
     from generative_physics_informed_pde_tpu_torch.ops import (
         _build, apply_stencil, apply_stencil_reference, apply_stencil_sym,
         apply_stencil_sym_blocked, apply_stencil_sym_blocked_reference,
@@ -3968,7 +4117,7 @@ def main() -> int:
     from generative_physics_informed_pde_tpu_torch.training import (
         CreateTrainer)
 
-    kernels_ = (apply_stencil, apply_stencil_sym, apply_stencil_sym_blocked)
+    kernels_ = tuple(getattr(ops, name) for name in STENCILS + FUSED)
     main_launches = {k.__name__: 0 for k in kernels_}
     path_launches = {}
 
@@ -4126,11 +4275,10 @@ def main() -> int:
                                  f"solve {err:.3e}")
     say(f"  f64 labels agree with the dense direct solve on 4 samples "
         f"(tolerance {DIRECT_RTOL:g})")
-    with plain_applies():
-        before = apply_stencil.launches
+    with plain_applies() as plain:
         Y_plain = fom.solve_batched(alphas, vals)
-        if apply_stencil.launches != before:
-            raise AssertionError("the plain-path solve launched the kernel")
+    if plain.launched:
+        raise AssertionError(f"the plain-path solve launched {plain.launched}")
     path_err = ((Y - Y_plain).abs().max() / Y_plain.abs().max()).item()
     say(f"  kernel-path vs plain-path labels: max rel diff {path_err:.3e} "
         f"(tolerance {PATH_RTOL:g})")
@@ -4208,11 +4356,13 @@ def main() -> int:
         say(f"  sym={sym}: {solver.iterations} forward + "
             f"{solver.adjoint_iterations} adjoint iterations, launches "
             f"{counts}")
-        if counts[used] != expect or sum(counts.values()) != expect:
-            raise AssertionError(f"VJP sym={sym}: launches {counts}, "
-                                 f"expected {expect} of {used} only")
-        with plain_applies():
+        check_launches(f"VJP sym={sym}", counts,
+                       [(None, used, 33, N, "float64", expect)])
+        with plain_applies() as plain:
             _, pa, pb, _ = solve_grads(fom, alphas64, vals64, w, sym)
+        if plain.launched:
+            raise AssertionError(f"the plain-path VJP sym={sym} launched "
+                                 f"{plain.launched}")
         err = max(rel_diff(ga, pa), rel_diff(gb, pb))
         say(f"    kernel path vs plain path: max rel diff {err:.3e} "
             f"(tolerance {VJP_PATH_RTOL:g})")
@@ -4709,19 +4859,14 @@ def main() -> int:
     solver_hr = fom_hr._batched_solver
     if solver_hr.mg is None:
         raise AssertionError("'auto' did not pick the V-cycle at 64^2")
-    per_cycle = solver_hr.mg.applies_per_cycle
     say(f"  pool drawn in {draw_s:.2f} s (KL, {dl_hr.X.shape[0]} fields; "
         f"eigh on the card); V-cycle {solver_hr.mg.num_levels} levels, "
-        f"{per_cycle} K1 applies per cycle, maxiter {solver_hr.maxiter}")
+        f"{solver_hr.mg.launches_per_cycle} fused launches and no K1 per "
+        f"cycle, maxiter {solver_hr.maxiter}")
     bce_hr = fem.BoundaryConditionEnsemble.from_factory(
         "ND", X_hr.shape[0], np.random.default_rng(0))
     bce_hr.register_function_space("fom", fom_hr.grid)
     bce_hr.register_function_space("rom", phys_hr["rom"].grid)
-
-    def mg_launches(k, first=1):
-        """K1 launches of one MG-PCG: the rhs (or K lambda) apply, one
-        matvec per iteration, one V-cycle per iteration and one first."""
-        return first + k + (k + 1) * per_cycle
 
     hr = {}
     for dtype in (torch.float32, torch.float64):
@@ -4741,13 +4886,12 @@ def main() -> int:
         hr[dtype] = dict(Y=Y_hr, alphas=a_hr, vals=v_hr, iterations=k,
                          launches=counts["apply_stencil"], residual=res,
                          ms_first=t_s.elapsed_time(t_e))
-        say(f"  {dtype}: {k} PCG iterations, {counts['apply_stencil']} K1 "
-            f"launches ({counts}), true relative residual max {res:.3e}, "
+        say(f"  {dtype}: {k} PCG iterations, launches {counts}, true "
+            f"relative residual max {res:.3e}, "
             f"{hr[dtype]['ms_first']:.1f} ms (first call)")
-        if counts["apply_stencil"] != mg_launches(k) \
-                or sum(counts.values()) != counts["apply_stencil"]:
-            raise AssertionError(f"MG solve launches {counts}, expected "
-                                 f"{mg_launches(k)} of K1 only")
+        check_launches(f"the MG solve {dtype}", counts, mg_rows(
+            None, solver_hr.mg, MG_NODES, X_hr.shape[0],
+            str(dtype).split(".")[-1], k))
         if not bool(torch.isfinite(Y_hr).all()) or not 0 < k < 60:
             raise AssertionError(f"MG labels not finite or {k} iterations")
     if not hr[torch.float32]["residual"] <= F32_FLOOR \
@@ -4762,28 +4906,20 @@ def main() -> int:
         f"{TOL_F64:g}")
     if not hr_rel32 <= F32_FLOOR:
         raise AssertionError("f32 highres labels far from the f64 labels")
-    # K1 at every V-cycle level of this batch (the fine level and the
-    # coarse ones), bit for bit against its plain version
+    # the V-cycle's steps on every level of this batch, bit for bit
+    # against their plain versions
     for dtype in hr:
-        mg = dataclasses.replace(solver_hr.mg,
-                                 dtype=str(dtype).split(".")[-1])
-        shapes = []
-        for coefs, _, mask in mg.setup(hr[dtype]["alphas"]):
-            v = torch.randn(coefs.shape[1:], generator=gen,
-                            dtype=dtype).cuda()
-            got = apply_stencil(coefs, v, mask)
-            if not torch.equal(got, apply_stencil_reference(coefs, v, mask)):
-                raise AssertionError(f"apply_stencil differs from its plain "
-                                     f"version at {tuple(v.shape)} {dtype}")
-            shapes.append(tuple(v.shape))
-        say(f"  K1 bit-equal to its plain version on every V-cycle level "
-            f"{dtype}: {shapes}")
-    with plain_applies():
-        before = apply_stencil.launches
+        shapes = vcycle_levels_check(dataclasses.replace(
+            solver_hr.mg, dtype=str(dtype).split(".")[-1]),
+            hr[dtype]["alphas"], gen)
+        say(f"  the V-cycle's steps bit-equal to their plain versions on "
+            f"every level {dtype}: {shapes}")
+    with plain_applies() as plain:
         Y_plain_hr = fom_hr.solve_batched(hr[torch.float32]["alphas"],
                                           hr[torch.float32]["vals"])
-        if apply_stencil.launches != before:
-            raise AssertionError("the plain-path MG solve launched the kernel")
+    if plain.launched:
+        raise AssertionError(f"the plain-path MG solve launched "
+                             f"{plain.launched}")
     k_plain = fom_hr.last_iterations
     path_err = ((Y32 - Y_plain_hr).abs().max() / Y_plain_hr.abs().max()
                 ).item()
@@ -4836,15 +4972,16 @@ def main() -> int:
     _, ga, gb, mg_solver = solve_grads(fom_hr, a64, v64, w_hr, False)
     counts = end_path("7b MG VJP")
     k, kadj = mg_solver.iterations, mg_solver.adjoint_iterations
-    mg_vjp_launches = mg_launches(k) + mg_launches(kadj)
-    say(f"  {k} forward + {kadj} adjoint iterations, launches {counts} "
-        f"(expected {mg_vjp_launches} of K1)")
-    if counts["apply_stencil"] != mg_vjp_launches \
-            or sum(counts.values()) != mg_vjp_launches:
-        raise AssertionError("MG VJP launches differ from the count of its "
-                             "applies")
-    with plain_applies():
+    say(f"  {k} forward + {kadj} adjoint iterations, launches {counts}")
+    check_launches("the MG VJP", counts, [
+        r for n in (k, kadj) for r in mg_rows(
+            "7b MG VJP", mg_solver.mg, MG_NODES, HR_VJP_B, "float64", n)])
+    mg_vjp_launches = counts
+    with plain_applies() as plain:
         _, pa, pb, _ = solve_grads(fom_hr, a64, v64, w_hr, False)
+    if plain.launched:
+        raise AssertionError(f"the plain-path MG VJP launched "
+                             f"{plain.launched}")
     err = max(rel_diff(ga, pa), rel_diff(gb, pb))
     say(f"  kernel path vs plain path: max rel diff {err:.3e} (tolerance "
         f"{VJP_PATH_RTOL:g})")
@@ -5009,9 +5146,9 @@ def main() -> int:
     d17, c17 = phase17_options(card, c10.pop("resumed"), dl, dlu,
                                start_path, end_path)
 
-    # ------------------------------ 8. K1 and K2 at every main-path shape
-    say("phase 8: K1 and K2 at every shape of the main paths: launches, "
-        "bit-equality, times; K3's launches per shape")
+    # ------------- 8. K1, K2 and the V-cycle's steps at every main-path shape
+    say("phase 8: K1, K2 and the V-cycle's steps at every shape of the "
+        "main paths: launches, bit-equality, times; K3's launches per shape")
     mg = solver_hr.mg
     if mg.num_levels != len(MG_NODES):
         raise AssertionError(f"the V-cycle has {mg.num_levels} levels")
@@ -5044,26 +5181,22 @@ def main() -> int:
                   ("7c highres train", len(dl_t.X), "float64",
                    hr_train_label_iters)]
     for path, B, dname, k in mg_solves:
-        for nodes, count in zip(MG_NODES, mg_by_level(mg, k)):
-            derived.append((path, "apply_stencil", nodes, B, dname, count))
+        derived += mg_rows(path, mg, MG_NODES, B, dname, k)
     for k in c3_label_iters:
-        for nodes, count in zip(MG128_NODES, mg_by_level(mg_c3, k)):
-            derived.append(("9 config3 train", "apply_stencil", nodes,
-                            C3_LABEL_BATCH, "float64", count))
+        derived += mg_rows("9 config3 train", mg_c3, MG128_NODES,
+                           C3_LABEL_BATCH, "float64", k)
     # config 2: its label dispatch under the V-cycle, and one constraint
     # assembly at set-up and one per refresh on the 64 VO fields
     for k in c2["label_iterations"]:
-        for nodes, count in zip(MG_NODES, mg_by_level(c2["mg"], k)):
-            derived.append(("10d config2", "apply_stencil", nodes,
-                            C2_LABEL_BATCH, "float64", count))
+        derived += mg_rows("10d config2", c2["mg"], MG_NODES, C2_LABEL_BATCH,
+                           "float64", k)
     derived.append(("10d config2", "apply_stencil", MG_NODES[0], C2_VO,
                     "float32",
                     c2["k1_per_assembly"] * (1 + len(c2["refreshes"]))))
     # config 5: the cold and the warm sweep, each one MG-PCG of all systems
     for k in c5["iterations"].values():
-        for nodes, count in zip(MG_NODES, mg_by_level(c5["mg"], k)):
-            derived.append(("11 config5 sweep", "apply_stencil", nodes,
-                            C5_SYSTEMS, "float32", count))
+        derived += mg_rows("11 config5 sweep", c5["mg"], MG_NODES,
+                           C5_SYSTEMS, "float32", k)
     # configs 4 and 512: their label dispatches under the 7- and 8-level
     # V-cycles
     for path, cfg, nodes, B in (("12 config4", c4, MG256_NODES,
@@ -5071,9 +5204,7 @@ def main() -> int:
                                 ("13 config512", c512, MG512_NODES,
                                  C512_LABEL_BATCH)):
         for k in cfg["label_iterations"]:
-            for n, count in zip(nodes, mg_by_level(cfg["mg"], k)):
-                derived.append((path, "apply_stencil", n, B, "float64",
-                                count))
+            derived += mg_rows(path, cfg["mg"], nodes, B, "float64", k)
     # the VO configs: their label dispatches, and the VO applies on the 64
     # VO fields (energy: per update; constrain: an assembly at set-up and
     # one per refresh)
@@ -5081,9 +5212,8 @@ def main() -> int:
         path = f"14 config{c}"
         levels = MG_NODES if cfg["nodes"] == MG_NODES[0] else MG128_NODES
         for k in cfg["label_iterations"]:
-            for n, count in zip(levels, mg_by_level(cfg["mg"], k)):
-                derived.append((path, "apply_stencil", n, cfg["label_batch"],
-                                "float64", count))
+            derived += mg_rows(path, cfg["mg"], levels, cfg["label_batch"],
+                               "float64", k)
         derived.append((path, "apply_stencil", cfg["nodes"], C2_VO,
                         "float32", cfg["k1_per_refresh"]
                         * (len(cfg["refreshes"]) + (not cfg["energy"]))))
@@ -5101,14 +5231,10 @@ def main() -> int:
     derived.append((K3_CHAIN_PATH, k3, *K3_SHAPES[0], K3_CHAIN))
     shape_launches = {}
     for path, counts in path_launches.items():
-        for kname in (*STENCIL_SHAPES, k3):
-            got = sum(r[5] for r in derived if r[0] == path and r[1] == kname)
-            if got != counts[kname]:
-                raise AssertionError(f"path {path!r}: {kname} launched "
-                                     f"{counts[kname]} times, the iteration "
-                                     f"counts give {got}")
+        check_launches(f"path {path!r}", counts,
+                       [r for r in derived if r[0] == path])
     for _, kname, nodes, B, dname, count in derived:
-        if kname == k3:
+        if kname == k3 or not count:
             continue
         key = (kname, nodes, B, dname)
         shape_launches[key] = shape_launches.get(key, 0) + count
@@ -5124,11 +5250,12 @@ def main() -> int:
             and d[2:5] == (r["shape"][0], r["shape"][2], r["dtype"]))
     say("  K3 launches per shape outside the chain: "
         f"{[(tuple(r['shape']), r['dtype'], r['launches']) for r in k3_rows]}")
-    listed = {(k, *sh) for k, shapes in STENCIL_SHAPES.items()
+    listed = {(k, *sh) for k, shapes in (*STENCIL_SHAPES.items(),
+                                         *VCYCLE_SHAPES.items())
               for sh in shapes}
     if set(shape_launches) != listed:
         raise AssertionError(f"main-path shapes {sorted(shape_launches)} "
-                             f"differ from STENCIL_SHAPES")
+                             f"differ from STENCIL_SHAPES and VCYCLE_SHAPES")
     say(f"  launches per shape sum to each path's count: {shape_launches}")
     cgen = torch.Generator(device="cuda").manual_seed(8)
     kern = {"apply_stencil": (apply_stencil, apply_stencil_reference),
@@ -5164,6 +5291,10 @@ def main() -> int:
                 share_of_bound=bound / t_c,
                 excess_ms=launches * (t_c - bound)))
             del coefs, v, mask, ref, got
+    for kname, (rows, times) in vcycle_shape_rows(shape_launches, mg, cgen,
+                                                  flush).items():
+        shape_rows[kname], timing[kname] = rows, times
+        errors[kname] = (0.0, 0.0)  # bit-equal at every shape
     ranked = sorted((r | {"kernel": k} for k, rs in shape_rows.items()
                      for r in rs), key=lambda r: -r["excess_ms"])
     say("  ranked by launches x (clean time - HBM byte bound), all "
@@ -5216,11 +5347,11 @@ def main() -> int:
               "refresh_ms", "propagation_ms", "resample_ms",
               "conditioning_ms")},
           "config5_mg": {k: c5[k] for k in (
-              "iterations", "launches_per_level", "seconds")},
+              "iterations", "launches", "seconds")},
           **{f"config{name}_mg": {
               "label_ms": cfg["label_ms"],
               "pcg_iterations": cfg["label_iterations"],
-              "launches_per_level": cfg["launches_per_level"],
+              "launches": cfg["launches"],
               "true_residual": cfg["label_residual"]}
              for name, cfg in (("4", c4), ("512", c512))},
           **{f"config{c}_vo": {
@@ -5256,13 +5387,19 @@ def main() -> int:
          "_make_sym_blocked_kernel",
          {"shapes": k3_rows,
           "ms_l2_clean": timing["apply_stencil_sym_blocked"]["ms_l2_clean"]}),
+        # the V-cycle's steps, no TPU counterpart (the JAX package's
+        # V-cycle is XLA operations); times at config 5's levels in f32
+        *((name, "vcycle.cuh", None, None,
+           {"launches_per_cycle": mg.launches_per_cycle,
+            "timed_at": {k: timing[name][k] for k in ("shape", "dtype")}})
+          for name in FUSED),
     ]
     kernels = {"kernels": [{
         "name": name,
         "route": "cuda",
         "source": src + source,
         "replaces": replaces,
-        "tpu": f"ops/stencil.py:{body}",
+        "tpu": None if body is None else f"ops/stencil.py:{body}",
         "launches": main_launches[name],
         "launches_by_path": {p: c[name] for p, c in path_launches.items()},
         **({"shapes": shape_rows[name]} if name in shape_rows else {}),

@@ -10,16 +10,19 @@ closed-form stencils as the fine operator --
 * transfer: linear P1 interpolation along the triangulation diagonal and
   its transpose,
 
-on batch-last ``(Ny, Nx, B)`` arrays.  Every smoother sweep and every
-residual is the masked 7-point apply ``mask * K z``, i.e. the function of
-kernel K1, so each goes through ``ops.stencil.apply_stencil``: the
-hand-written CUDA kernel on a card, its plain version on the CPU.  The
-V-cycle runs in its own ``dtype``, bfloat16, float32 or float64, as the
-reference's does: levels, smoother, transfers and coarse sweeps all in that
-dtype, the residual cast in and the correction cast back.  In bfloat16 K1
-forms its sums in f32 and rounds once (``ops/stencil.py``).  The
-reference's ``optimization_barrier`` fences are left out: they keep XLA
-from fusing the V-cycle into kernels that fault a TPU runtime.
+on batch-last ``(Ny, Nx, B)`` arrays.  Each step of a level goes through
+``ops.vcycle``: the pre-smoothing pair, the residual with its restriction,
+the prolongation with the correction and the first post-sweep, and the
+second post-sweep are one hand-written kernel each on a card, the coarsest
+level's sweeps one more; on the CPU each runs its plain version, the
+written-out operations (K1's plain apply, ``_restrict``, ``_prolong``).
+The V-cycle runs in its own ``dtype``, bfloat16, float32 or float64, as
+the reference's does: levels, smoother, transfers and coarse sweeps all in
+that dtype, the residual cast in and the correction cast back.  In
+bfloat16 each step widens its inputs to f32, computes there and rounds its
+output once (``ops/vcycle.py``).  The reference's ``optimization_barrier``
+fences are left out: they keep XLA from fusing the V-cycle into kernels
+that fault a TPU runtime.
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ import torch.nn.functional as F
 from .grid import StructuredTriGrid
 from .assembly import StencilOperator
 from .bc import DirichletProfile
-from ..ops.stencil import apply_stencil
+from ..ops.vcycle import (vcycle_coarse, vcycle_correct, vcycle_presmooth,
+                          vcycle_restrict, vcycle_smooth)
 from ..utils.time import span
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -127,12 +131,14 @@ class MultigridPreconditioner:
         return cls(grid=grid, num_levels=levels, **kw)
 
     @property
-    def applies_per_cycle(self) -> int:
-        """Stencil applies (K1 launches on a card) of one V-cycle: the
-        pre- and post-smoothing sweeps and the residual on every level
-        above the coarsest, the coarse sweeps on the coarsest."""
-        return (self.num_levels - 1) * (self.nu_pre + 1 + self.nu_post) \
-            + self.nu_coarse
+    def launches_per_cycle(self) -> int:
+        """Kernel launches of one V-cycle on a card: on every level above
+        the coarsest the pre-smoothing pair (and one a further pre-sweep),
+        the residual with its restriction, the correction with the first
+        post-sweep (and one a further post-sweep); one on the coarsest.
+        4 (L - 1) + 1 at the default sweeps."""
+        return (self.num_levels - 1) * (3 + max(self.nu_pre - 2, 0)
+                                        + max(self.nu_post - 1, 0)) + 1
 
     def _level_static(self) -> List[Tuple[StencilOperator, np.ndarray]]:
         ops = []
@@ -145,8 +151,9 @@ class MultigridPreconditioner:
         return ops
 
     def setup(self, alphas: torch.Tensor):
-        """alphas (B, n_cells) -> per-level (coefs, inv_diag, mask), coefs
-        contiguous (7, Ny, Nx, B) batch-last, all in ``self.dtype``."""
+        """alphas (B, n_cells) -> per-level (coefs, mask), coefs contiguous
+        (7, Ny, Nx, B) batch-last, both in ``self.dtype``.  The smoother's
+        ``mask / coefs[0]`` is formed from them where it is used."""
         statics = self._level_static()
         B = alphas.shape[0]
         dt = _DTYPES[self.dtype]
@@ -156,12 +163,8 @@ class MultigridPreconditioner:
         for li, (op, mask_np) in enumerate(statics):
             coefs = op.coefficients(a.permute(3, 0, 1, 2).reshape(B, -1))
             coefs = coefs.permute(1, 2, 3, 0)
-            mask = torch.as_tensor(mask_np, dtype=alphas.dtype,
-                                   device=alphas.device)
-            diag = coefs[0]
-            inv_diag = mask / torch.where(diag <= 0, 1.0, diag)
-            levels.append((coefs.to(dt).contiguous(), inv_diag.to(dt),
-                           mask.to(dt)))
+            mask = torch.as_tensor(mask_np, dtype=dt, device=alphas.device)
+            levels.append((coefs.to(dt).contiguous(), mask))
             if li + 1 < len(statics):  # a coarser level follows
                 a = _coarsen_alpha_cellgrid(a)
         return levels
@@ -171,29 +174,24 @@ class MultigridPreconditioner:
         in ``self.dtype`` and returned in r's dtype."""
         out_dtype = r.dtype
         r = r.to(_DTYPES[self.dtype])
-        omega = self.omega
-
-        def smooth(coefs, inv_diag, mask, z, r, nu):
-            for _ in range(nu):
-                z = z + omega * inv_diag * (r - apply_stencil(coefs, z, mask))
-            return z
+        omega, last = self.omega, len(levels) - 1
 
         def vcycle(li, r):
-            coefs, inv_diag, mask = levels[li]
-            if li == len(levels) - 1:
-                return smooth(coefs, inv_diag, mask, torch.zeros_like(r), r,
-                              self.nu_coarse)
-            z = smooth(coefs, inv_diag, mask, torch.zeros_like(r), r,
-                       self.nu_pre)
-            resid = mask * (r - apply_stencil(coefs, z, mask))
-            coarse_mask = levels[li + 1][2]
-            rc = (coarse_mask * _restrict(resid)).contiguous()
+            coefs, mask = levels[li]
+            if li == last:
+                return vcycle_coarse(coefs, mask, r, omega, self.nu_coarse)
+            z = vcycle_presmooth(coefs, mask, r, omega, min(self.nu_pre, 2))
+            for _ in range(self.nu_pre - 2):
+                z = vcycle_smooth(coefs, mask, r, z, omega)
+            rc = vcycle_restrict(coefs, mask, r, z, levels[li + 1][1])
             with span(_LEVEL_SPANS[li + 1]):
                 ec = vcycle(li + 1, rc)
-            z = z + mask * _prolong(ec)
-            return smooth(coefs, inv_diag, mask, z, r, self.nu_post)
+            z = vcycle_correct(coefs, mask, r, z, ec, omega,
+                               min(self.nu_post, 1))
+            for _ in range(self.nu_post - 1):
+                z = vcycle_smooth(coefs, mask, r, z, omega)
+            return z
 
         with span(_LEVEL_SPANS[0]):
             z = vcycle(0, r.contiguous())
         return z.to(out_dtype)
-

@@ -24,7 +24,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 # library: (source, the csrc/ headers it includes)
-SOURCES = {"stencil": (CSRC / "stencil.cu", ("stencil_tile.cuh",)),
+SOURCES = {"stencil": (CSRC / "stencil.cu",
+                       ("stencil_tile.cuh", "vcycle.cuh")),
            "stencil_sym": (CSRC / "stencil_sym.cu",
                            ("stencil_sym.cuh", "stencil_tile.cuh")),
            "stencil_sym_blocked": (CSRC / "stencil_sym_blocked.cu",

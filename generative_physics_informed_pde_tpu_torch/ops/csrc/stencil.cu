@@ -52,6 +52,7 @@
 #include <cstdint>
 
 #include "stencil_tile.cuh"
+#include "vcycle.cuh"
 
 namespace {
 

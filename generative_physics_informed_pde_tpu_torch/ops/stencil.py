@@ -44,7 +44,9 @@ import numpy as np
 import torch
 
 _DTYPE_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-# K1 alone also runs in bfloat16 (the V-cycle's 7-grid applies)
+# K1 alone also has a bfloat16 kernel, which no path launches: the
+# bf16 V-cycle runs in the steps of ``ops/vcycle.py``, whose symbols take
+# their suffixes from this map too
 _K1_DTYPE_SUFFIX = {**_DTYPE_SUFFIX, torch.bfloat16: "bf16"}
 
 

@@ -13,7 +13,7 @@ import torch
 from generative_physics_informed_pde_tpu_torch import fem
 from generative_physics_informed_pde_tpu_torch.fem import batched_solver
 from generative_physics_informed_pde_tpu_torch.fem import multigrid
-from generative_physics_informed_pde_tpu_torch.ops import stencil
+from generative_physics_informed_pde_tpu_torch.ops import stencil, vcycle
 from generative_physics_informed_pde_tpu_torch.ops import (
     apply_stencil, apply_stencil_reference, apply_stencil_sym,
     apply_stencil_sym_blocked, apply_stencil_sym_blocked_reference,
@@ -156,10 +156,28 @@ def test_stencil_sym_blocked_kernel_matches_plain_version(n, B, dtype):
     assert torch.equal(got[1:-1, 1:-1], k2)
 
 
+_VCYCLE_STEPS = ("presmooth", "restrict", "correct", "smooth", "coarse")
+
+
+def _vcycle_launches():
+    return sum(getattr(vcycle, f"vcycle_{s}").launches
+               for s in _VCYCLE_STEPS)
+
+
+def _plain_vcycle(monkeypatch):
+    """The V-cycle's steps on their plain versions (on the card's
+    tensors)."""
+    for s in _VCYCLE_STEPS:
+        monkeypatch.setattr(multigrid, f"vcycle_{s}",
+                            getattr(vcycle, f"vcycle_{s}_reference"))
+
+
 @pytest.mark.cuda
 def test_mg_solve_on_the_kernel_matches_the_plain_path(monkeypatch):
-    """f64 MG-PCG solve and VJP at 64^2, B=32: every V-cycle sweep and
-    residual launches K1; the kernel path equals the plain path to 1e-12."""
+    """f64 MG-PCG solve and VJP at 64^2, B=32: the rhs, every matvec and
+    the adjoint's K lambda launch K1, every V-cycle its fused kernels
+    (``launches_per_cycle`` of them, no K1); the kernel path equals the
+    plain path to 1e-12."""
     _need_cuda()
     phys = fem.make_fom_rom_pair("ND", 8, 8, 3, device="cuda")
     fom = phys["fom"]
@@ -177,17 +195,18 @@ def test_mg_solve_on_the_kernel_matches_the_plain_path(monkeypatch):
         (w * solve(a, b)).sum().backward()
         return a.grad, b.grad, solve
 
-    before = apply_stencil.launches
+    before, vbefore = apply_stencil.launches, _vcycle_launches()
     ga, gb, solve = grads()
-    per_cycle = solve.mg.applies_per_cycle
+    per_cycle = solve.mg.launches_per_cycle
     k, kadj = solve.iterations, solve.adjoint_iterations
-    # rhs + per iteration one matvec and one V-cycle, plus the first
-    # V-cycle; the adjoint the same with K lambda in place of the rhs
-    assert apply_stencil.launches - before == \
-        (1 + k + (k + 1) * per_cycle) + (1 + kadj + (kadj + 1) * per_cycle)
+    # K1: the rhs and one matvec per iteration; the adjoint the same with
+    # K lambda in place of the rhs.  The V-cycle: one per iteration and
+    # one first, in each solve
+    assert apply_stencil.launches - before == (1 + k) + (1 + kadj)
+    assert _vcycle_launches() - vbefore == (k + 1 + kadj + 1) * per_cycle
     monkeypatch.setattr(batched_solver, "apply_stencil",
                         apply_stencil_reference)
-    monkeypatch.setattr(multigrid, "apply_stencil", apply_stencil_reference)
+    _plain_vcycle(monkeypatch)
     pa, pb, _ = grads()
     for got, ref in ((ga, pa), (gb, pb)):
         assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-12
@@ -873,9 +892,9 @@ def test_k1_bf16_kernel_keeps_inf_and_nan_at_the_edge():
 @pytest.mark.cuda
 def test_bf16_vcycle_solve_on_the_kernel(monkeypatch):
     """An f32 MG-PCG solve at 64^2, B=64, preconditioned by the bf16
-    V-cycle: every V-cycle apply launches K1 in bf16, the outer matvec in
-    f32; the solve equals the plain path's and its true residual is within
-    the f32 floor."""
+    V-cycle: every V-cycle step launches its fused kernel in bf16, the
+    outer matvec K1 in f32; the solve equals the plain path's and its true
+    residual is within the f32 floor."""
     _need_cuda()
     phys = fem.make_fom_rom_pair("ND", 8, 8, 3, device="cuda")
     fom = phys["fom"]
@@ -891,17 +910,25 @@ def test_bf16_vcycle_solve_on_the_kernel(monkeypatch):
         dtypes.append(v.dtype)
         return real(name, library, coefs, v, mask, sym)
 
+    vdtypes = []
+    vreal = vcycle._launch
+
+    def vlaunch(step, coefs, mask, r, *args, **kw):
+        vdtypes.append(r.dtype)
+        return vreal(step, coefs, mask, r, *args, **kw)
+
     monkeypatch.setattr(stencil, "_launch", launch)
+    monkeypatch.setattr(vcycle, "_launch", vlaunch)
     solve = batched_solver.make_batched_fom_solver(
         fom.op, fom.profile, precond="mg", precond_dtype="bfloat16")
     Y = solve(alphas, vals)
     torch.cuda.synchronize()
-    k, per_cycle = solve.iterations, solve.mg.applies_per_cycle
-    assert dtypes.count(torch.float32) == 1 + k
-    assert dtypes.count(torch.bfloat16) == (k + 1) * per_cycle
+    k, per_cycle = solve.iterations, solve.mg.launches_per_cycle
+    assert dtypes == [torch.float32] * (1 + k)
+    assert vdtypes == [torch.bfloat16] * ((k + 1) * per_cycle)
     monkeypatch.setattr(batched_solver, "apply_stencil",
                         apply_stencil_reference)
-    monkeypatch.setattr(multigrid, "apply_stencil", apply_stencil_reference)
+    _plain_vcycle(monkeypatch)
     plain = batched_solver.make_batched_fom_solver(
         fom.op, fom.profile, precond="mg", precond_dtype="bfloat16")
     assert torch.equal(Y, plain(alphas, vals)) and plain.iterations == k
@@ -957,3 +984,79 @@ def test_bundle_for_cuda_and_cpu_serves_on_both(tmp_path):
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = tf32
+
+
+def _vcycle_case(ny, nx, B, dtype, seed):
+    """The V-cycle's levels of an nx x ny 'ND' grid for B lognormal fields
+    on the card, with a masked r and z per level."""
+    grid = fem.StructuredTriGrid(nx, ny)
+    mg = multigrid.MultigridPreconditioner.for_grid(
+        grid, dtype=str(dtype).removeprefix("torch."))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    alphas = torch.exp(torch.randn(B, grid.n_cells, generator=g,
+                                   device="cuda"))
+    levels = mg.setup(alphas)
+    rz = [tuple((torch.randn(m.shape[0], m.shape[1], B, generator=g,
+                             device="cuda") * m).to(dtype)
+                for _ in range(2)) for _, m in levels]
+    return mg, levels, rz
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ny,nx,B,dtype", [
+    (64, 64, 16384, torch.float32), (128, 128, 128, torch.float64),
+    (64, 64, 256, torch.bfloat16), (16, 32, 3, torch.float32),
+    (32, 16, 257, torch.float64), (16, 32, 37, torch.bfloat16),
+    (64, 64, 8, torch.float64)])
+def test_vcycle_kernels_bit_equal_to_their_plain_versions(ny, nx, B, dtype):
+    """Each fused step on every level it runs on (the coarse step on every
+    level, the smoothing ones with each sweep count) against its plain
+    version on the same tensors: equal bit for bit (bf16 too: both sum in
+    f32 and round once); config 5's (65..5, 16384) f32, config 3's labels'
+    (129..5, 128) f64 and the bf16 V-cycle's levels, non-square grids whose
+    edge tiles are cut short, odd B, and a coarse grid whose z buffers do
+    not fit shared memory ((65, 65, 8) f64)."""
+    _need_cuda()
+    mg, levels, rz = _vcycle_case(ny, nx, B, dtype, seed=ny + nx + B)
+    w = mg.omega
+    for li, ((c, m), (r, z)) in enumerate(zip(levels, rz)):
+        calls = [("coarse", (c, m, r, w, mg.nu_coarse)),
+                 ("smooth", (c, m, r, z, w))]
+        calls += [("presmooth", (c, m, r, w, k)) for k in (0, 1, 2)]
+        if li + 1 < len(levels):
+            cm, ec = levels[li + 1][1], rz[li + 1][1]
+            calls += [("restrict", (c, m, r, z, cm))]
+            calls += [("correct", (c, m, r, z, ec, w, k)) for k in (0, 1)]
+        for step, args in calls:
+            kernel = getattr(vcycle, f"vcycle_{step}")
+            plain = getattr(vcycle, f"vcycle_{step}_reference")
+            before = kernel.launches
+            got = kernel(*args)
+            torch.cuda.synchronize()
+            assert kernel.launches == before + 1
+            want = plain(*args)
+            assert got.shape == want.shape and got.dtype == want.dtype
+            assert torch.equal(_bits(got), _bits(want)), \
+                (step, li, tuple(r.shape), args[-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,B,dtype", [(64, 16384, torch.float32),
+                                       (128, 128, torch.float64),
+                                       (512, 8, torch.float64)])
+def test_vcycle_on_the_card_launches_four_a_level_and_no_k1(n, B, dtype,
+                                                            monkeypatch):
+    """One V-cycle on the card: 4 (L - 1) + 1 launches of the fused
+    kernels, none of K1, equal to the plain V-cycle bit for bit."""
+    _need_cuda()
+    mg, levels, rz = _vcycle_case(n, n, B, dtype, seed=n)
+    r = rz[0][0]
+    k1, before = apply_stencil.launches, _vcycle_launches()
+    z = mg.apply(levels, r)
+    torch.cuda.synchronize()
+    L = mg.num_levels
+    assert _vcycle_launches() - before == mg.launches_per_cycle \
+        == 4 * (L - 1) + 1
+    assert apply_stencil.launches == k1
+    _plain_vcycle(monkeypatch)
+    assert torch.equal(_bits(z), _bits(mg.apply(levels, r)))

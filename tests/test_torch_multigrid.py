@@ -11,8 +11,10 @@ solver's preconditioner gate against the JAX package.
   ``tests/test_multigrid.py::test_auto_precond_envelope`` holds them, the
   iteration cap under multigrid and the V-cycle's dtype.
 
-On the CPU every smoother sweep and residual runs K1's plain version; on a
-card the same calls launch the CUDA kernel (``tests/test_torch_cuda.py``).
+On the CPU every V-cycle step runs its plain version (``ops/vcycle.py``:
+K1's plain apply, ``_restrict``, ``_prolong``); on a card the same calls
+launch the fused kernels (``tests/test_torch_cuda.py``,
+``tests/test_torch_vcycle_fused.py``).
 """
 
 import types
@@ -59,7 +61,8 @@ def test_level_counts_match_jax(nx, ny, levels):
     t = tmg.MultigridPreconditioner.for_grid(tfem.StructuredTriGrid(nx, ny))
     j = jmg.MultigridPreconditioner.for_grid(jfem.StructuredTriGrid(nx, ny))
     assert t.num_levels == j.num_levels == levels
-    assert t.applies_per_cycle == (levels - 1) * 5 + 24
+    # the V-cycle's launches on a card: four a level and one coarsest
+    assert t.launches_per_cycle == (levels - 1) * 4 + 1
 
 
 @pytest.mark.parametrize("n", [16, 32])

@@ -13,15 +13,17 @@ JAX package.
   the JAX package's Pallas kernel (interpret mode) and its XLA apply on the
   same bf16 inputs, which round at every step: within 2 bf16 ulps of the
   max (2^-6; measured 5.3e-3), and within half an ulp of the exact sum.
-* The bf16 V-cycle: levels bit-equal to the JAX package's, one apply
-  within 4 bf16 ulps of the max (2^-5; measured 9.7e-3: the two round K1
-  differently), every K1 call of it in bf16 and the outer matvec in f32.
+* The bf16 V-cycle: the levels' coefficients and masks bit-equal to the
+  JAX package's (the port stores no inverse diagonal), one apply within 4
+  bf16 ulps of the max (2^-5; measured 9.7e-3: the JAX package rounds at
+  every step, the port's fused steps once an output), every step of it in
+  bf16 and the outer matvec in f32.
 * A bf16-preconditioned f32 solve of high-contrast fields (lognormal
   sigma = 1.3, the JAX test's case at 32^2): true residual < 10 tol and
   the solution within 1e-4 of the JAX package's (measured 4.5e-6).
 
-On a card K1's bf16 kernel is held to this plain version bit for bit by
-``tests/test_torch_cuda.py`` and ``chip_smoke.py`` phase 17.
+On a card K1's bf16 kernel and the V-cycle's bf16 kernels are held to
+their plain versions bit for bit by ``tests/test_torch_cuda.py``.
 """
 
 import numpy as np
@@ -246,25 +248,26 @@ def test_bf16_vcycle_matches_jax(monkeypatch):
     tm = tmg.MultigridPreconditioner.for_grid(tphys.grid, dtype="bfloat16")
     jl = jax.jit(jm.setup)(jnp.asarray(alphas))
     tl = tm.setup(torch.as_tensor(alphas))
-    for jlev, tlev in zip(jl, tl):
-        assert tlev[0].is_contiguous()  # K1's coefficients
-        for x, y in zip(jlev, tlev):
+    for (jc, _, jmask), tlev in zip(jl, tl):
+        assert tlev[0].is_contiguous()  # the kernels' coefficients
+        # the port's levels hold no inverse diagonal: the steps form it
+        for x, y in zip((jc, jmask), tlev):
             assert y.dtype == torch.bfloat16
             assert np.array_equal(np.asarray(x.astype(jnp.float32)),
                                   y.float().numpy())
     mask = tphys.profile.free_mask.reshape(n + 1, n + 1, 1)
     r = (rng.normal(size=(n + 1, n + 1, B)) * mask).astype(np.float32)
     seen = []
-    real = tmg.apply_stencil
+    for name in ("vcycle_presmooth", "vcycle_restrict", "vcycle_correct",
+                 "vcycle_smooth", "vcycle_coarse"):
+        def counted(coefs, m, r, *args, _real=getattr(tmg, name)):
+            seen.append((coefs.dtype, m.dtype, r.dtype))
+            return _real(coefs, m, r, *args)
 
-    def counted(coefs, v, m):
-        seen.append((coefs.dtype, v.dtype, m.dtype))
-        return real(coefs, v, m)
-
-    monkeypatch.setattr(tmg, "apply_stencil", counted)
+        monkeypatch.setattr(tmg, name, counted)
     zt = tm.apply(tl, torch.as_tensor(r))
     assert zt.dtype == torch.float32
-    assert len(seen) == tm.applies_per_cycle
+    assert len(seen) == tm.launches_per_cycle
     assert set(seen) == {(torch.bfloat16,) * 3}
     zj = np.asarray(jax.jit(jm.apply)(jl, jnp.asarray(r)))
     assert zj.dtype == np.float32
@@ -283,11 +286,15 @@ def test_bf16_preconditioned_solve_of_high_contrast_fields(monkeypatch):
     yj = np.asarray(jsolve(jnp.asarray(alphas), jnp.asarray(vals)))
     seen = set()
     from generative_physics_informed_pde_tpu_torch.fem import batched_solver
-    for mod in (tmg, batched_solver):
-        real = mod.apply_stencil
-        monkeypatch.setattr(mod, "apply_stencil", lambda c, v, m, real=real,
-                            mod=mod: seen.add((mod.__name__, v.dtype))
-                            or real(c, v, m))
+    # the outer matvec through K1, every V-cycle step in bf16
+    for mod, name in ((batched_solver, "apply_stencil"),
+                      *((tmg, f"vcycle_{step}") for step in (
+                          "presmooth", "restrict", "correct", "smooth",
+                          "coarse"))):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda c, *args, real=real,
+                            mod=mod: seen.add((mod.__name__, c.dtype))
+                            or real(c, *args))
     solve = t_make_solver(tphys.op, tphys.profile, precond="mg",
                           precond_dtype="bfloat16", tol=tol)
     a, b = torch.as_tensor(alphas), torch.as_tensor(vals)
